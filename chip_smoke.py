@@ -1,0 +1,526 @@
+"""On-card gate of the PyTorch/CUDA port (cute_nucleotides_tpu_torch).
+
+Builds the CUDA kernels from ``cute_nucleotides_tpu_torch/csrc``, holds each
+against its plain PyTorch version bit for bit on the card, then drives the
+2-bit codec's main path at full size through the entry points a user calls:
+
+  2. each kernel vs its plain version at ragged shapes and all 256 bytes;
+  3. ``TwoBitCodec(device="cuda")`` on a resident u8[4096, 262144] batch
+     (1 Gnt): every encode variant, ``encode_checked`` and ``decode``;
+  4. ``api.n_to_bits``/``bits_to_n`` (tier "auto") on one 248,956,422-nt
+     sequence, and the nine compat names on 1 Mnt;
+  5. the CLI: FASTQ of 200,000 x 150 nt -> ``encode --batch 8192
+     --validate`` -> ``decode --batch 8192`` -> FASTA;
+  6. launch counts of phases 3-5, then each kernel's time beside its plain
+     version's (CUDA events).
+
+Phases 4 and 5 run their calls under ``torch.profiler`` (CUDA activity) and
+print the device time of the port's kernels, of copies and of other device
+work beside each call's wall time.  The script imports only the port, torch
+and numpy; the host oracle it checks against is the port's ``oracle`` tier.
+
+All data comes from seeds.  Exits non-zero, without the final line, on any
+failure or without CUDA.  Run from the repository root:
+
+    python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+import numpy as np
+
+SEED = 0x5EED
+ALPHABET = b"ACGTUacgtu"
+INVALID = (ord("N"), ord("X"), 0, 0x80, 0xFF, ord("B"), ord("n"), ord("@"))
+BATCH_ROWS, BATCH_NT = 4096, 262144  # 1 Gnt, 1 GiB in, 256 MiB of words out
+CHR1_NT = 248_956_422  # GRCh38 chr1
+MNT = 1 << 20
+CLI_READS, CLI_READ_NT, CLI_BATCH = 200_000, 150, 8192
+RAGGED = (1, 15, 16, 17, 31, 32, 33)
+REPLACES = {
+    "encode_2bit_nt4": "cute_nucleotides_tpu/ops/pallas_kernels.py:216",
+    "decode_2bit_nt4": "cute_nucleotides_tpu/ops/pallas_kernels.py:233",
+    "encode_2bit_nt4_checked": "cute_nucleotides_tpu/ops/pallas_kernels.py:301",
+    "encode_2bit_nt4_mxu": "cute_nucleotides_tpu/ops/pallas_kernels.py:819",
+}
+SOURCE = "cute_nucleotides_tpu_torch/csrc/codec2bit.cu"
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def say(line: str) -> None:
+    print(line, flush=True)
+
+
+def _i64(t):
+    """Any integer tensor (uint32 through its int32 view) -> int64 values."""
+    import torch
+
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return t.to(torch.int64)
+
+
+class Errors:
+    """Largest |kernel - plain| seen per kernel over every comparison."""
+
+    def __init__(self):
+        self.max = {name: 0 for name in REPLACES}
+        self.count = 0
+
+    def compare(self, name: str, got, want, what: str) -> None:
+        import torch
+
+        self.count += 1
+        check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        if got.numel():
+            err = int((_i64(got) - _i64(want)).abs().max())
+            self.max[name] = max(self.max[name], err)
+            check(err == 0, f"{what}: kernel differs from plain version (max abs err {err})")
+        else:
+            check(torch.equal(_i64(got), _i64(want)), what)
+
+
+# --- phase 0 / 1 --------------------------------------------------------------
+
+def phase_device():
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    say(f"phase 0 device: {name}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
+        f"{torch.cuda.device_count()} device(s); python {sys.version.split()[0]}")
+    say(card)
+    return name, card
+
+
+def phase_build():
+    from cute_nucleotides_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    say(f"phase 1 build: nvcc {' '.join(_build.NVCC_FLAGS)} {os.path.relpath(_build.CSRC_DIR)}/*.cu; "
+        f"build and load {time.perf_counter() - t0:.1f} s")
+
+
+# --- phase 2: each kernel vs its plain version ---------------------------------
+
+def phase_kernels(errors: Errors, rng) -> None:
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    alpha = np.frombuffer(ALPHABET, np.uint8)
+    dev = "cuda"
+    for lanes in RAGGED:
+        for rows in (1, 3, 64):
+            s = rng.choice(alpha, size=(rows, 4 * lanes))
+            nt4 = torch.from_numpy(s).to(dev).view(torch.uint32)
+            for v in ("mul", "shift", "interleave"):
+                errors.compare("encode_2bit_nt4", K.encode_2bit_nt4(nt4, v),
+                               K.encode_2bit_nt4_plain(nt4, v), f"encode[{v}] {rows}x{lanes}")
+            p = torch.from_numpy(rng.integers(0, 256, (rows, lanes), dtype=np.uint8)).to(dev)
+            for v in ("swar", "shuffle", "select"):
+                errors.compare("decode_2bit_nt4", K.decode_2bit_nt4(p, v),
+                               K.decode_2bit_nt4_plain(p, v), f"decode[{v}] {rows}x{lanes}")
+            # checked and pext rows hold whole 16-nt groups: C = 4 * lanes
+            s = rng.choice(alpha, size=(rows, 16 * lanes))
+            bad_rows = sorted(rng.choice(rows, size=max(rows // 3, 1), replace=False).tolist())
+            for r in bad_rows:
+                s[r, rng.integers(0, s.shape[1])] = INVALID[r % len(INVALID)]
+            nt4 = torch.from_numpy(s).to(dev).view(torch.uint32)
+            for v in ("mul", "shift", "interleave"):
+                out, flags = K.encode_2bit_nt4_checked(nt4, v)
+                pout, pflags = K.encode_2bit_nt4_checked_plain(nt4, v)
+                errors.compare("encode_2bit_nt4_checked", out, pout, f"checked[{v}] {rows}x{lanes}")
+                errors.compare("encode_2bit_nt4_checked", flags, pflags, f"checked flags[{v}]")
+                got_rows = torch.nonzero(flags.view(torch.int32)).flatten().tolist()
+                check(got_rows == bad_rows, f"checked[{v}] flags rows {got_rows} != {bad_rows}")
+            errors.compare("encode_2bit_nt4_mxu", K.encode_2bit_nt4_mxu(nt4),
+                           K.encode_2bit_nt4_mxu_plain(nt4), f"mxu {rows}x{lanes}")
+            words, flags = K.encode_2bit_nt4_mxu(nt4, checked=True)
+            pwords, pflags = K.encode_2bit_nt4_mxu_plain(nt4, checked=True)
+            errors.compare("encode_2bit_nt4_mxu", words, pwords, f"mxu checked {rows}x{lanes}")
+            errors.compare("encode_2bit_nt4_mxu", flags, pflags, f"mxu checked flags {rows}x{lanes}")
+            got_rows = torch.nonzero(flags.view(torch.int32)).flatten().tolist()
+            check(got_rows == bad_rows, f"mxu checked flags rows {got_rows} != {bad_rows}")
+    # every byte value at every position of a lane, for all four kernels
+    s = np.full((8, 2048), ord("A"), np.uint8)
+    for pos in range(4):
+        s[pos % 8, pos * 256 : (pos + 1) * 256] = np.arange(256, dtype=np.uint8)
+    s[5, 1024 : 1024 + 4 * 256 : 4] = np.arange(256, dtype=np.uint8)
+    valid = np.frombuffer(ALPHABET, np.uint8)
+    want_rows = [r for r in range(8) if np.any(~np.isin(s[r], valid))]
+    nt4 = torch.from_numpy(s).to(dev).view(torch.uint32)
+    for v in ("mul", "shift", "interleave"):
+        errors.compare("encode_2bit_nt4", K.encode_2bit_nt4(nt4, v),
+                       K.encode_2bit_nt4_plain(nt4, v), f"encode[{v}] all bytes")
+        _, flags = K.encode_2bit_nt4_checked(nt4, v)
+        got_rows = torch.nonzero(flags.view(torch.int32)).flatten().tolist()
+        check(got_rows == want_rows, f"checked[{v}] all bytes: rows {got_rows} != {want_rows}")
+    errors.compare("encode_2bit_nt4_mxu", K.encode_2bit_nt4_mxu(nt4),
+                   K.encode_2bit_nt4_mxu_plain(nt4), "mxu all bytes")
+    _, flags = K.encode_2bit_nt4_mxu(nt4, checked=True)
+    got_rows = torch.nonzero(flags.view(torch.int32)).flatten().tolist()
+    check(got_rows == want_rows, f"mxu checked all bytes: rows {got_rows} != {want_rows}")
+    p = torch.arange(256, dtype=torch.uint8, device=dev).view(2, 128)
+    for v in ("swar", "shuffle", "select"):
+        errors.compare("decode_2bit_nt4", K.decode_2bit_nt4(p, v),
+                       K.decode_2bit_nt4_plain(p, v), f"decode[{v}] all bytes")
+    # a misaligned view is refused, never copied
+    x = torch.zeros(64, dtype=torch.uint8, device=dev)[4:20].view(torch.uint32).view(1, 4)
+    try:
+        K.encode_2bit_nt4(x)
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("encode_2bit_nt4 took a view that is not 16-byte aligned")
+    torch.cuda.synchronize()
+    say(f"phase 2 kernels: {errors.count} comparisons bit-identical to the plain versions; "
+        f"max abs err {errors.max}")
+
+
+# --- phase 3: the resident 1-Gnt batch -----------------------------------------
+
+def _make_batch(seed: int):
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    lut = torch.tensor(list(ALPHABET), dtype=torch.uint8, device="cuda")
+    x = torch.empty((BATCH_ROWS, BATCH_NT), dtype=torch.uint8, device="cuda")
+    step = 256
+    for r in range(0, BATCH_ROWS, step):
+        x[r : r + step] = lut[torch.randint(0, len(ALPHABET), (step, BATCH_NT), generator=g, device="cuda")]
+    return x
+
+
+def _by_rows(fn, *tensors, step: int = 256):
+    """Apply a plain version row-chunk by row-chunk (bounds its int64 temporaries)."""
+    import torch
+
+    def cat(parts):  # uint32 through its int32 view: cat may lack uint32 on the card
+        return torch.cat([p.view(torch.int32) if p.dtype == torch.uint32 else p for p in parts])
+
+    outs = [fn(*(t[r : r + step] for t in tensors)) for r in range(0, tensors[0].shape[0], step)]
+    if isinstance(outs[0], tuple):
+        return tuple(cat(parts) for parts in zip(*outs))
+    return cat(outs)
+
+
+def _upper_t(x):
+    y = x & 0xDF
+    return y.masked_fill(y == ord("U"), ord("T"))
+
+
+def phase_batch(errors: Errors, rng):
+    import torch
+
+    from cute_nucleotides_tpu_torch import compat
+    from cute_nucleotides_tpu_torch.models import TwoBitCodec
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    x = _make_batch(SEED)
+    nt4 = x.view(torch.uint32)
+    codec = TwoBitCodec(device="cuda")
+    check(codec.tier == "cuda", f"auto on a CUDA device resolved to {codec.tier}")
+    words = codec.encode(x)
+    check(words.shape == (BATCH_ROWS, BATCH_NT // 16), f"encode shape {tuple(words.shape)}")
+    for v in ("mul", "shift", "interleave", "mxu"):
+        got = words if v == "mul" else TwoBitCodec(device="cuda", encode_variant=v).encode(x)
+        if v == "mxu":
+            want = _by_rows(K.encode_2bit_nt4_mxu_plain, nt4)
+            errors.compare("encode_2bit_nt4_mxu", got.view(torch.int32), want, "batch mxu vs plain")
+        else:
+            want = _by_rows(lambda t: K.encode_2bit_nt4_plain(t, v), nt4).view(torch.int32)
+            errors.compare("encode_2bit_nt4", got.view(torch.int32), want, f"batch {v} vs plain")
+        check(torch.equal(got.view(torch.int32), words.view(torch.int32)), f"batch {v} != mul")
+        del got, want
+    pext = TwoBitCodec(device="cuda", encode_variant="mxu")
+    checked = (("encode_2bit_nt4_checked", codec), ("encode_2bit_nt4_mxu", pext))
+    _, pflags = _by_rows(lambda t: K.encode_2bit_nt4_checked_plain(t, "mul"), nt4)
+    for kname, c in checked:
+        out, bad = c.encode_checked(x)
+        check(torch.equal(out.view(torch.int32), words.view(torch.int32)),
+              f"encode_checked[{c.encode_variant}] words != encode")
+        check(not bool(bad.any()), f"encode_checked[{c.encode_variant}] flagged a row of valid input")
+        errors.compare(kname, bad.to(torch.int64), _i64(pflags), f"batch flags[{c.encode_variant}] vs plain")
+        del out
+    # inject bad bytes into known rows, check exactly those are flagged, restore
+    bad_rows = sorted(rng.choice(BATCH_ROWS, size=37, replace=False).tolist())
+    cols = rng.integers(0, BATCH_NT, size=len(bad_rows)).tolist()
+    saved = [int(x[r, c]) for r, c in zip(bad_rows, cols)]
+    for i, (r, c) in enumerate(zip(bad_rows, cols)):
+        x[r, c] = INVALID[i % len(INVALID)]
+    _, pflags = _by_rows(lambda t: K.encode_2bit_nt4_checked_plain(t, "mul"), nt4)
+    for kname, c in checked:
+        _, bad = c.encode_checked(x)
+        got_rows = torch.nonzero(bad).flatten().tolist()
+        check(got_rows == bad_rows, f"encode_checked[{c.encode_variant}] flagged rows {got_rows[:8]}..., "
+              f"want {bad_rows[:8]}...")
+        errors.compare(kname, bad.to(torch.int64), _i64(pflags),
+                       f"injected flags[{c.encode_variant}] vs plain")
+    for (r, c), b in zip(zip(bad_rows, cols), saved):
+        x[r, c] = b
+    dec = codec.decode(words)
+    check(torch.equal(dec, _upper_t(x)), "decode(encode(x)) != upper(x) with U->T")
+    packed = words.view(torch.uint8)
+    want = _by_rows(lambda t: K.decode_2bit_nt4_plain(t, "swar"), packed)
+    errors.compare("decode_2bit_nt4", dec.view(torch.int32), want, "batch decode vs plain")
+    del want
+    for v in ("shuffle", "select"):
+        got = TwoBitCodec(device="cuda", decode_variant=v).decode(words)
+        check(torch.equal(got, dec), f"decode[{v}] != decode[swar]")
+        del got
+    flat, wflat = x.view(-1), words.view(-1)
+    for label, xs, ws in (("head", flat[:MNT], wflat[: MNT // 16]), ("tail", flat[-MNT:], wflat[-MNT // 16 :])):
+        want_w = compat.n_to_bits_lut(xs.cpu().numpy())
+        check(np.array_equal(ws.cpu().numpy().view("<u8"), want_w), f"1 Mnt {label} window != oracle")
+    torch.cuda.synchronize()
+    say(f"phase 3 batch: u8[{BATCH_ROWS}, {BATCH_NT}] encode x4 variants, encode_checked "
+        f"[mul, mxu] (clean + {len(bad_rows)} injected rows), decode x3 variants bit-identical; "
+        f"1 Mnt windows == oracle ({time.perf_counter() - t0:.1f} s)")
+    return x, words, dec
+
+
+# --- phase 4: host API and compat names ----------------------------------------
+
+def _upper_t_np(s: np.ndarray) -> np.ndarray:
+    y = s & 0xDF
+    y[y == ord("U")] = ord("T")
+    return y
+
+
+def _profiled(fn):
+    """Run fn under torch.profiler (CUDA activity only).  Returns its result,
+    the wall seconds, and the device ms of the port's kernels, of copies
+    (memcpy) and of other device work, read from ``key_averages()``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = {"kernels": 0.0, "copies": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        kind = "kernels" if "_2bit_" in ev.key else "copies" if ev.key.startswith("Memcpy") else "other"
+        device[kind] += ev.self_device_time_total / 1e3
+    return out, wall, device
+
+
+def _breakdown(wall: float, device: dict) -> str:
+    busy = sum(device.values()) / 1e3
+    if busy == 0:
+        return f"{wall:.3f} s wall; device time not measured (the profiler saw no device events)"
+    return (f"{wall:.3f} s wall; device: kernels {device['kernels']:.4f} ms, copies "
+            f"{device['copies']:.3f} ms, other {device['other']:.3f} ms; device idle "
+            f"{100 * (1 - busy / wall):.1f}% of the wall")
+
+
+def phase_api(rng) -> None:
+    from cute_nucleotides_tpu_torch import api, compat
+
+    t0 = time.perf_counter()
+    alpha = np.frombuffer(ALPHABET, np.uint8)
+    seq = alpha[rng.integers(0, len(alpha), CHR1_NT, dtype=np.uint8)]
+    words, enc_wall, enc_dev = _profiled(lambda: api.n_to_bits(seq, tier="auto"))
+    want = api.n_to_bits(seq, tier="oracle")
+    check(words.dtype == np.uint64 and np.array_equal(words, want), "chr1 n_to_bits != host oracle")
+    back, dec_wall, dec_dev = _profiled(lambda: api.bits_to_n(words, CHR1_NT, tier="auto"))
+    check(np.array_equal(back, _upper_t_np(seq)), "chr1 bits_to_n(n_to_bits(x)) != upper(x)")
+    t_chr1 = time.perf_counter() - t0
+    for n in RAGGED:
+        s = alpha[rng.integers(0, len(alpha), n)]
+        w = api.n_to_bits(s)
+        check(np.array_equal(w, api.n_to_bits(s, tier="oracle")), f"n_to_bits length {n}")
+        check(np.array_equal(api.bits_to_n(w, n), _upper_t_np(s)), f"bits_to_n length {n}")
+    check(api.n_to_bits(b"").size == 0 and api.bits_to_n(np.zeros(0, np.uint64), 0).size == 0,
+          "empty input")
+    n = MNT + 3
+    s = alpha[rng.integers(0, len(alpha), n)]
+    w = api.n_to_bits(s, tier="oracle")
+    s_ref = api.bits_to_n(w, n, tier="oracle")
+    for name in ("n_to_bits_lut", "n_to_bits_pext", "n_to_bits_shift", "n_to_bits_movemask", "n_to_bits_mul"):
+        check(np.array_equal(getattr(compat, name)(s), w), f"compat.{name} != oracle")
+    for name in ("bits_to_n_lut", "bits_to_n_shuffle", "bits_to_n_pdep", "bits_to_n_clmul"):
+        check(np.array_equal(getattr(compat, name)(w, n), s_ref), f"compat.{name} != oracle")
+    say(f"phase 4 api: chr1-length {CHR1_NT} nt encode == host oracle and round-trips "
+        f"({t_chr1:.1f} s with the checks); ragged lengths {RAGGED} ok; nine compat names == "
+        f"oracle on {n} nt")
+    say(f"  api.n_to_bits, chr1 length: {_breakdown(enc_wall, enc_dev)}")
+    say(f"  api.bits_to_n, chr1 length: {_breakdown(dec_wall, dec_dev)}")
+
+
+# --- phase 5: the CLI ----------------------------------------------------------
+
+def _write_fastq(path: str, rng) -> list[tuple[bytes, bytes]]:
+    alpha = np.frombuffer(ALPHABET, np.uint8)
+    seqs = alpha[rng.integers(0, len(alpha), (CLI_READS, CLI_READ_NT), dtype=np.uint8)]
+    qual = b"I" * CLI_READ_NT
+    records = [(b"read%d" % i, seqs[i].tobytes()) for i in range(CLI_READS)]
+    with open(path, "wb") as f:
+        f.write(b"".join(b"@%s\n%s\n+\n%s\n" % (name, s, qual) for name, s in records))
+    return records
+
+
+def _fasta(records) -> bytes:
+    """FASTA of (name, seq) records, sequence lines of 80 characters."""
+    out = io.BytesIO()
+    for name, s in records:
+        out.write(b">" + name + b"\n")
+        for i in range(0, len(s), 80):
+            out.write(s[i : i + 80] + b"\n")
+    return out.getvalue()
+
+
+def phase_cli(rng, workdir: str) -> None:
+    from cute_nucleotides_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    fq = os.path.join(workdir, "reads.fq")
+    nup, nup_oracle, fa = (os.path.join(workdir, f) for f in ("reads.nup", "oracle.nup", "reads.fa"))
+    records = _write_fastq(fq, rng)
+    rc, enc_wall, enc_dev = _profiled(lambda: cli.main(
+        ["encode", fq, nup, "--codec", "2bit", "--batch", str(CLI_BATCH), "--validate"]))
+    check(rc == 0, f"encode --batch --validate exit {rc}")
+    rc, dec_wall, dec_dev = _profiled(lambda: cli.main(["decode", nup, fa, "--batch", str(CLI_BATCH)]))
+    check(rc == 0, f"decode --batch exit {rc}")
+    want = _fasta((name, _upper_t_np(np.frombuffer(s, np.uint8).copy()).tobytes()) for name, s in records)
+    with open(fa, "rb") as f:
+        check(f.read() == want, "decoded FASTA != upper(input) with U->T")
+    rc = cli.main(["encode", fq, nup_oracle, "--codec", "2bit", "--tier", "oracle"])
+    check(rc == 0, f"encode --tier oracle exit {rc}")
+    with open(nup, "rb") as a, open(nup_oracle, "rb") as b:
+        check(a.read() == b.read(), ".nup of encode --batch differs from the per-record oracle's")
+    say(f"phase 5 cli: {CLI_READS} x {CLI_READ_NT} nt FASTQ -> encode --batch {CLI_BATCH} --validate "
+        f"-> decode --batch {CLI_BATCH} == input; .nup == oracle's ({time.perf_counter() - t0:.1f} s "
+        f"with the checks)")
+    say(f"  encode --batch {CLI_BATCH} --validate: {_breakdown(enc_wall, enc_dev)}")
+    say(f"  decode --batch {CLI_BATCH}: {_breakdown(dec_wall, dec_dev)}")
+
+
+# --- timing -------------------------------------------------------------------
+
+def _time_ms(fn, iters: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_timing(x, words, card: str) -> dict:
+    """Each kernel and its plain version at the batch's shapes, in turns."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    nt4 = x.view(torch.uint32)
+    packed = words.view(torch.uint8)
+    gib = x.numel() / 2**30  # nt per call, in Gi
+    cases = {
+        "encode_2bit_nt4": [(f"[{v}]", lambda v=v: K.encode_2bit_nt4(nt4, v),
+                             lambda v=v: K.encode_2bit_nt4_plain(nt4, v)) for v in ("mul", "shift", "interleave")],
+        "decode_2bit_nt4": [(f"[{v}]", lambda v=v: K.decode_2bit_nt4(packed, v),
+                             lambda v=v: K.decode_2bit_nt4_plain(packed, v)) for v in ("swar", "shuffle", "select")],
+        "encode_2bit_nt4_checked": [(f"[{v}]", lambda v=v: K.encode_2bit_nt4_checked(nt4, v),
+                                     lambda v=v: K.encode_2bit_nt4_checked_plain(nt4, v)) for v in ("mul",)],
+        "encode_2bit_nt4_mxu": [("[checked]" if c else "", lambda c=c: K.encode_2bit_nt4_mxu(nt4, c),
+                                 lambda c=c: K.encode_2bit_nt4_mxu_plain(nt4, c)) for c in (False, True)],
+    }
+    copy_ms = _time_ms(lambda: x.clone(), 10)
+    say(f"timing on {card}: u8[{BATCH_ROWS}, {BATCH_NT}] ({gib:.3f} Gnt); device copy of the "
+        f"batch {copy_ms:.4f} ms ({2 * gib / (copy_ms / 1e3):.1f} GiB/s read+write)")
+    times = {}
+    for name, variants in cases.items():
+        for suffix, kernel, plain in variants:
+            p1 = _time_ms(plain, 2)
+            k1 = _time_ms(kernel, 20)
+            k2 = _time_ms(kernel, 20)
+            p2 = _time_ms(plain, 2)
+            k_ms, p_ms = min(k1, k2), min(p1, p2)
+            torch.cuda.empty_cache()
+            say(f"  {name}{suffix}: kernel {k_ms:.4f} ms ({gib / (k_ms / 1e3):.1f} GiB/s of nt); "
+                f"plain {p_ms:.3f} ms ({gib / (p_ms / 1e3):.2f} GiB/s); runs {k1:.4f}/{k2:.4f} vs "
+                f"{p1:.3f}/{p2:.3f} ms")
+            times.setdefault(name, (k_ms, p_ms))  # the default variant is listed first
+    return times
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: CUDA is not available; this gate runs on a GPU", file=sys.stderr)
+        return 1
+    try:
+        from cute_nucleotides_tpu_torch.ops import _build, kernels as K
+
+        name, card = phase_device()
+        phase_build()
+        rng = np.random.default_rng(SEED)
+        errors = Errors()
+        phase_kernels(errors, rng)
+        K.reset_launch_counts()
+        x, words, dec = phase_batch(errors, rng)
+        phase_api(rng)
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+            phase_cli(rng, workdir)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+        say(f"phase 6 launches by the main path (phases 3-5): {launches}")
+        check(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
+        del dec
+        torch.cuda.empty_cache()
+        times = phase_timing(x, words, card)
+        say(json.dumps({"kernels": [
+            {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
+             "launches": launches[k], "max_abs_err": errors.max[k],
+             "ms": times[k][0], "plain_ms": times[k][1]}
+            for k in REPLACES
+        ]}))
+    except Exception:
+        traceback.print_exc()
+        print("FAIL: chip smoke failed", file=sys.stderr)
+        return 1
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                            "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,28 @@
+"""tpu-nucleotides on PyTorch and CUDA: the 2-bit nucleotide codec.
+
+The port of ``cute_nucleotides_tpu`` (the JAX package, kept as the
+reference) to PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
+(sm_90a).  Tiers: ``torch`` (eager PyTorch, any device), ``cuda`` (the
+kernels) and ``auto``.  Framework-free layers -- the bit contract
+(``ops.spec``), the host oracles and the FASTA/FASTQ readers -- are shared
+with the reference, never copied.  Nothing here imports JAX.
+"""
+
+__version__ = "0.1.0"
+
+#: tiers of the api and the CLI (models takes all but "oracle"); kept here,
+#: free of torch, so that the CLI's --help imports no torch
+TIERS = ("oracle", "torch", "cuda", "auto")
+
+_LAZY = ("api", "cli", "compat", "interop", "models", "ops")
+
+
+def __getattr__(name):
+    # torch-dependent layers load on first touch
+    if name in _LAZY:
+        import importlib
+
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,117 @@
+"""User-facing 2-bit codec API: host bytes in, u64 words out, and back.
+
+Counterpart of ``n_to_bits``/``bits_to_n`` in ``cute_nucleotides_tpu/api.py``
+with the reference's exact semantics (u64 packed words, explicit decode
+length).  Tiers:
+
+* ``oracle`` -- the host C++ oracle (``cute_nucleotides_tpu.ops.native``);
+* ``torch``  -- eager PyTorch (:mod:`.ops.eager`);
+* ``cuda``   -- the hand-written kernels (:mod:`.ops.kernels`);
+* ``auto``   -- ``cuda`` on a CUDA device, ``torch`` on the CPU.
+
+``device=None`` puts ``auto`` on the card when there is one.  The stream is
+padded with 'A' only to the kernels' 16-nt group; the pad packs to the zero
+high bits the reference leaves in its last word.  For resident batches use
+:class:`.models.TwoBitCodec`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cute_nucleotides_tpu.ops import native, oracle, spec
+
+from . import TIERS, interop, models
+from .ops import eager, kernels
+
+__all__ = ["n_to_bits", "bits_to_n"]
+
+_as_u8 = oracle._as_u8
+
+
+def _resolve(tier: str, device) -> tuple[str, torch.device | None]:
+    if tier not in TIERS:
+        raise ValueError(f"unknown tier {tier!r}; expected one of {TIERS}")
+    if tier == "oracle":
+        return tier, None
+    dev = models.resolve_device(tier, device)
+    return models.resolve_tier(tier, dev), dev
+
+
+def _validate_input(seq: np.ndarray) -> None:
+    pos = native.find_invalid(seq, allow_n=False)
+    if pos >= 0:
+        raise ValueError(
+            f"invalid byte {bytes(seq[pos:pos + 1])!r} at position {pos} "
+            "(alphabet: ACGTU, either case)"
+        )
+
+
+def _encode_words(x: torch.Tensor, tier: str, variant: str) -> torch.Tensor:
+    if tier == "cuda":
+        return kernels.encode_2bit_words(x, variant)
+    if variant == "mxu":
+        # the pext slot has no eager form of its own: the torch tier runs
+        # the plain version of its kernel
+        return kernels.encode_2bit_nt4_mxu_plain(x.view(1, -1).view(torch.uint32)).view(-1)
+    return eager.encode_2bit_words(x, variant)
+
+
+def n_to_bits(
+    seq, *, tier: str = "auto", variant: str | None = None,
+    validate: bool = False, device=None,
+) -> np.ndarray:
+    """Encode {A,C,G,T/U} bytes to 2-bit packed u64 words (LSB-first).
+
+    ``variant=None`` takes the tier's default ("dot" on torch, "mul" on
+    cuda).  ``validate=True`` raises ``ValueError`` on the first byte
+    outside the alphabet; otherwise every byte encodes as ``(byte >> 1) & 3``.
+    """
+    tier, dev = _resolve(tier, device)
+    n = _as_u8(seq)
+    if validate:
+        _validate_input(n)
+    if tier == "oracle":
+        return native.n_to_bits(n)
+    if variant is None:
+        variant = models.DEFAULT_ENCODE_VARIANT[tier]
+    if n.size == 0:
+        return np.zeros(0, dtype=np.uint64)
+    L = spec.cdiv(n.size, spec.NT_PER_U32_2BIT) * spec.NT_PER_U32_2BIT
+    x = torch.empty(L, dtype=torch.uint8, device=dev)
+    x[: n.size].copy_(interop.to_tensor(n))
+    x[n.size :].fill_(ord("A"))
+    words = _encode_words(x, tier, variant).cpu().numpy()
+    out = np.zeros(2 * spec.num_words_2bit(n.size), dtype=np.uint32)
+    out[: words.size] = words  # an odd u32 count leaves the last high half 0
+    return out.view("<u8")
+
+
+def bits_to_n(
+    bits, length: int, *, tier: str = "auto", variant: str | None = None, device=None,
+) -> np.ndarray:
+    """Decode 2-bit packed u64 words to ASCII; ``length`` = nucleotide count.
+
+    Raises ``ValueError`` when ``length`` lies outside ``[0, 32 * words]``.
+    ``variant=None`` takes the tier's default ("broadcast" on torch, "swar"
+    on cuda).
+    """
+    tier, dev = _resolve(tier, device)
+    bits = np.ascontiguousarray(bits, dtype=np.uint64)
+    if not 0 <= length <= bits.size * spec.NT_PER_WORD_2BIT:
+        raise ValueError(f"length {length} outside [0, {bits.size * spec.NT_PER_WORD_2BIT}]")
+    if tier == "oracle":
+        return native.bits_to_n(bits, length)
+    if variant is None:
+        variant = models.DEFAULT_DECODE_VARIANT[tier]
+    if length == 0:
+        return np.zeros(0, dtype=np.uint8)
+    # only the u32 words that hold the first `length` nt
+    w32 = bits.view(np.uint32)[: spec.cdiv(length, spec.NT_PER_U32_2BIT)]
+    words = interop.to_tensor(w32, dev)
+    if tier == "cuda":
+        chars = kernels.decode_2bit_bytes(words, variant)
+    else:
+        chars = eager.decode_2bit_bytes(words, variant)
+    return chars[:length].cpu().numpy()

@@ -1,0 +1,241 @@
+"""Command-line interface of the port: encode / decode / parity, 2-bit codec.
+
+Counterpart of ``encode``, ``decode`` and ``parity`` in
+``cute_nucleotides_tpu/cli.py``; it reads and writes the same ``.nup``
+container with the reference's own ``write_nup``/``read_nup``, so files are
+byte-identical between the two packages::
+
+    python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --batch 8192 --validate
+    python -m cute_nucleotides_tpu_torch decode out.nup out.fa --batch 8192
+    python -m cute_nucleotides_tpu_torch parity --tiers torch,auto
+
+``--batch N`` is the production path: batches of N reads as resident
+tensors through :class:`.models.TwoBitCodec`.  Without it each record goes
+through :mod:`.api` on its own.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+
+from cute_nucleotides_tpu.cli import _write_fasta, read_nup, write_nup
+
+from . import TIERS
+_CODECS = ("2bit",)
+
+
+def _oracle_has_no_batch_path() -> int:
+    print(
+        "error: --tier oracle has no batch device path; drop --batch "
+        "(the per-record path runs the host oracle)",
+        file=sys.stderr,
+    )
+    return 2
+
+
+def _report_invalid(name: bytes, seq: bytes, pos: int) -> int:
+    print(
+        f"error: invalid byte {seq[pos:pos + 1]!r} at {pos} in "
+        f"{name.decode(errors='replace')}",
+        file=sys.stderr,
+    )
+    return 1
+
+
+def cmd_encode(args) -> int:
+    from cute_nucleotides_tpu.ops import native, spec
+    from cute_nucleotides_tpu.utils import io as io_lib
+
+    records = list(io_lib.open_reads(args.input))
+    words_list, lengths = [], []
+    if args.validate and not args.batch:
+        for rec in records:
+            pos = native.find_invalid(rec.seq, allow_n=False)
+            if pos >= 0:
+                return _report_invalid(rec.name, rec.seq, pos)
+
+    if args.batch:
+        if args.tier == "oracle":
+            return _oracle_has_no_batch_path()
+        import torch
+
+        from .models import TwoBitCodec
+
+        codec = TwoBitCodec(tier=args.tier)
+        # batches are as wide as the longest read needs (BatchStream rounds
+        # up to whole u64 words); --max-len only bounds it
+        longest = max((len(r.seq) for r in records), default=0)
+        stream = io_lib.BatchStream(
+            records, batch_size=args.batch, max_len=max(min(longest, args.max_len), 1),
+            block=codec.block,
+        )
+        for b in stream:
+            reads = torch.from_numpy(b.reads).to(codec.device)
+            if args.validate:
+                words, bad = codec.encode_checked(reads)
+                if bool(bad.any()):
+                    # the host scan names the first bad record; the fused
+                    # check and the scan agree on every byte, so a flag the
+                    # scan cannot explain means they drifted apart
+                    for row in range(b.count):
+                        seq = bytes(b.reads[row, : int(b.lengths[row])])
+                        pos = native.find_invalid(seq, allow_n=False)
+                        if pos >= 0:
+                            return _report_invalid(records[len(lengths) + row].name, seq, pos)
+                    print(
+                        "error: device validity check flagged this batch but the "
+                        "host scan found no invalid byte (refusing to write)",
+                        file=sys.stderr,
+                    )
+                    return 1
+            else:
+                words = codec.encode(reads)
+            out = words.cpu().numpy()
+            for row in range(b.count):
+                n = int(b.lengths[row])
+                words_list.append(spec.u32_pairs_to_u64(out[row])[: spec.num_words_2bit(n)])
+                lengths.append(n)
+    else:
+        from . import api
+
+        for rec in records:
+            words_list.append(api.n_to_bits(rec.seq, tier=args.tier))
+            lengths.append(len(rec.seq))
+    names = [r.name for r in records]
+    write_nup(args.output, names, words_list, lengths, args.codec)
+    print(json.dumps({"records": len(names), "nt": sum(lengths), "codec": args.codec,
+                      "output": args.output}))
+    return 0
+
+
+def _pack_words(chunk: list[tuple[bytes, int, np.ndarray]]) -> np.ndarray:
+    """``(name, length, u64 words)`` entries -> u32[len(chunk), 2 * widest]
+    little-endian pairs; short records end in zero words, which the
+    per-record length drops after decode."""
+    width = max(max((words.size for _, _, words in chunk), default=0), 1)
+    mat = np.zeros((len(chunk), width), dtype="<u8")
+    for i, (_, _, words) in enumerate(chunk):
+        mat[i, : words.size] = words
+    return mat.view("<u4")
+
+
+def cmd_decode(args) -> int:
+    codec, entries = read_nup(args.input)
+    if codec not in _CODECS:
+        print(f"error: {args.input} holds the {codec} codec; this package decodes "
+              f"{', '.join(_CODECS)}", file=sys.stderr)
+        return 2
+    if args.batch and args.tier == "oracle":
+        return _oracle_has_no_batch_path()
+    # a file is written under a temporary name and renamed on success, so a
+    # failure neither leaves a truncated FASTA nor clobbers an existing one
+    to_file = args.output != "-"
+    tmp_path = args.output + ".tmp" if to_file else None
+    out = open(tmp_path, "wb") if to_file else sys.stdout.buffer
+    ok = False
+    try:
+        if args.batch:
+            import torch
+
+            from .models import TwoBitCodec
+
+            cd = TwoBitCodec(tier=args.tier)
+            for start in range(0, len(entries), args.batch):
+                chunk = entries[start : start + args.batch]
+                words = torch.from_numpy(_pack_words(chunk)).to(cd.device)
+                dec = cd.decode(words).cpu().numpy()
+                for i, (name, length, _) in enumerate(chunk):
+                    _write_fasta(out, name, dec[i, :length].tobytes())
+        else:
+            from . import api
+
+            for name, length, words in entries:
+                _write_fasta(out, name, api.bits_to_n(words, length, tier=args.tier).tobytes())
+        ok = True
+    finally:
+        if to_file:
+            out.close()
+            if ok:
+                os.replace(tmp_path, args.output)
+            else:
+                os.unlink(tmp_path)
+    return 0
+
+
+def cmd_parity(args) -> int:
+    """Randomized parity gate: every tier must match the oracle bit-exactly."""
+    from cute_nucleotides_tpu.ops import native, oracle
+
+    from . import api
+
+    rng = np.random.default_rng(args.seed)
+    alpha = np.frombuffer(b"ACGTUacgtu", np.uint8)
+    tiers = args.tiers.split(",")
+    failures = 0
+    for trial in range(args.trials):
+        n = int(rng.integers(1, args.max_len + 1))
+        if trial % 2:
+            s = rng.integers(0, 256, size=n, dtype=np.int64).astype(np.uint8)
+        else:
+            s = rng.choice(alpha, size=n)
+        w_ref = oracle.n_to_bits_lut(s)
+        s_ref = oracle.bits_to_n_lut(w_ref, n)
+        checks = [("native", native.n_to_bits(s), w_ref)]
+        for tier in tiers:
+            checks.append((tier, api.n_to_bits(s, tier=tier), w_ref))
+            checks.append((f"decode-{tier}", api.bits_to_n(w_ref, n, tier=tier), s_ref))
+        for label, got, want in checks:
+            if not np.array_equal(got, want):
+                print(f"PARITY FAIL [{label}] n={n} trial={trial}", file=sys.stderr)
+                failures += 1
+    status = "PASS" if failures == 0 else "FAIL"
+    print(json.dumps({"parity": status, "trials": args.trials, "failures": failures}))
+    return 0 if failures == 0 else 1
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="cute-nucleotides-tpu-torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pe = sub.add_parser("encode", help="encode reads to a packed .nup file")
+    pe.add_argument("input")
+    pe.add_argument("output")
+    pe.add_argument("--codec", choices=_CODECS, default="2bit")
+    pe.add_argument("--tier", default="auto", choices=TIERS)
+    pe.add_argument("--validate", action="store_true")
+    pe.add_argument(
+        "--batch", type=int, default=0,
+        help="reads per device batch (0 = per-record host path)",
+    )
+    pe.add_argument("--max-len", type=int, default=65536,
+                    help="longest read a batch accepts")
+    pe.set_defaults(fn=cmd_encode)
+
+    pd = sub.add_parser("decode", help="decode a .nup file to FASTA")
+    pd.add_argument("input")
+    pd.add_argument("output", nargs="?", default="-")
+    pd.add_argument("--tier", default="auto", choices=TIERS)
+    pd.add_argument(
+        "--batch", type=int, default=0, metavar="N",
+        help="decode N records per device batch (the production path)",
+    )
+    pd.set_defaults(fn=cmd_decode)
+
+    pp = sub.add_parser("parity", help="randomized oracle parity gate")
+    pp.add_argument("--trials", type=int, default=50)
+    pp.add_argument("--max-len", type=int, default=5000)
+    pp.add_argument("--seed", type=int, default=0)
+    pp.add_argument("--tiers", default="auto")
+    pp.set_defaults(fn=cmd_parity)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

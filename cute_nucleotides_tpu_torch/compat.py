@@ -1,0 +1,72 @@
+"""Drop-in names of the reference crate's 2-bit functions.
+
+Counterpart of the 2-bit half of ``cute_nucleotides_tpu/compat.py``: the
+same names, signatures (bytes in, u64 words out, explicit decode length) and
+bit-identical results.  Each name keeps a mechanism of its own; on a CUDA
+card each runs its kernel, and without one the same variant runs in eager
+PyTorch (``tier="auto"``):
+
+==================  ===========================================================
+reference name      this package
+==================  ===========================================================
+n_to_bits_lut       host C++ oracle
+n_to_bits_pext      ``mxu``: warp bit-plane gather (``__ballot_sync`` planes)
+n_to_bits_shift     ``shift``: log-depth shift-OR tree
+n_to_bits_movemask  ``interleave``: even/odd code planes + fold
+n_to_bits_mul       ``mul``: multiply-as-bit-shuffle
+bits_to_n_lut       host C++ oracle
+bits_to_n_shuffle   ``shuffle``: packed-LUT variable shift
+bits_to_n_pdep      ``swar``: masked spread multiplies
+bits_to_n_clmul     ``select``: arithmetic select tree
+==================  ===========================================================
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from cute_nucleotides_tpu.ops import native
+
+from . import api
+
+__all__ = [
+    "n_to_bits_lut", "n_to_bits_pext", "n_to_bits_shift",
+    "n_to_bits_movemask", "n_to_bits_mul",
+    "bits_to_n_lut", "bits_to_n_shuffle", "bits_to_n_pdep", "bits_to_n_clmul",
+]
+
+
+def n_to_bits_lut(n) -> np.ndarray:
+    return native.n_to_bits(n)
+
+
+def n_to_bits_pext(n) -> np.ndarray:
+    return api.n_to_bits(n, variant="mxu")
+
+
+def n_to_bits_shift(n) -> np.ndarray:
+    return api.n_to_bits(n, variant="shift")
+
+
+def n_to_bits_movemask(n) -> np.ndarray:
+    return api.n_to_bits(n, variant="interleave")
+
+
+def n_to_bits_mul(n) -> np.ndarray:
+    return api.n_to_bits(n, variant="mul")
+
+
+def bits_to_n_lut(bits, length: int) -> np.ndarray:
+    return native.bits_to_n(bits, length)
+
+
+def bits_to_n_shuffle(bits, length: int) -> np.ndarray:
+    return api.bits_to_n(bits, length, variant="shuffle")
+
+
+def bits_to_n_pdep(bits, length: int) -> np.ndarray:
+    return api.bits_to_n(bits, length, variant="swar")
+
+
+def bits_to_n_clmul(bits, length: int) -> np.ndarray:
+    return api.bits_to_n(bits, length, variant="select")

@@ -1,0 +1,293 @@
+"""The ``cuda`` tier: wrappers of the hand-written Hopper kernels in
+``csrc/codec2bit.cu``, each beside its plain PyTorch version.
+
+A wrapper runs its plain version only for a tensor on the CPU; for a CUDA
+tensor it launches its kernel (building the library on first use) or raises.
+Each wrapper counts its launches in a plain integer attribute,
+``<wrapper>.launches``, which adds one exactly where the kernel is launched.
+
+Shapes follow the reference's nt4 forms (``cute_nucleotides_tpu/ops/
+pallas_kernels.py``): an nt4 array is a uint32 array whose lane j holds
+ASCII bytes 4j..4j+3 little-endian (a free view of the byte stream), and a
+packed byte holds 4 nt at 2 bits each, LSB-first.  The kernels need no TPU
+tiling: any lane count works, except that a checked row and the pext words
+need whole 16-nt groups (C % 4 == 0).
+
+Every kernel is bound by device memory: the encoders read 4 bytes and write
+1 per 4 nt, the decoder the reverse, i.e. 5 bytes moved per 4 nt.  Times on
+the H100 beside the plain versions' are in PERF.md.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build, eager
+
+ENCODE_2BIT_VARIANTS = ("mul", "shift", "interleave", "mxu")
+DECODE_2BIT_VARIANTS = ("shuffle", "select", "swar")
+_ENCODE_IDS = {"mul": 0, "shift": 1, "interleave": 2}
+_DECODE_IDS = {"swar": 0, "shuffle": 1, "select": 2}
+
+
+def _check_2d(x: torch.Tensor, dtype: torch.dtype, what: str) -> None:
+    if x.dtype != dtype or x.ndim != 2:
+        raise TypeError(f"expected {what}, got {x.dtype}{tuple(x.shape)}")
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    """False for a CPU tensor (plain version); True for a CUDA tensor that
+    the kernels can take as it is; raises for anything else.  Nothing is
+    copied: a view the kernel cannot read is the caller's to fix."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("kernel input must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"kernel input must be 16-byte aligned (data_ptr % 16 == {x.data_ptr() % 16})")
+    return True
+
+
+def _launch(fn, *args) -> None:
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# --- kernel #1: encode ----------------------------------------------------
+
+def encode_2bit_nt4_plain(x: torch.Tensor, variant: str = "mul") -> torch.Tensor:
+    """Plain version of :func:`encode_2bit_nt4`."""
+    return eager.PACK4[variant](eager.u32_to_i64(x)).to(torch.uint8)
+
+
+def encode_2bit_nt4(x: torch.Tensor, variant: str = "mul") -> torch.Tensor:
+    """Encode nt4 u32[R, C] -> packed u8[R, C].
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:encode_2bit_nt4``.
+    Bound by memory (4 B read, 1 B written per 4 nt); one thread loads 16
+    nt as one 16-byte vector and stores their 4 packed bytes as one u32, so
+    every warp access is a full coalesced line.  Time on the H100: PERF.md.
+    """
+    eager.check_variant(variant, _ENCODE_IDS)
+    _check_2d(x, torch.uint32, "nt4 u32[R, C]")
+    if not _on_cuda(x):
+        return encode_2bit_nt4_plain(x, variant)
+    out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    if x.numel():
+        lib = _build.load()
+        with torch.cuda.device(x.device):
+            _launch(lib.cn_encode_2bit, x.data_ptr(), out.data_ptr(), x.numel(),
+                    _ENCODE_IDS[variant], _stream(x))
+        encode_2bit_nt4.launches += 1
+    return out
+
+
+encode_2bit_nt4.launches = 0
+
+
+# --- kernel #2: decode ----------------------------------------------------
+
+def decode_2bit_nt4_plain(p: torch.Tensor, variant: str = "swar") -> torch.Tensor:
+    """Plain version of :func:`decode_2bit_nt4`."""
+    return eager.i64_to_u32(eager.UNPACK4[variant](p.to(torch.int64)))
+
+
+def decode_2bit_nt4(p: torch.Tensor, variant: str = "swar") -> torch.Tensor:
+    """Decode packed u8[R, C] -> nt4 u32[R, C] (always upper-case, T).
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:decode_2bit_nt4``.
+    Bound by memory (1 B read, 4 B written per 4 nt); one thread loads 4
+    packed bytes as one u32 and stores their 16 chars as one 16-byte vector.
+    Time on the H100: PERF.md.
+    """
+    eager.check_variant(variant, _DECODE_IDS)
+    _check_2d(p, torch.uint8, "packed u8[R, C]")
+    if not _on_cuda(p):
+        return decode_2bit_nt4_plain(p, variant)
+    out = torch.empty(p.shape, dtype=torch.uint32, device=p.device)
+    if p.numel():
+        lib = _build.load()
+        with torch.cuda.device(p.device):
+            _launch(lib.cn_decode_2bit, p.data_ptr(), out.data_ptr(), p.numel(),
+                    _DECODE_IDS[variant], _stream(p))
+        decode_2bit_nt4.launches += 1
+    return out
+
+
+decode_2bit_nt4.launches = 0
+
+
+# --- kernel #3: encode + per-row validity ------------------------------------
+
+def encode_2bit_nt4_checked_plain(
+    x: torch.Tensor, variant: str = "mul"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`encode_2bit_nt4_checked`."""
+    w = eager.u32_to_i64(x)
+    bad = (eager.invalid_bits(w) != 0).any(-1)
+    return eager.PACK4[variant](w).to(torch.uint8), eager.i64_to_u32(bad.to(torch.int64))
+
+
+def encode_2bit_nt4_checked(
+    x: torch.Tensor, variant: str = "mul"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused encode + validity: nt4 u32[R, C] (C % 4 == 0) -> (packed
+    u8[R, C], flags u32[R]); flag r is 1 iff row r holds a byte outside
+    {A,C,G,T,U} (either case), else 0.
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:
+    encode_2bit_nt4_checked``, whose u32[R, 128] badplane was a TPU tile;
+    the per-row flag is the contract.  Bound by memory like the encode: the
+    check rides the same 16-byte load, and a warp ORs its flags with one
+    ``__reduce_or_sync`` and one ``atomicOr`` (per thread only in a warp
+    that straddles two rows).  Time on the H100: PERF.md.
+    """
+    eager.check_variant(variant, _ENCODE_IDS)
+    _check_2d(x, torch.uint32, "nt4 u32[R, C]")
+    R, C = x.shape
+    if C % 4:
+        raise ValueError(f"checked encode needs whole 16-nt groups per row (C % 4 == 0), got C={C}")
+    if not _on_cuda(x):
+        return encode_2bit_nt4_checked_plain(x, variant)
+    out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    flags = torch.zeros(R, dtype=torch.int32, device=x.device)
+    if x.numel():
+        lib = _build.load()
+        with torch.cuda.device(x.device):
+            _launch(lib.cn_encode_2bit_checked, x.data_ptr(), out.data_ptr(), flags.data_ptr(),
+                    R, C, _ENCODE_IDS[variant], _stream(x))
+        encode_2bit_nt4_checked.launches += 1
+    return out, flags.view(torch.uint32)
+
+
+encode_2bit_nt4_checked.launches = 0
+
+
+# --- kernel #4: the pext slot -------------------------------------------------
+
+def _spread16(x: torch.Tensor) -> torch.Tensor:
+    """Morton spread of 16-bit values: bit i moves to bit 2i."""
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    return (x | (x << 1)) & 0x55555555
+
+
+def encode_2bit_nt4_mxu_plain(x: torch.Tensor, checked: bool = False):
+    """Plain version of :func:`encode_2bit_nt4_mxu`: the same bit-plane
+    gather, 16 nt per u32 word."""
+    R, C = x.shape
+    codes = (x.contiguous().view(torch.uint8).to(torch.int64) >> 1) & 3
+    codes = codes.reshape(R, C // 4, 16)
+    bit = 1 << torch.arange(16, device=x.device, dtype=torch.int64)
+    plane0 = ((codes & 1) * bit).sum(-1)
+    plane1 = ((codes >> 1) * bit).sum(-1)
+    words = eager.i64_to_u32(_spread16(plane0) | (_spread16(plane1) << 1))
+    if not checked:
+        return words
+    bad = (eager.invalid_bits(eager.u32_to_i64(x)) != 0).any(-1)
+    return words, eager.i64_to_u32(bad.to(torch.int64))
+
+
+def encode_2bit_nt4_mxu(x: torch.Tensor, checked: bool = False):
+    """Encode nt4 u32[R, C] (C % 4 == 0) -> packed u32 words [R, C // 4];
+    variant ``mxu``, the slot of the reference's ``n_to_bits_pext``.  With
+    ``checked=True`` it returns ``(words, flags u32[R])`` with the flags of
+    :func:`encode_2bit_nt4_checked`, computed on the same loads.
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:
+    encode_2bit_nt4_mxu``, whose constant matmul gathered packed bytes on
+    the TPU's matrix unit.  Here the gather is a warp bit-plane gather: lane
+    i holds nt i of a 32-nt word, two ``__ballot_sync`` calls collect the
+    codes' two bit planes, and a Morton interleave gives the u64 word.
+    Bound by memory like the encode; each warp load fills one 32-byte
+    sector.  Time on the H100: PERF.md.
+    """
+    _check_2d(x, torch.uint32, "nt4 u32[R, C]")
+    R, C = x.shape
+    if C % 4:
+        raise ValueError(f"the pext encode emits whole u32 words: C % 4 == 0, got C={C}")
+    if not _on_cuda(x):
+        return encode_2bit_nt4_mxu_plain(x, checked)
+    out = torch.empty((R, C // 4), dtype=torch.uint32, device=x.device)
+    flags = torch.zeros(R, dtype=torch.int32, device=x.device) if checked else None
+    if out.numel():
+        lib = _build.load()
+        with torch.cuda.device(x.device):
+            _launch(lib.cn_encode_2bit_pext, x.data_ptr(), out.data_ptr(),
+                    flags.data_ptr() if checked else None, out.numel(), 4 * C, _stream(x))
+        encode_2bit_nt4_mxu.launches += 1
+    return (out, flags.view(torch.uint32)) if checked else out
+
+
+encode_2bit_nt4_mxu.launches = 0
+
+WRAPPERS = (encode_2bit_nt4, decode_2bit_nt4, encode_2bit_nt4_checked, encode_2bit_nt4_mxu)
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+# --- (..., L) adapters -------------------------------------------------------
+
+def _rows(t: torch.Tensor, width: int) -> torch.Tensor:
+    """View t as [rows, width] without copying (raises if it cannot)."""
+    rows = math.prod(t.shape[:-1])
+    if t.numel() == 0:  # an empty tensor may carry strides no view accepts
+        return t.new_empty((rows, width))
+    return t.view(rows, width)
+
+
+def _as_nt4(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype != torch.uint8:
+        raise TypeError(f"expected uint8 bytes, got {x.dtype}")
+    L = x.shape[-1]
+    if L % 16:
+        raise ValueError(f"last dim {L} not a multiple of 16")
+    return _rows(x, L).view(torch.uint32)
+
+
+def encode_2bit_words(x: torch.Tensor, variant: str = "mul") -> torch.Tensor:
+    """u8[..., L] (L % 16 == 0) -> packed u32[..., L // 16]."""
+    eager.check_variant(variant, ENCODE_2BIT_VARIANTS)
+    nt4 = _as_nt4(x)
+    if variant == "mxu":
+        words = encode_2bit_nt4_mxu(nt4)
+    else:
+        words = encode_2bit_nt4(nt4, variant).view(torch.uint32)
+    return words.view(*x.shape[:-1], x.shape[-1] // 16)
+
+
+def encode_2bit_words_checked(
+    x: torch.Tensor, variant: str = "mul"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """u8[..., L] -> (u32[..., L // 16], bool[...] row has a bad byte)."""
+    eager.check_variant(variant, ENCODE_2BIT_VARIANTS)
+    nt4 = _as_nt4(x)
+    if variant == "mxu":
+        words, flags = encode_2bit_nt4_mxu(nt4, checked=True)
+    else:
+        packed, flags = encode_2bit_nt4_checked(nt4, variant)
+        words = packed.view(torch.uint32)
+    words = words.view(*x.shape[:-1], x.shape[-1] // 16)
+    return words, (flags.view(torch.int32) != 0).view(x.shape[:-1])
+
+
+def decode_2bit_bytes(words: torch.Tensor, variant: str = "swar") -> torch.Tensor:
+    """u32[..., W] -> ASCII u8[..., 16 * W] (full blocks)."""
+    if words.dtype != torch.uint32:
+        raise TypeError(f"expected uint32 words, got {words.dtype}")
+    W = words.shape[-1]
+    nt4 = decode_2bit_nt4(_rows(words, W).view(torch.uint8), variant)
+    return nt4.view(torch.uint8).view(*words.shape[:-1], 16 * W)

@@ -1,0 +1,113 @@
+"""The CUDA kernels on the card: each against its plain version, the cuda
+tier against the torch tier and the oracle, launch counts and refusals.
+
+Every test here needs a CUDA card and skips without one.  The file imports
+no JAX, so it also runs where JAX is not installed; the tests' conftest
+does import JAX, so run it there without conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cute_nucleotides_tpu.ops import native
+from cute_nucleotides_tpu_torch import api, interop, models
+from cute_nucleotides_tpu_torch.ops import kernels as K
+
+pytestmark = pytest.mark.cuda
+
+ALPHABET = np.frombuffer(b"ACGTUacgtu", np.uint8)
+ENCODE = ("mul", "shift", "interleave")
+DECODE = ("shuffle", "select", "swar")
+RAGGED = (1, 15, 16, 17, 31, 32, 33)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _nt4(rows: int, lanes: int, seed: int) -> np.ndarray:
+    s = np.random.default_rng(seed).choice(ALPHABET, size=(rows, 4 * lanes))
+    return np.ascontiguousarray(s).view(np.uint32)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    def as_i32(t):  # comparisons on uint32 may be missing on the card
+        return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+    return torch.equal(as_i32(a).cpu(), as_i32(b).cpu())
+
+
+@pytest.mark.parametrize("lanes", RAGGED + (4096,))
+def test_kernels_match_plain(cuda_device, lanes):
+    t = interop.to_tensor(_nt4(5, lanes, 20 + lanes), cuda_device)
+    for v in ENCODE:
+        assert _same(K.encode_2bit_nt4(t, v), K.encode_2bit_nt4_plain(t, v))
+    p = np.random.default_rng(lanes).integers(0, 256, (5, lanes), dtype=np.uint8)
+    p = interop.to_tensor(p, cuda_device)
+    for v in DECODE:
+        assert _same(K.decode_2bit_nt4(p, v), K.decode_2bit_nt4_plain(p, v))
+    s = np.ascontiguousarray(_nt4(33, 4 * lanes, 30 + lanes)).view(np.uint8)
+    s[::4, -1] = ord("N")
+    t = interop.to_tensor(s.view(np.uint32), cuda_device)
+    for v in ENCODE:
+        out, flags = K.encode_2bit_nt4_checked(t, v)
+        pout, pflags = K.encode_2bit_nt4_checked_plain(t, v)
+        assert _same(out, pout) and _same(flags, pflags)
+        assert interop.to_numpy(flags).nonzero()[0].tolist() == list(range(0, 33, 4))
+    assert _same(K.encode_2bit_nt4_mxu(t), K.encode_2bit_nt4_mxu_plain(t))
+    words, flags = K.encode_2bit_nt4_mxu(t, checked=True)
+    pwords, pflags = K.encode_2bit_nt4_mxu_plain(t, checked=True)
+    assert _same(words, pwords) and _same(flags, pflags)
+    assert interop.to_numpy(flags).nonzero()[0].tolist() == list(range(0, 33, 4))
+
+
+def test_cuda_tier_matches_torch_tier(cuda_device):
+    x = np.random.default_rng(3).choice(ALPHABET, size=(7, 4096))
+    x[2, 5] = ord("N")
+    cpu, gpu = interop.to_tensor(x), interop.to_tensor(x, cuda_device)
+    ref = models.TwoBitCodec(tier="torch")
+    words = ref.encode(cpu)
+    for v in ENCODE + ("mxu",):
+        codec = models.TwoBitCodec(device=cuda_device, encode_variant=v)
+        assert codec.tier == "cuda"
+        assert _same(codec.encode(gpu), words)
+        got_words, bad = codec.encode_checked(gpu)
+        assert _same(got_words, words)
+        assert interop.to_numpy(bad).tolist() == [False, False, True, False, False, False, False]
+    for v in DECODE:
+        codec = models.TwoBitCodec(device=cuda_device, decode_variant=v)
+        assert torch.equal(codec.decode(interop.to_tensor(interop.to_numpy(words), cuda_device)).cpu(),
+                           ref.decode(words))
+
+
+@pytest.mark.parametrize("n", (0,) + RAGGED + (100_003,))
+def test_api_cuda_tier_matches_oracle(cuda_device, n):
+    s = np.random.default_rng(n).choice(ALPHABET, size=n)
+    want = native.n_to_bits(s)
+    for v in ENCODE + ("mxu",):
+        assert np.array_equal(api.n_to_bits(s, tier="cuda", variant=v), want)
+    for v in DECODE:
+        assert np.array_equal(api.bits_to_n(want, n, tier="cuda", variant=v), native.bits_to_n(want, n))
+
+
+def test_launch_counts_and_alignment(cuda_device):
+    K.reset_launch_counts()
+    t = interop.to_tensor(_nt4(2, 64, 8), cuda_device)
+    K.encode_2bit_nt4(t)
+    K.encode_2bit_nt4_checked(t)
+    K.encode_2bit_nt4_mxu(t)
+    K.encode_2bit_nt4_mxu(t, checked=True)
+    K.decode_2bit_nt4(K.encode_2bit_nt4(t))
+    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2]
+    misaligned = torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:36]
+    with pytest.raises(ValueError, match="aligned"):
+        K.encode_2bit_nt4(misaligned.view(torch.uint32).view(2, 4))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.encode_2bit_nt4(interop.to_tensor(_nt4(4, 8, 9), cuda_device)[:, ::2])
+    assert K.encode_2bit_nt4.launches == 2

@@ -1,0 +1,99 @@
+"""The port never loads JAX, and nothing in it runs on the CPU in place of
+the card: ``tier="cuda"`` and ``chip_smoke.py`` fail without CUDA."""
+
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "cute_nucleotides_tpu_torch"
+
+
+def _run(code_or_args, cwd=REPO):
+    # CUDA_VISIBLE_DEVICES="" hides any card, so these hold on a GPU host too
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+    args = ["-c", code_or_args] if isinstance(code_or_args, str) else code_or_args
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_sources_never_import_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax\b|import jaxlib|from jaxlib\b)", re.M)
+    sources = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
+    assert len(sources) >= 10
+    assert [str(p) for p in sources if pattern.search(p.read_text())] == []
+
+
+def test_chip_smoke_imports_only_the_port():
+    """The on-card gate reaches the reference's host code only through the
+    port (its oracle is the api's "oracle" tier)."""
+    pattern = re.compile(r"^\s*(import|from)\s+cute_nucleotides_tpu\b", re.M)
+    assert pattern.findall((REPO / "chip_smoke.py").read_text()) == []
+
+
+def test_port_runs_without_loading_jax():
+    code = """
+import sys
+import cute_nucleotides_tpu_torch as cnt
+from cute_nucleotides_tpu_torch import api, cli, compat, interop, models
+from cute_nucleotides_tpu_torch.ops import eager, kernels, validate
+import chip_smoke
+seq = b"ACGTUacgtuNACGT" * 11
+words = api.n_to_bits(seq)
+back = api.bits_to_n(words, len(seq))
+assert bytes(back) == seq.upper().replace(b"U", b"T").replace(b"N", b"G")
+codec = models.TwoBitCodec()
+x = interop.to_tensor(bytes(seq[:160]), "cpu").view(2, 80)
+assert codec.decode(codec.encode(x)).shape == (2, 80)
+assert compat.n_to_bits_pext(b"ACGT" * 8).tolist() == compat.n_to_bits_lut(b"ACGT" * 8).tolist()
+loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+print("JAX", loaded)
+assert not loaded, loaded
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX []" in proc.stdout
+
+
+def test_cuda_tier_without_cuda_raises():
+    code = """
+import numpy as np, torch
+from cute_nucleotides_tpu_torch import api, models
+from cute_nucleotides_tpu_torch.ops import kernels
+assert not torch.cuda.is_available()
+for call in (lambda: api.n_to_bits(b"ACGT", tier="cuda"),
+             lambda: api.bits_to_n(np.zeros(1, np.uint64), 4, tier="cuda"),
+             lambda: models.TwoBitCodec(tier="cuda"),
+             lambda: models.TwoBitCodec(tier="cuda", device="cpu"),
+             lambda: api.n_to_bits(b"ACGT", tier="auto", device="cuda")):
+    try:
+        call()
+    except (RuntimeError, ValueError) as e:
+        print("raised", type(e).__name__)
+    else:
+        raise SystemExit("no error")
+print("auto resolves to", models.TwoBitCodec().tier)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("raised") == 5
+    assert "auto resolves to torch" in proc.stdout
+
+
+def test_chip_smoke_fails_without_cuda():
+    proc = _run([str(REPO / "chip_smoke.py")])
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
