@@ -2,17 +2,25 @@
 
 Builds the CUDA kernels from ``cute_nucleotides_tpu_torch/csrc``, holds each
 against its plain PyTorch version bit for bit on the card, then drives the
-2-bit codec's main path at full size through the entry points a user calls:
+main paths of both codecs at full size through the entry points a user
+calls:
 
-  2. each kernel vs its plain version at ragged shapes and all 256 bytes;
+  2. each kernel vs its plain version at ragged shapes, all 256 bytes and
+     (base-5 decode) all 128 triplet values with and without bit 63;
   3. ``TwoBitCodec(device="cuda")`` on a resident u8[4096, 262144] batch
      (1 Gnt): every encode variant, ``encode_checked`` and ``decode``;
-  4. ``api.n_to_bits``/``bits_to_n`` (tier "auto") on one 248,956,422-nt
-     sequence, and the nine compat names on 1 Mnt;
+     ``Base5Codec(device="cuda")`` on u8[4096, 262143] (1.07 Gnt):
+     ``encode``, ``encode_checked``, ``decode``, ``decode_checked``;
+  4. ``api.n_to_bits``/``bits_to_n`` and ``n_to_bits2``/``bits_to_n2``
+     (tier "auto") on one 248,956,422-nt sequence, and the 13 compat names
+     on 1 Mnt;
   5. the CLI: FASTQ of 200,000 x 150 nt -> ``encode --batch 8192
-     --validate`` -> ``decode --batch 8192`` -> FASTA;
-  6. launch counts of phases 3-5, then each kernel's time beside its plain
-     version's (CUDA events).
+     --validate`` -> ``decode --batch 8192`` -> FASTA, for ``--codec 2bit``
+     and for ``--codec base5`` (decode with ``--verify-stream``, and a
+     corrupted copy refused);
+  6. launch counts of phases 3-5, read per codec (each codec's path runs
+     with the counts set to 0 just before it), then each kernel's time
+     beside its plain version's (CUDA events).
 
 Phases 4 and 5 run their calls under ``torch.profiler`` (CUDA activity) and
 print the device time of the port's kernels, of copies and of other device
@@ -27,6 +35,7 @@ failure or without CUDA.  Run from the repository root:
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -40,19 +49,29 @@ import numpy as np
 
 SEED = 0x5EED
 ALPHABET = b"ACGTUacgtu"
+ALPHABET_N = b"ACGTUNacgtun"
 INVALID = (ord("N"), ord("X"), 0, 0x80, 0xFF, ord("B"), ord("n"), ord("@"))
 BATCH_ROWS, BATCH_NT = 4096, 262144  # 1 Gnt, 1 GiB in, 256 MiB of words out
+B5_NT = 27 * 9709  # 262143: u8[4096, 262143] is 1.07 Gnt in, 318 MB of words out
 CHR1_NT = 248_956_422  # GRCh38 chr1
 MNT = 1 << 20
+MNT_B5 = MNT // 27 * 27  # the whole words of 1 Mnt
 CLI_READS, CLI_READ_NT, CLI_BATCH = 200_000, 150, 8192
 RAGGED = (1, 15, 16, 17, 31, 32, 33)
+RAGGED_B5 = (1, 26, 27, 28, 53, 54, 55)  # nt, through the api
+B5_WORDS = (1, 2, 127, 128, 129)  # words, straight into the kernels
+_PK = "cute_nucleotides_tpu/ops/pallas_kernels.py"
 REPLACES = {
-    "encode_2bit_nt4": "cute_nucleotides_tpu/ops/pallas_kernels.py:216",
-    "decode_2bit_nt4": "cute_nucleotides_tpu/ops/pallas_kernels.py:233",
-    "encode_2bit_nt4_checked": "cute_nucleotides_tpu/ops/pallas_kernels.py:301",
-    "encode_2bit_nt4_mxu": "cute_nucleotides_tpu/ops/pallas_kernels.py:819",
+    "encode_2bit_nt4": f"{_PK}:216",
+    "decode_2bit_nt4": f"{_PK}:233",
+    "encode_2bit_nt4_checked": f"{_PK}:301",
+    "encode_2bit_nt4_mxu": f"{_PK}:819",
+    "encode_b5_stream": f"{_PK}:1067",
+    "decode_b5_stream": f"{_PK}:1423",
 }
-SOURCE = "cute_nucleotides_tpu_torch/csrc/codec2bit.cu"
+B5_KERNELS = ("encode_b5_stream", "decode_b5_stream")
+_CSRC = "cute_nucleotides_tpu_torch/csrc"
+SOURCES = {k: f"{_CSRC}/codec_b5.cu" if k in B5_KERNELS else f"{_CSRC}/codec2bit.cu" for k in REPLACES}
 
 
 class SmokeFailure(Exception):
@@ -201,18 +220,111 @@ def phase_kernels(errors: Errors, rng) -> None:
         f"max abs err {errors.max}")
 
 
+def _flag(f) -> int:
+    import torch
+
+    return int(f.view(torch.int32)[0])
+
+
+def phase_kernels_b5(errors: Errors, rng) -> None:
+    """The base-5 kernels, every mode, against their plain versions; the
+    checked flags exact on every byte value and every triplet value."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    dev = "cuda"
+    enc, dec = "encode_b5_stream", "decode_b5_stream"
+    alpha = np.frombuffer(ALPHABET_N, np.uint8)
+    modes = ((False, False), (True, False), (False, True))  # chars, checked, digits
+    for n in B5_WORDS:
+        x = torch.from_numpy(rng.choice(alpha, size=27 * n)).to(dev)
+        errors.compare(enc, K.encode_b5_stream(x), K.encode_b5_stream_plain(x), f"b5 encode {n} words")
+        for inject in (False, True):
+            if inject:
+                x[int(rng.integers(0, x.numel()))] = ord("X")
+            words, flag = K.encode_b5_stream(x, checked=True)
+            pwords, pflag = K.encode_b5_stream_plain(x, checked=True)
+            errors.compare(enc, words, pwords, f"b5 checked encode {n} words")
+            errors.compare(enc, flag, pflag, f"b5 checked encode flag {n} words")
+            check(_flag(flag) == int(inject), f"b5 checked encode {n} words: flag {_flag(flag)}")
+        words = K.encode_b5_stream_plain(x)
+        for corrupt in (False, True):
+            if corrupt:  # bit 63 of the last word
+                words.view(torch.int32)[-1] |= -(1 << 31)
+            for checked, digits in modes:
+                got = K.decode_b5_stream(words, checked, digits)
+                want = K.decode_b5_stream_plain(words, checked, digits)
+                what = f"b5 decode checked={checked} digits={digits} {n} words"
+                if checked:
+                    errors.compare(dec, got[0], want[0], what)
+                    errors.compare(dec, got[1], want[1], what + " flag")
+                    check(_flag(got[1]) == int(corrupt), f"{what}: flag {_flag(got[1])}")
+                else:
+                    errors.compare(dec, got, want, what)
+    # every byte value at every position of a word, then the flag of each
+    # byte value alone
+    x = torch.arange(256, dtype=torch.uint8, device=dev).repeat_interleave(27)
+    errors.compare(enc, K.encode_b5_stream(x), K.encode_b5_stream_plain(x), "b5 encode all bytes")
+    valid = set(ALPHABET_N)
+    for v in range(256):
+        x = torch.full((27 * 3,), ord("A"), dtype=torch.uint8, device=dev)
+        x[27 + v % 27] = v
+        words, flag = K.encode_b5_stream(x, checked=True)
+        errors.compare(enc, flag, K.encode_b5_stream_plain(x, checked=True)[1], f"b5 flag of byte {v}")
+        check(_flag(flag) == int(v not in valid), f"b5 checked encode flag of byte {v}: {_flag(flag)}")
+    # every triplet value in every slot, with and without bit 63; then each
+    # value alone for the checked flag
+    t = np.arange(128, dtype=np.uint64)
+    w64 = np.concatenate([(t << np.uint64(7 * j)) | (np.uint64(b) << np.uint64(63))
+                          for j in range(9) for b in (0, 1)])
+    words = torch.from_numpy(w64.view(np.uint32).copy()).to(dev)
+    for checked, digits in modes:
+        got = K.decode_b5_stream(words, checked, digits)
+        want = K.decode_b5_stream_plain(words, checked, digits)
+        if checked:
+            errors.compare(dec, got[0], want[0], "b5 decode all triplets")
+            errors.compare(dec, got[1], want[1], "b5 decode all triplets flag")
+        else:
+            errors.compare(dec, got, want, f"b5 decode all triplets digits={digits}")
+    for v in range(128):
+        for b in (0, 1):
+            j = v % 9
+            w = np.array([0, (v << (7 * j)) | (b << 63), 0], dtype=np.uint64)
+            _, flag = K.decode_b5_stream(torch.from_numpy(w.view(np.uint32).copy()).to(dev), checked=True)
+            check(_flag(flag) == int(v >= 125 or b == 1),
+                  f"b5 checked decode flag of triplet {v} bit63={b}: {_flag(flag)}")
+    try:
+        K.decode_b5_stream(words, checked=True, digits=True)
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("decode_b5_stream took checked together with digits")
+    x = torch.zeros(64, dtype=torch.uint8, device=dev)[4:31]
+    try:
+        K.encode_b5_stream(x)
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("encode_b5_stream took a view that is not 16-byte aligned")
+    torch.cuda.synchronize()
+    say(f"phase 2 base-5 kernels: bit-identical to the plain versions at {B5_WORDS} words, all 256 "
+        f"bytes and all 128 triplets; checked flags exact on each byte and each triplet +- bit 63 "
+        f"({errors.count} comparisons in phase 2; max abs err {errors.max})")
+
+
 # --- phase 3: the resident 1-Gnt batch -----------------------------------------
 
-def _make_batch(seed: int):
+def _make_batch(seed: int, nt: int = BATCH_NT, alphabet: bytes = ALPHABET):
     import torch
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    lut = torch.tensor(list(ALPHABET), dtype=torch.uint8, device="cuda")
-    x = torch.empty((BATCH_ROWS, BATCH_NT), dtype=torch.uint8, device="cuda")
+    lut = torch.tensor(list(alphabet), dtype=torch.uint8, device="cuda")
+    x = torch.empty((BATCH_ROWS, nt), dtype=torch.uint8, device="cuda")
     step = 256
     for r in range(0, BATCH_ROWS, step):
-        x[r : r + step] = lut[torch.randint(0, len(ALPHABET), (step, BATCH_NT), generator=g, device="cuda")]
+        x[r : r + step] = lut[torch.randint(0, len(alphabet), (step, nt), generator=g, device="cuda")]
     return x
 
 
@@ -305,6 +417,75 @@ def phase_batch(errors: Errors, rng):
     return x, words, dec
 
 
+def _any_flag(flags) -> bool:
+    """The per-chunk u32[1] flags of a plain version, OR-ed."""
+    return bool((flags != 0).any())
+
+
+def phase_batch_b5(errors: Errors, rng):
+    import torch
+
+    from cute_nucleotides_tpu_torch import compat
+    from cute_nucleotides_tpu_torch.models import Base5Codec
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    x = _make_batch(SEED + 5, B5_NT, ALPHABET_N)
+    codec = Base5Codec(device="cuda")
+    check(codec.tier == "cuda", f"auto on a CUDA device resolved to {codec.tier}")
+    words = codec.encode(x)
+    W = B5_NT // 27
+    check(words.shape == (BATCH_ROWS, 2 * W), f"base-5 encode shape {tuple(words.shape)}")
+    enc_plain = lambda t: K.encode_b5_stream_plain(t.reshape(-1))  # noqa: E731
+    errors.compare("encode_b5_stream", words.view(torch.int32).view(-1), _by_rows(enc_plain, x),
+                   "base-5 batch encode vs plain")
+    checked_plain = lambda t: K.encode_b5_stream_plain(t.reshape(-1), checked=True)[1]  # noqa: E731
+    out, bad = codec.encode_checked(x)
+    check(torch.equal(out.view(torch.int32), words.view(torch.int32)),
+          "base-5 encode_checked words != encode")
+    check(bad.shape == () and not bool(bad), "base-5 encode_checked flagged valid input")
+    check(not _any_flag(_by_rows(checked_plain, x)), "plain checked encode flagged valid input")
+    del out
+    r, c = int(rng.integers(0, BATCH_ROWS)), int(rng.integers(0, B5_NT))
+    saved = int(x[r, c])
+    x[r, c] = ord("X")
+    _, bad = codec.encode_checked(x)
+    check(bool(bad), f"base-5 encode_checked missed an 'X' at [{r}, {c}]")
+    check(_any_flag(_by_rows(checked_plain, x)), "plain checked encode missed the 'X'")
+    x[r, c] = saved
+    dec = codec.decode(words)
+    check(torch.equal(dec, _upper_t(x)), "base-5 decode(encode(x)) != upper(x) with U->T")
+    # compared as int32 lanes (each 256-row chunk holds a multiple of 4 bytes)
+    dec_plain = lambda w: K.decode_b5_stream_plain(w.reshape(-1)).view(torch.int32)  # noqa: E731
+    errors.compare("decode_b5_stream", dec.view(-1).view(torch.int32), _by_rows(dec_plain, words),
+                   "base-5 batch decode vs plain")
+    got, bad = codec.decode_checked(words)
+    check(torch.equal(got, dec) and bad.shape == () and not bool(bad), "base-5 decode_checked on clean words")
+    del got
+    r, w = int(rng.integers(0, BATCH_ROWS)), int(rng.integers(0, W))
+    lane = words.view(torch.int32)[r, 2 * w]
+    saved = int(lane)
+    lane |= 0x7F << 7  # triplet 1 of the word reads 127
+    _, bad = codec.decode_checked(words)
+    check(bool(bad), f"base-5 decode_checked missed a corrupt word at [{r}, {w}]")
+    words.view(torch.int32)[r, 2 * w] = saved
+    flat, wflat, dflat = x.view(-1), words.view(-1), dec.view(-1)
+    nw = MNT_B5 // 27
+    for label, sl, wsl in (("head", slice(0, MNT_B5), slice(0, 2 * nw)),
+                           ("tail", slice(-MNT_B5, None), slice(-2 * nw, None))):
+        want_w = compat.n_to_bits2_lut(flat[sl].cpu().numpy())
+        ws = wflat[wsl].cpu().numpy().view("<u8")
+        check(np.array_equal(ws, want_w), f"base-5 {MNT_B5}-nt {label} window != oracle")
+        check(np.array_equal(dflat[sl].cpu().numpy(), compat.bits_to_n2_lut(want_w, MNT_B5)),
+              f"base-5 {MNT_B5}-nt {label} decode window != oracle")
+    del dec
+    torch.cuda.synchronize()
+    say(f"phase 3 base-5 batch: u8[{BATCH_ROWS}, {B5_NT}] encode, encode_checked (clean + one 'X'), "
+        f"decode, decode_checked (clean + one corrupt word) bit-identical; {MNT_B5}-nt windows == "
+        f"oracle ({time.perf_counter() - t0:.1f} s)")
+    return x, words
+
+
 # --- phase 4: host API and compat names ----------------------------------------
 
 def _upper_t_np(s: np.ndarray) -> np.ndarray:
@@ -330,7 +511,10 @@ def _profiled(fn):
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
-        kind = "kernels" if "_2bit_" in ev.key else "copies" if ev.key.startswith("Memcpy") else "other"
+        if "_2bit_" in ev.key or "_b5_" in ev.key:
+            kind = "kernels"
+        else:
+            kind = "copies" if ev.key.startswith("Memcpy") else "other"
         device[kind] += ev.self_device_time_total / 1e3
     return out, wall, device
 
@@ -378,10 +562,44 @@ def phase_api(rng) -> None:
     say(f"  api.bits_to_n, chr1 length: {_breakdown(dec_wall, dec_dev)}")
 
 
+def phase_api_b5(rng) -> None:
+    from cute_nucleotides_tpu_torch import api, compat
+
+    t0 = time.perf_counter()
+    alpha = np.frombuffer(ALPHABET_N, np.uint8)
+    seq = alpha[rng.integers(0, len(alpha), CHR1_NT, dtype=np.uint8)]
+    words, enc_wall, enc_dev = _profiled(lambda: api.n_to_bits2(seq, tier="auto"))
+    want = api.n_to_bits2(seq, tier="oracle")
+    check(words.dtype == np.uint64 and np.array_equal(words, want), "chr1 n_to_bits2 != host oracle")
+    back, dec_wall, dec_dev = _profiled(lambda: api.bits_to_n2(words, CHR1_NT, tier="auto"))
+    check(np.array_equal(back, _upper_t_np(seq)), "chr1 bits_to_n2(n_to_bits2(x)) != upper(x)")
+    t_chr1 = time.perf_counter() - t0
+    for n in RAGGED_B5:
+        s = alpha[rng.integers(0, len(alpha), n)]
+        w = api.n_to_bits2(s)
+        check(np.array_equal(w, api.n_to_bits2(s, tier="oracle")), f"n_to_bits2 length {n}")
+        check(np.array_equal(api.bits_to_n2(w, n), _upper_t_np(s)), f"bits_to_n2 length {n}")
+    check(api.n_to_bits2(b"").size == 0 and api.bits_to_n2(np.zeros(0, np.uint64), 0).size == 0,
+          "base-5 empty input")
+    n = MNT + 3
+    s = alpha[rng.integers(0, len(alpha), n)]
+    w = api.n_to_bits2(s, tier="oracle")
+    s_ref = api.bits_to_n2(w, n, tier="oracle")
+    for name in ("n_to_bits2_lut", "n_to_bits2_pext"):
+        check(np.array_equal(getattr(compat, name)(s), w), f"compat.{name} != oracle")
+    for name in ("bits_to_n2_lut", "bits_to_n2_pdep"):
+        check(np.array_equal(getattr(compat, name)(w, n), s_ref), f"compat.{name} != oracle")
+    say(f"phase 4 base-5 api: chr1-length {CHR1_NT} nt (not a multiple of 27) encode == host oracle "
+        f"and round-trips ({t_chr1:.1f} s with the checks); ragged lengths {RAGGED_B5} ok; four "
+        f"base-5 compat names == oracle on {n} nt")
+    say(f"  api.n_to_bits2, chr1 length: {_breakdown(enc_wall, enc_dev)}")
+    say(f"  api.bits_to_n2, chr1 length: {_breakdown(dec_wall, dec_dev)}")
+
+
 # --- phase 5: the CLI ----------------------------------------------------------
 
-def _write_fastq(path: str, rng) -> list[tuple[bytes, bytes]]:
-    alpha = np.frombuffer(ALPHABET, np.uint8)
+def _write_fastq(path: str, rng, alphabet: bytes = ALPHABET) -> list[tuple[bytes, bytes]]:
+    alpha = np.frombuffer(alphabet, np.uint8)
     seqs = alpha[rng.integers(0, len(alpha), (CLI_READS, CLI_READ_NT), dtype=np.uint8)]
     qual = b"I" * CLI_READ_NT
     records = [(b"read%d" % i, seqs[i].tobytes()) for i in range(CLI_READS)]
@@ -426,6 +644,47 @@ def phase_cli(rng, workdir: str) -> None:
     say(f"  decode --batch {CLI_BATCH}: {_breakdown(dec_wall, dec_dev)}")
 
 
+def phase_cli_b5(rng, workdir: str) -> None:
+    from cute_nucleotides_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    fq = os.path.join(workdir, "reads_b5.fq")
+    nup, nup_oracle, fa, bad_nup, bad_fa = (os.path.join(workdir, f) for f in (
+        "reads_b5.nup", "oracle_b5.nup", "reads_b5.fa", "bad_b5.nup", "bad_b5.fa"))
+    records = _write_fastq(fq, rng, b"ACGTN")
+    batch = ["--batch", str(CLI_BATCH)]
+    rc, enc_wall, enc_dev = _profiled(lambda: cli.main(
+        ["encode", fq, nup, "--codec", "base5", *batch, "--validate"]))
+    check(rc == 0, f"encode --codec base5 --batch --validate exit {rc}")
+    rc, dec_wall, dec_dev = _profiled(lambda: cli.main(["decode", nup, fa, *batch, "--verify-stream"]))
+    check(rc == 0, f"base-5 decode --batch --verify-stream exit {rc}")
+    with open(fa, "rb") as f:
+        check(f.read() == _fasta(records), "base-5 decoded FASTA != input")
+    rc = cli.main(["encode", fq, nup_oracle, "--codec", "base5", "--tier", "oracle"])
+    check(rc == 0, f"encode --codec base5 --tier oracle exit {rc}")
+    with open(nup, "rb") as a, open(nup_oracle, "rb") as b:
+        check(a.read() == b.read(), "base-5 .nup of encode --batch differs from the per-record oracle's")
+    # one corrupt word (triplet 3 reads 127) in one record: refused, named
+    codec, entries = cli.read_nup(nup)
+    k, j = int(rng.integers(0, CLI_READS)), int(rng.integers(0, 6))
+    words = [w.copy() for _, _, w in entries]
+    words[k][j] |= np.uint64(0x7F << 21)
+    cli.write_nup(bad_nup, [e[0] for e in entries], words, [e[1] for e in entries], codec)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["decode", bad_nup, bad_fa, *batch, "--verify-stream"])
+    msg = err.getvalue().strip()
+    check(rc == 1, f"decode --verify-stream of a corrupt .nup exit {rc}")
+    check(msg == f"error: corrupt base-5 word {j} in record read{k}", f"corrupt .nup message: {msg!r}")
+    check(not os.path.exists(bad_fa), "decode of a corrupt .nup left an output file")
+    say(f"phase 5 base-5 cli: {CLI_READS} x {CLI_READ_NT} nt ACGTN FASTQ -> encode --codec base5 "
+        f"--batch {CLI_BATCH} --validate -> decode --batch {CLI_BATCH} --verify-stream == input; "
+        f".nup == oracle's; one corrupt word refused ({msg!r}) ({time.perf_counter() - t0:.1f} s "
+        f"with the checks)")
+    say(f"  encode --codec base5 --batch {CLI_BATCH} --validate: {_breakdown(enc_wall, enc_dev)}")
+    say(f"  decode --batch {CLI_BATCH} --verify-stream: {_breakdown(dec_wall, dec_dev)}")
+
+
 # --- timing -------------------------------------------------------------------
 
 def _time_ms(fn, iters: int) -> float:
@@ -442,15 +701,16 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_timing(x, words, card: str) -> dict:
-    """Each kernel and its plain version at the batch's shapes, in turns."""
+def phase_timing(x, words, x5, words5, card: str) -> dict:
+    """Each kernel and its plain version at the batches' shapes, in turns."""
     import torch
 
     from cute_nucleotides_tpu_torch.ops import kernels as K
 
     nt4 = x.view(torch.uint32)
     packed = words.view(torch.uint8)
-    gib = x.numel() / 2**30  # nt per call, in Gi
+    b5, w5 = x5.view(-1), words5.view(-1)
+    gib, gib5 = x.numel() / 2**30, x5.numel() / 2**30  # nt per call, in Gi
     cases = {
         "encode_2bit_nt4": [(f"[{v}]", lambda v=v: K.encode_2bit_nt4(nt4, v),
                              lambda v=v: K.encode_2bit_nt4_plain(nt4, v)) for v in ("mul", "shift", "interleave")],
@@ -460,12 +720,22 @@ def phase_timing(x, words, card: str) -> dict:
                                      lambda v=v: K.encode_2bit_nt4_checked_plain(nt4, v)) for v in ("mul",)],
         "encode_2bit_nt4_mxu": [("[checked]" if c else "", lambda c=c: K.encode_2bit_nt4_mxu(nt4, c),
                                  lambda c=c: K.encode_2bit_nt4_mxu_plain(nt4, c)) for c in (False, True)],
+        "encode_b5_stream": [("[checked]" if c else "", lambda c=c: K.encode_b5_stream(b5, c),
+                              lambda c=c: K.encode_b5_stream_plain(b5, c)) for c in (False, True)],
+        "decode_b5_stream": [(f"[{m}]", lambda c=c, d=d: K.decode_b5_stream(w5, c, d),
+                              lambda c=c, d=d: K.decode_b5_stream_plain(w5, c, d))
+                             for m, c, d in (("chars", False, False), ("checked", True, False),
+                                             ("digits", False, True))],
     }
-    copy_ms = _time_ms(lambda: x.clone(), 10)
-    say(f"timing on {card}: u8[{BATCH_ROWS}, {BATCH_NT}] ({gib:.3f} Gnt); device copy of the "
-        f"batch {copy_ms:.4f} ms ({2 * gib / (copy_ms / 1e3):.1f} GiB/s read+write)")
+    say(f"timing on {card}: 2-bit u8[{BATCH_ROWS}, {BATCH_NT}] ({gib:.3f} Gnt), base-5 "
+        f"u8[{BATCH_ROWS}, {B5_NT}] ({gib5:.3f} Gnt)")
+    for label, batch, g in (("2-bit", x, gib), ("base-5", x5, gib5)):
+        copy_ms = _time_ms(lambda b=batch: b.clone(), 10)
+        say(f"  device copy of the {label} batch {copy_ms:.4f} ms ({2 * g / (copy_ms / 1e3):.1f} GiB/s "
+            f"read+write)")
     times = {}
     for name, variants in cases.items():
+        g = gib5 if name in B5_KERNELS else gib
         for suffix, kernel, plain in variants:
             p1 = _time_ms(plain, 2)
             k1 = _time_ms(kernel, 20)
@@ -473,8 +743,8 @@ def phase_timing(x, words, card: str) -> dict:
             p2 = _time_ms(plain, 2)
             k_ms, p_ms = min(k1, k2), min(p1, p2)
             torch.cuda.empty_cache()
-            say(f"  {name}{suffix}: kernel {k_ms:.4f} ms ({gib / (k_ms / 1e3):.1f} GiB/s of nt); "
-                f"plain {p_ms:.3f} ms ({gib / (p_ms / 1e3):.2f} GiB/s); runs {k1:.4f}/{k2:.4f} vs "
+            say(f"  {name}{suffix}: kernel {k_ms:.4f} ms ({g / (k_ms / 1e3):.1f} GiB/s of nt); "
+                f"plain {p_ms:.3f} ms ({g / (p_ms / 1e3):.2f} GiB/s); runs {k1:.4f}/{k2:.4f} vs "
                 f"{p1:.3f}/{p2:.3f} ms")
             times.setdefault(name, (k_ms, p_ms))  # the default variant is listed first
     return times
@@ -494,22 +764,35 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         errors = Errors()
         phase_kernels(errors, rng)
-        K.reset_launch_counts()
-        x, words, dec = phase_batch(errors, rng)
-        phase_api(rng)
+        phase_kernels_b5(errors, rng)
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        # each codec's path runs with the counts set to 0 just before it and
+        # read just after; each kernel must have launched on its own path
+        launches = {}
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+            K.reset_launch_counts()
+            x, words, dec = phase_batch(errors, rng)
+            del dec
+            phase_api(rng)
             phase_cli(rng, workdir)
-        torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in K.WRAPPERS}
-        say(f"phase 6 launches by the main path (phases 3-5): {launches}")
-        check(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
-        del dec
+            torch.cuda.synchronize()
+            launches["2-bit"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+            say(f"phase 6 launches by the 2-bit path (phases 3-5): {launches['2-bit']}")
+            K.reset_launch_counts()
+            x5, words5 = phase_batch_b5(errors, rng)
+            phase_api_b5(rng)
+            phase_cli_b5(rng, workdir)
+            torch.cuda.synchronize()
+            launches["base-5"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+            say(f"phase 6 launches by the base-5 path (phases 3-5): {launches['base-5']}")
+        path_of = {k: "base-5" if k in B5_KERNELS else "2-bit" for k in REPLACES}
+        own = {k: launches[path_of[k]][k] for k in REPLACES}
+        check(all(n > 0 for n in own.values()), f"a kernel of its path never launched: {own}")
         torch.cuda.empty_cache()
-        times = phase_timing(x, words, card)
+        times = phase_timing(x, words, x5, words5, card)
         say(json.dumps({"kernels": [
-            {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-             "launches": launches[k], "max_abs_err": errors.max[k],
+            {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+             "launches": own[k], "max_abs_err": errors.max[k],
              "ms": times[k][0], "plain_ms": times[k][1]}
             for k in REPLACES
         ]}))

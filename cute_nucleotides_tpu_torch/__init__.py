@@ -1,4 +1,4 @@
-"""tpu-nucleotides on PyTorch and CUDA: the 2-bit nucleotide codec.
+"""tpu-nucleotides on PyTorch and CUDA: the 2-bit and base-5 nucleotide codecs.
 
 The port of ``cute_nucleotides_tpu`` (the JAX package, kept as the
 reference) to PyTorch, with hand-written CUDA kernels for NVIDIA Hopper

@@ -1,8 +1,9 @@
-"""User-facing 2-bit codec API: host bytes in, u64 words out, and back.
+"""User-facing codec API: host bytes in, u64 words out, and back.
 
-Counterpart of ``n_to_bits``/``bits_to_n`` in ``cute_nucleotides_tpu/api.py``
-with the reference's exact semantics (u64 packed words, explicit decode
-length).  Tiers:
+Counterpart of ``n_to_bits``/``bits_to_n`` (2-bit) and ``n_to_bits2``/
+``bits_to_n2`` (base-5) in ``cute_nucleotides_tpu/api.py`` with the
+reference's exact semantics (u64 packed words, explicit decode length).
+Tiers:
 
 * ``oracle`` -- the host C++ oracle (``cute_nucleotides_tpu.ops.native``);
 * ``torch``  -- eager PyTorch (:mod:`.ops.eager`);
@@ -10,9 +11,10 @@ length).  Tiers:
 * ``auto``   -- ``cuda`` on a CUDA device, ``torch`` on the CPU.
 
 ``device=None`` puts ``auto`` on the card when there is one.  The stream is
-padded with 'A' only to the kernels' 16-nt group; the pad packs to the zero
-high bits the reference leaves in its last word.  For resident batches use
-:class:`.models.TwoBitCodec`.
+padded with 'A' only to the kernels' unit (16 nt for 2-bit, one 27-nt word
+for base-5); the pad packs to the zero bits and digits the reference leaves
+in its last word.  For resident batches use :class:`.models.TwoBitCodec`
+and :class:`.models.Base5Codec`.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from cute_nucleotides_tpu.ops import native, oracle, spec
 from . import TIERS, interop, models
 from .ops import eager, kernels
 
-__all__ = ["n_to_bits", "bits_to_n"]
+__all__ = ["n_to_bits", "bits_to_n", "n_to_bits2", "bits_to_n2"]
 
 _as_u8 = oracle._as_u8
 
@@ -39,13 +41,21 @@ def _resolve(tier: str, device) -> tuple[str, torch.device | None]:
     return models.resolve_tier(tier, dev), dev
 
 
-def _validate_input(seq: np.ndarray) -> None:
-    pos = native.find_invalid(seq, allow_n=False)
+def _validate_input(seq: np.ndarray, allow_n: bool = False) -> None:
+    pos = native.find_invalid(seq, allow_n=allow_n)
     if pos >= 0:
         raise ValueError(
             f"invalid byte {bytes(seq[pos:pos + 1])!r} at position {pos} "
-            "(alphabet: ACGTU, either case)"
+            f"(alphabet: ACGTU{'N' if allow_n else ''}, either case)"
         )
+
+
+def _padded(n: np.ndarray, unit: int, dev: torch.device) -> torch.Tensor:
+    """The bytes on ``dev``, padded with 'A' to a multiple of ``unit``."""
+    x = torch.empty(spec.cdiv(n.size, unit) * unit, dtype=torch.uint8, device=dev)
+    x[: n.size].copy_(interop.to_tensor(n))
+    x[n.size :].fill_(ord("A"))
+    return x
 
 
 def _encode_words(x: torch.Tensor, tier: str, variant: str) -> torch.Tensor:
@@ -78,10 +88,7 @@ def n_to_bits(
         variant = models.DEFAULT_ENCODE_VARIANT[tier]
     if n.size == 0:
         return np.zeros(0, dtype=np.uint64)
-    L = spec.cdiv(n.size, spec.NT_PER_U32_2BIT) * spec.NT_PER_U32_2BIT
-    x = torch.empty(L, dtype=torch.uint8, device=dev)
-    x[: n.size].copy_(interop.to_tensor(n))
-    x[n.size :].fill_(ord("A"))
+    x = _padded(n, spec.NT_PER_U32_2BIT, dev)
     words = _encode_words(x, tier, variant).cpu().numpy()
     out = np.zeros(2 * spec.num_words_2bit(n.size), dtype=np.uint32)
     out[: words.size] = words  # an odd u32 count leaves the last high half 0
@@ -115,3 +122,45 @@ def bits_to_n(
     else:
         chars = eager.decode_2bit_bytes(words, variant)
     return chars[:length].cpu().numpy()
+
+
+def n_to_bits2(seq, *, tier: str = "auto", validate: bool = False, device=None) -> np.ndarray:
+    """Encode {A,C,G,T/U,N} bytes to base-5 packed u64 words (9 triplets of
+    7 bits, LSB-first).
+
+    ``validate=True`` raises ``ValueError`` on the first byte outside
+    ACGTUN (either case); otherwise every byte encodes as
+    ``DIGIT_LUT8[byte & 7]``.
+    """
+    tier, dev = _resolve(tier, device)
+    n = _as_u8(seq)
+    if validate:
+        _validate_input(n, allow_n=True)
+    if tier == "oracle":
+        return native.n_to_bits2(n)
+    if n.size == 0:
+        return np.zeros(0, dtype=np.uint64)
+    x = _padded(n, spec.NT_PER_WORD_B5, dev)
+    encode = kernels.encode_b5_words if tier == "cuda" else eager.encode_b5_words
+    return encode(x).cpu().numpy().view("<u8")
+
+
+def bits_to_n2(bits, length: int, *, tier: str = "auto", device=None) -> np.ndarray:
+    """Decode base-5 packed u64 words to ASCII; ``length`` = nucleotide count.
+
+    Raises ``ValueError`` when ``length`` lies outside ``[0, 27 * words]``.
+    A corrupt word (triplet >= 125) decodes as the host oracle decodes it.
+    """
+    tier, dev = _resolve(tier, device)
+    bits = np.ascontiguousarray(bits, dtype=np.uint64)
+    if not 0 <= length <= bits.size * spec.NT_PER_WORD_B5:
+        raise ValueError(f"length {length} outside [0, {bits.size * spec.NT_PER_WORD_B5}]")
+    if tier == "oracle":
+        return native.bits_to_n2(bits, length)
+    if length == 0:
+        return np.zeros(0, dtype=np.uint8)
+    # only the words that hold the first `length` nt
+    w32 = bits[: spec.num_words_b5(length)].view(np.uint32)
+    words = interop.to_tensor(w32, dev)
+    decode = kernels.decode_b5_bytes if tier == "cuda" else eager.decode_b5_bytes
+    return decode(words)[:length].cpu().numpy()

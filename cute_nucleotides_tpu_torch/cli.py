@@ -1,4 +1,4 @@
-"""Command-line interface of the port: encode / decode / parity, 2-bit codec.
+"""Command-line interface of the port: encode / decode / parity, both codecs.
 
 Counterpart of ``encode``, ``decode`` and ``parity`` in
 ``cute_nucleotides_tpu/cli.py``; it reads and writes the same ``.nup``
@@ -6,12 +6,14 @@ container with the reference's own ``write_nup``/``read_nup``, so files are
 byte-identical between the two packages::
 
     python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --batch 8192 --validate
-    python -m cute_nucleotides_tpu_torch decode out.nup out.fa --batch 8192
+    python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --codec base5 --batch 8192 --validate
+    python -m cute_nucleotides_tpu_torch decode out.nup out.fa --batch 8192 --verify-stream
     python -m cute_nucleotides_tpu_torch parity --tiers torch,auto
 
 ``--batch N`` is the production path: batches of N reads as resident
-tensors through :class:`.models.TwoBitCodec`.  Without it each record goes
-through :mod:`.api` on its own.
+tensors through :class:`.models.TwoBitCodec` or :class:`.models.Base5Codec`.
+Without it each record goes through :mod:`.api` on its own.  The codec of
+``decode`` is the one the ``.nup`` names.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 from cute_nucleotides_tpu.cli import _write_fasta, read_nup, write_nup
 
 from . import TIERS
-_CODECS = ("2bit",)
+
+_CODECS = ("2bit", "base5")
 
 
 def _oracle_has_no_batch_path() -> int:
@@ -47,15 +50,23 @@ def _report_invalid(name: bytes, seq: bytes, pos: int) -> int:
     return 1
 
 
+def _codec_class(codec: str):
+    from .models import Base5Codec, TwoBitCodec
+
+    return TwoBitCodec if codec == "2bit" else Base5Codec
+
+
 def cmd_encode(args) -> int:
     from cute_nucleotides_tpu.ops import native, spec
     from cute_nucleotides_tpu.utils import io as io_lib
 
     records = list(io_lib.open_reads(args.input))
     words_list, lengths = [], []
+    allow_n = args.codec == "base5"
+    words_for = spec.num_words_2bit if args.codec == "2bit" else spec.num_words_b5
     if args.validate and not args.batch:
         for rec in records:
-            pos = native.find_invalid(rec.seq, allow_n=False)
+            pos = native.find_invalid(rec.seq, allow_n=allow_n)
             if pos >= 0:
                 return _report_invalid(rec.name, rec.seq, pos)
 
@@ -64,9 +75,7 @@ def cmd_encode(args) -> int:
             return _oracle_has_no_batch_path()
         import torch
 
-        from .models import TwoBitCodec
-
-        codec = TwoBitCodec(tier=args.tier)
+        codec = _codec_class(args.codec)(tier=args.tier)
         # batches are as wide as the longest read needs (BatchStream rounds
         # up to whole u64 words); --max-len only bounds it
         longest = max((len(r.seq) for r in records), default=0)
@@ -84,7 +93,7 @@ def cmd_encode(args) -> int:
                     # scan cannot explain means they drifted apart
                     for row in range(b.count):
                         seq = bytes(b.reads[row, : int(b.lengths[row])])
-                        pos = native.find_invalid(seq, allow_n=False)
+                        pos = native.find_invalid(seq, allow_n=allow_n)
                         if pos >= 0:
                             return _report_invalid(records[len(lengths) + row].name, seq, pos)
                     print(
@@ -98,13 +107,14 @@ def cmd_encode(args) -> int:
             out = words.cpu().numpy()
             for row in range(b.count):
                 n = int(b.lengths[row])
-                words_list.append(spec.u32_pairs_to_u64(out[row])[: spec.num_words_2bit(n)])
+                words_list.append(spec.u32_pairs_to_u64(out[row])[: words_for(n)])
                 lengths.append(n)
     else:
         from . import api
 
+        encode = api.n_to_bits if args.codec == "2bit" else api.n_to_bits2
         for rec in records:
-            words_list.append(api.n_to_bits(rec.seq, tier=args.tier))
+            words_list.append(encode(rec.seq, tier=args.tier))
             lengths.append(len(rec.seq))
     names = [r.name for r in records]
     write_nup(args.output, names, words_list, lengths, args.codec)
@@ -124,14 +134,27 @@ def _pack_words(chunk: list[tuple[bytes, int, np.ndarray]]) -> np.ndarray:
     return mat.view("<u4")
 
 
+def _report_corrupt(name: bytes, word: int) -> int:
+    print(f"error: corrupt base-5 word {word} in record {name.decode(errors='replace')}",
+          file=sys.stderr)
+    return 1
+
+
 def cmd_decode(args) -> int:
+    from . import interop
+    from .ops import seqops
+
     codec, entries = read_nup(args.input)
-    if codec not in _CODECS:
-        print(f"error: {args.input} holds the {codec} codec; this package decodes "
-              f"{', '.join(_CODECS)}", file=sys.stderr)
-        return 2
     if args.batch and args.tier == "oracle":
         return _oracle_has_no_batch_path()
+    # base-5 words leave triplet codes 125..127 and bit 63 unused, so a
+    # corrupt stream is detectable; the 2-bit stream has no invalid states
+    verify = args.verify_stream and codec == "base5"
+    if verify and not args.batch:
+        for name, _, words in entries:
+            w = int(seqops.first_invalid_word_b5(interop.u64_to_tensor(words)))
+            if w >= 0:
+                return _report_corrupt(name, w)
     # a file is written under a temporary name and renamed on success, so a
     # failure neither leaves a truncated FASTA nor clobbers an existing one
     to_file = args.output != "-"
@@ -142,20 +165,34 @@ def cmd_decode(args) -> int:
         if args.batch:
             import torch
 
-            from .models import TwoBitCodec
-
-            cd = TwoBitCodec(tier=args.tier)
+            cd = _codec_class(codec)(tier=args.tier)
             for start in range(0, len(entries), args.batch):
                 chunk = entries[start : start + args.batch]
                 words = torch.from_numpy(_pack_words(chunk)).to(cd.device)
-                dec = cd.decode(words).cpu().numpy()
+                if verify:
+                    # the check rides the decode's own read; a flagged batch
+                    # is diagnosed row by row (zero pad words are valid)
+                    dec, bad = cd.decode_checked(words)
+                    if bool(bad):
+                        first = seqops.first_invalid_word_b5(words).cpu()
+                        rows = torch.nonzero(first >= 0).flatten().tolist()
+                        if not rows:
+                            print("error: the fused integrity check flagged this batch but "
+                                  "the scan found no corrupt word (refusing to write)",
+                                  file=sys.stderr)
+                            return 1
+                        return _report_corrupt(chunk[rows[0]][0], int(first[rows[0]]))
+                else:
+                    dec = cd.decode(words)
+                dec = dec.cpu().numpy()
                 for i, (name, length, _) in enumerate(chunk):
                     _write_fasta(out, name, dec[i, :length].tobytes())
         else:
             from . import api
 
+            decode = api.bits_to_n if codec == "2bit" else api.bits_to_n2
             for name, length, words in entries:
-                _write_fasta(out, name, api.bits_to_n(words, length, tier=args.tier).tobytes())
+                _write_fasta(out, name, decode(words, length, tier=args.tier).tobytes())
         ok = True
     finally:
         if to_file:
@@ -175,20 +212,24 @@ def cmd_parity(args) -> int:
 
     rng = np.random.default_rng(args.seed)
     alpha = np.frombuffer(b"ACGTUacgtu", np.uint8)
+    alpha_n = np.frombuffer(b"ACGTUNacgtun", np.uint8)
     tiers = args.tiers.split(",")
     failures = 0
     for trial in range(args.trials):
         n = int(rng.integers(1, args.max_len + 1))
-        if trial % 2:
+        kind = trial % 3  # ACGTU, ACGTUN, random bytes
+        if kind == 2:
             s = rng.integers(0, 256, size=n, dtype=np.int64).astype(np.uint8)
         else:
-            s = rng.choice(alpha, size=n)
-        w_ref = oracle.n_to_bits_lut(s)
-        s_ref = oracle.bits_to_n_lut(w_ref, n)
-        checks = [("native", native.n_to_bits(s), w_ref)]
+            s = rng.choice(alpha_n if kind == 1 else alpha, size=n)
+        w_ref, w5_ref = oracle.n_to_bits_lut(s), oracle.n_to_bits2_lut(s)
+        s_ref, s5_ref = oracle.bits_to_n_lut(w_ref, n), oracle.bits_to_n2_lut(w5_ref, n)
+        checks = [("native", native.n_to_bits(s), w_ref), ("native-b5", native.n_to_bits2(s), w5_ref)]
         for tier in tiers:
             checks.append((tier, api.n_to_bits(s, tier=tier), w_ref))
             checks.append((f"decode-{tier}", api.bits_to_n(w_ref, n, tier=tier), s_ref))
+            checks.append((f"{tier}-b5", api.n_to_bits2(s, tier=tier), w5_ref))
+            checks.append((f"decode-{tier}-b5", api.bits_to_n2(w5_ref, n, tier=tier), s5_ref))
         for label, got, want in checks:
             if not np.array_equal(got, want):
                 print(f"PARITY FAIL [{label}] n={n} trial={trial}", file=sys.stderr)
@@ -220,6 +261,10 @@ def main(argv=None) -> int:
     pd.add_argument("input")
     pd.add_argument("output", nargs="?", default="-")
     pd.add_argument("--tier", default="auto", choices=TIERS)
+    pd.add_argument(
+        "--verify-stream", action="store_true",
+        help="refuse a base-5 stream with a corrupt word (exit 1, naming it)",
+    )
     pd.add_argument(
         "--batch", type=int, default=0, metavar="N",
         help="decode N records per device batch (the production path)",

@@ -1,7 +1,7 @@
-"""Drop-in names of the reference crate's 2-bit functions.
+"""Drop-in names of the reference crate's 13 functions.
 
-Counterpart of the 2-bit half of ``cute_nucleotides_tpu/compat.py``: the
-same names, signatures (bytes in, u64 words out, explicit decode length) and
+Counterpart of ``cute_nucleotides_tpu/compat.py``: the same names,
+signatures (bytes in, u64 words out, explicit decode length) and
 bit-identical results.  Each name keeps a mechanism of its own; on a CUDA
 card each runs its kernel, and without one the same variant runs in eager
 PyTorch (``tier="auto"``):
@@ -18,6 +18,10 @@ bits_to_n_lut       host C++ oracle
 bits_to_n_shuffle   ``shuffle``: packed-LUT variable shift
 bits_to_n_pdep      ``swar``: masked spread multiplies
 bits_to_n_clmul     ``select``: arithmetic select tree
+n_to_bits2_lut      host C++ oracle
+n_to_bits2_pext     base-5 encode kernel (funnel-shift byte window per word)
+bits_to_n2_lut      host C++ oracle
+bits_to_n2_pdep     base-5 decode kernel (multiply-shift digit split)
 ==================  ===========================================================
 """
 
@@ -33,6 +37,7 @@ __all__ = [
     "n_to_bits_lut", "n_to_bits_pext", "n_to_bits_shift",
     "n_to_bits_movemask", "n_to_bits_mul",
     "bits_to_n_lut", "bits_to_n_shuffle", "bits_to_n_pdep", "bits_to_n_clmul",
+    "n_to_bits2_lut", "n_to_bits2_pext", "bits_to_n2_lut", "bits_to_n2_pdep",
 ]
 
 
@@ -70,3 +75,19 @@ def bits_to_n_pdep(bits, length: int) -> np.ndarray:
 
 def bits_to_n_clmul(bits, length: int) -> np.ndarray:
     return api.bits_to_n(bits, length, variant="select")
+
+
+def n_to_bits2_lut(n) -> np.ndarray:
+    return native.n_to_bits2(n)
+
+
+def n_to_bits2_pext(n) -> np.ndarray:
+    return api.n_to_bits2(n)
+
+
+def bits_to_n2_lut(bits, length: int) -> np.ndarray:
+    return native.bits_to_n2(bits, length)
+
+
+def bits_to_n2_pdep(bits, length: int) -> np.ndarray:
+    return api.bits_to_n2(bits, length)

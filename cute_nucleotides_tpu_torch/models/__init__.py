@@ -1,8 +1,8 @@
-"""Batch codec: the device-tensor production API of the 2-bit codec.
+"""Batch codecs: the device-tensor production API of both codecs.
 
-Counterpart of ``cute_nucleotides_tpu/models/__init__.py`` (``TwoBitCodec``;
-the base-5 codec is not ported yet).  A codec holds a tier and a device and
-maps resident tensors of shape ``[batch, length]``:
+Counterpart of ``cute_nucleotides_tpu/models/__init__.py`` (``TwoBitCodec``
+and ``Base5Codec``).  A codec holds a tier and a device and maps resident
+tensors of shape ``[batch, length]``:
 
 * ``torch`` -- eager PyTorch (:mod:`..ops.eager`), on any device;
 * ``cuda``  -- the hand-written kernels (:mod:`..ops.kernels`), CUDA only;
@@ -21,9 +21,9 @@ import torch
 
 from cute_nucleotides_tpu.ops import spec
 
-from ..ops import eager, kernels, validate
+from ..ops import eager, kernels, seqops, validate
 
-__all__ = ["CodecConfig", "TwoBitCodec", "pad_batch", "resolve_device", "resolve_tier"]
+__all__ = ["Base5Codec", "CodecConfig", "TwoBitCodec", "pad_batch", "resolve_device", "resolve_tier"]
 
 TIERS = ("torch", "cuda", "auto")
 
@@ -78,6 +78,7 @@ class CodecConfig:
       decode_variant: "swar" (spread multiplies, the pdep slot), "shuffle"
         (packed-LUT shift), "select" (select tree, the clmul slot) or
         "broadcast" (field broadcast; torch only).  None picks the default.
+        Variants are the 2-bit codec's; the base-5 codec takes none.
       device: where the codec's tensors live; None as in
         :func:`resolve_device`.
     """
@@ -126,15 +127,11 @@ def pad_batch(
     return out, lengths
 
 
-class TwoBitCodec:
-    """Batched 2-bit codec: u8[..., L] <-> packed u32[..., L // 16].
+class _CodecBase:
+    """Tier and device of a codec; inputs must be tensors on its device
+    (nothing is moved for the caller)."""
 
-    Inputs must be tensors on the codec's device; nothing is moved for the
-    caller.  L must be a multiple of 16, the kernels' group; :meth:`pad`
-    pads to whole u64 words (32 nt), the stream's unit.
-    """
-
-    block = spec.NT_PER_WORD_2BIT
+    block: int
 
     def __init__(self, config: CodecConfig | None = None, **overrides):
         if config is None:
@@ -144,8 +141,30 @@ class TwoBitCodec:
         self.config = config
         self.device = config.resolved_device()
         self.tier = resolve_tier(config.tier, self.device)
-        self.encode_variant = config.resolved_encode_variant()
-        self.decode_variant = config.resolved_decode_variant()
+
+    def _check(self, t: torch.Tensor) -> None:
+        if t.device != self.device and not (
+            t.device.type == self.device.type == "cuda" and self.device.index is None
+        ):
+            raise ValueError(f"tensor on {t.device}, codec on {self.device}")
+
+    def pad(self, reads):
+        return pad_batch(reads, self.block)
+
+
+class TwoBitCodec(_CodecBase):
+    """Batched 2-bit codec: u8[..., L] <-> packed u32[..., L // 16].
+
+    L must be a multiple of 16, the kernels' group; :meth:`pad` pads to
+    whole u64 words (32 nt), the stream's unit.
+    """
+
+    block = spec.NT_PER_WORD_2BIT
+
+    def __init__(self, config: CodecConfig | None = None, **overrides):
+        super().__init__(config, **overrides)
+        self.encode_variant = self.config.resolved_encode_variant()
+        self.decode_variant = self.config.resolved_decode_variant()
         if self.tier == "cuda":
             for v, torch_only in (
                 (self.encode_variant, _TORCH_ONLY_ENCODE),
@@ -163,12 +182,6 @@ class TwoBitCodec:
             encode_variants, decode_variants = eager.ENCODE_2BIT_VARIANTS, eager.DECODE_2BIT_VARIANTS
         eager.check_variant(self.encode_variant, encode_variants)
         eager.check_variant(self.decode_variant, decode_variants)
-
-    def _check(self, t: torch.Tensor) -> None:
-        if t.device != self.device and not (
-            t.device.type == self.device.type == "cuda" and self.device.index is None
-        ):
-            raise ValueError(f"tensor on {t.device}, codec on {self.device}")
 
     def encode(self, reads: torch.Tensor) -> torch.Tensor:
         """u8[..., L] -> u32[..., L // 16]; L must be a multiple of 16."""
@@ -222,5 +235,66 @@ class TwoBitCodec:
     def words_per_read(self, length: int) -> int:
         return 2 * spec.num_words_2bit(length)  # u32 count
 
-    def pad(self, reads):
-        return pad_batch(reads, self.block)
+
+class Base5Codec(_CodecBase):
+    """Batched base-5 codec: u8[..., L] <-> packed u32[..., 2 * (L // 27)].
+
+    L must be a multiple of 27 (one u64 word); the batch is encoded as one
+    flat stream, since word boundaries survive the flatten.  Base-5 has no
+    variants.  Decoding a corrupt word (triplet >= 125) follows the host
+    oracle: its high digit reads as 'N'.
+    """
+
+    block = spec.NT_PER_WORD_B5
+
+    def __init__(self, config: CodecConfig | None = None, **overrides):
+        super().__init__(config, **overrides)
+        if self.config.encode_variant or self.config.decode_variant:
+            raise ValueError("the base-5 codec has no variants")
+
+    def encode(self, reads: torch.Tensor) -> torch.Tensor:
+        """u8[..., L] -> u32[..., 2 * (L // 27)]; L must be a multiple of 27."""
+        self._check(reads)
+        if self.tier == "cuda":
+            return kernels.encode_b5_words(reads)
+        return eager.encode_b5_words(reads)
+
+    def encode_checked(self, reads: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Encode + validity flag: u8[..., L] -> (u32[..., 2 * (L // 27)],
+        bool scalar).
+
+        The flag is True iff ANY byte lies outside {A,C,G,T,U,N} (either
+        case): one flag per call, as the reference's.  Fused into the encode
+        kernel on the cuda tier; a validity pass beside the encode on the
+        torch tier.  Diagnose with :func:`..ops.validate.first_invalid`.
+        """
+        self._check(reads)
+        if self.tier == "cuda":
+            return kernels.encode_b5_words_checked(reads)
+        bad = (~validate.valid_mask(reads, allow_n=True)).any()
+        return self.encode(reads), bad
+
+    def decode(self, words: torch.Tensor) -> torch.Tensor:
+        """u32[..., 2 * W] -> u8[..., 27 * W] (full blocks; caller truncates)."""
+        self._check(words)
+        if self.tier == "cuda":
+            return kernels.decode_b5_bytes(words)
+        return eager.decode_b5_bytes(words)
+
+    def decode_checked(self, words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Decode + stream-integrity flag: u32[..., 2 * W] -> (u8[..., 27 * W],
+        bool scalar).
+
+        The flag is True iff ANY u64 word is corrupt (a triplet >= 125 or
+        bit 63 set).  Fused into the decode kernel on the cuda tier; the
+        scan :func:`..ops.seqops.first_invalid_word_b5` on the torch tier,
+        which also names the word on a flagged batch.
+        """
+        self._check(words)
+        if self.tier == "cuda":
+            return kernels.decode_b5_bytes_checked(words)
+        bad = (seqops.first_invalid_word_b5(words) >= 0).any()
+        return self.decode(words), bad
+
+    def words_per_read(self, length: int) -> int:
+        return 2 * spec.num_words_b5(length)  # u32 count

@@ -1,2 +1,3 @@
 """Codec operators: the eager ``torch`` tier (:mod:`.eager`), validation
-(:mod:`.validate`) and the CUDA kernels' wrappers (:mod:`.kernels`)."""
+(:mod:`.validate`), packed-stream scans (:mod:`.seqops`) and the CUDA
+kernels' wrappers (:mod:`.kernels`)."""

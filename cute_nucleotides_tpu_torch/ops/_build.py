@@ -3,8 +3,10 @@
 The library goes to ``cute_nucleotides_tpu_torch/build/`` (git-ignored),
 named by a hash of the sources and the compiler flags, so a checkout builds
 it once and an edited source rebuilds it -- the scheme of the reference's
-host oracle (``cute_nucleotides_tpu/native/__init__.py``).  A failed build
-raises with nvcc's stderr; nothing falls back to another implementation.
+host oracle (``cute_nucleotides_tpu/native/__init__.py``).  Each source
+compiles in its own ``nvcc`` process, all started together, and one more
+links them.  A failed build raises with nvcc's stderr; nothing falls back to
+another implementation.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -37,6 +39,8 @@ _SIGNATURES = {
     "cn_decode_2bit": [_vp, _vp, _i64, _int, _vp],
     "cn_encode_2bit_checked": [_vp, _vp, _vp, _i64, _i64, _int, _vp],
     "cn_encode_2bit_pext": [_vp, _vp, _vp, _i64, _i64, _vp],
+    "cn_encode_b5": [_vp, _vp, _vp, _i64, _vp],
+    "cn_decode_b5": [_vp, _vp, _vp, _i64, _int, _vp],
 }
 
 
@@ -62,15 +66,31 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the stderr of a failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failures = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def _compile(sources: list[str], target: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj] for src, obj in zip(sources, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
     os.replace(tmp, target)  # atomic: a concurrent loader never sees half a file
 
 

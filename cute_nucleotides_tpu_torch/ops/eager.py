@@ -1,15 +1,22 @@
-"""The ``torch`` tier: the 2-bit codec in plain eager PyTorch.
+"""The ``torch`` tier: both codecs in plain eager PyTorch.
 
-Counterpart of the 2-bit half of ``cute_nucleotides_tpu/ops/xla.py``, with
-the same variant names and shape contracts:
+Counterpart of ``cute_nucleotides_tpu/ops/xla.py``, with the same variant
+names and shape contracts:
 
 * ``encode_2bit_words``: u8[..., L] -> u32[..., L // 16], L % 16 == 0
 * ``decode_2bit_bytes``: u32[..., W] -> u8[..., 16 * W]
+* ``encode_b5_words``:   u8[..., L] -> u32[..., 2 * (L // 27)], L % 27 == 0
+* ``decode_b5_bytes``:   u32[..., 2 * W] -> u8[..., 27 * W]
 
 ``torch.uint32`` is only a storage type (CPU PyTorch has no ``>>`` on it),
 so every formula here computes on int64 lanes holding the unsigned 32-bit
 value and converts back at the boundary.  The per-lane formulas are also the
 plain versions of the CUDA kernels (:mod:`.kernels`).
+
+A base-5 word whose triplet is 125..127 is corrupt; it decodes as the host
+oracle decodes it (``cute_nucleotides_tpu/native/codec.cpp``): the low two
+digits are ``t % 5`` and ``(t // 5) % 5``, the high digit ``min(t // 25, 4)``.
+Bit 63 is ignored.
 """
 
 from __future__ import annotations
@@ -162,3 +169,73 @@ def decode_2bit_bytes(words: torch.Tensor, variant: str = "broadcast") -> torch.
     b = words.contiguous().view(torch.uint8).to(torch.int64)  # one packed byte per lane
     chars = UNPACK4[variant](b)  # [..., 4W] lanes of 4 chars
     return i64_to_u32(chars).view(torch.uint8).reshape(*lead, 16 * W)
+
+
+# --- base-5 codec --------------------------------------------------------------
+
+def b5_digits(x: torch.Tensor) -> torch.Tensor:
+    """ASCII u8[...] -> base-5 digits int32[...]: ``DIGIT_LUT8[byte & 7]``."""
+    return (spec.DIGIT_LUT8_U32 >> ((x & 7).to(torch.int32) << 2)) & 0xF
+
+
+def b5_word_halves(word: torch.Tensor) -> torch.Tensor:
+    """int64 u64 words [..., W] -> their little-endian u32 halves u32[..., 2W]."""
+    halves = torch.stack([word & _U32, word >> 32], dim=-1)
+    return i64_to_u32(halves).reshape(*word.shape[:-1], 2 * word.shape[-1])
+
+
+def b5_word_triplets(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """u32 halves of u64 words as int64 [...] -> the 9 triplets int64[..., 9]
+    (bit 63 dropped)."""
+    word = lo | (hi << 32)  # bit 63 may wrap the sign; every mask drops it
+    shifts = 7 * torch.arange(spec.TRIPLETS_PER_WORD, device=lo.device, dtype=torch.int64)
+    return (word[..., None] >> shifts) & 0x7F
+
+
+def b5_triplet_digits(t: torch.Tensor) -> torch.Tensor:
+    """Triplets [...] -> digits [..., 3] (low first), by the exact
+    multiply-shift divisions ``t // 5 == (t * 205) >> 10`` and
+    ``t // 25 == (t * 41) >> 10`` (t < 1024); a corrupt triplet (>= 125)
+    keeps its high digit at 4."""
+    q5 = (t * 205) >> 10
+    q25 = (t * 41) >> 10
+    return torch.stack([t - 5 * q5, q5 - 5 * q25, q25.clamp(max=4)], dim=-1)
+
+
+def b5_digit_chars(d: torch.Tensor) -> torch.Tensor:
+    """Digits 0..4 -> ASCII 'ACTGN' (``spec.DIG_TO_CHAR_B5``), as
+    'A' + 2d + 15[d == 2] + 5[d == 4]."""
+    return 0x41 + 2 * d + 15 * (d == 2) + 5 * (d == 4)
+
+
+def encode_b5_words(x: torch.Tensor) -> torch.Tensor:
+    """Encode u8[..., L] (L % 27 == 0) to packed u32[..., 2 * (L // 27)]:
+    the little-endian u32 halves of the reference's u64 words.
+
+    Each word is one integer weighted sum of its 27 digits, digit ``3j + r``
+    weighing ``5**r << 7j`` (no float matmul, so no precision setting can
+    change it); every term and the sum stay below 2**63.
+    """
+    if x.dtype != torch.uint8:
+        raise TypeError(f"expected uint8 bytes, got {x.dtype}")
+    L = x.shape[-1]
+    if L % spec.NT_PER_WORD_B5:
+        raise ValueError(f"last dim {L} not a multiple of 27")
+    lead, W = x.shape[:-1], L // spec.NT_PER_WORD_B5
+    d = b5_digits(x).to(torch.int64).reshape(*lead, W, spec.NT_PER_WORD_B5)
+    i = torch.arange(spec.NT_PER_WORD_B5, device=x.device, dtype=torch.int64)
+    weights = torch.tensor([1, 5, 25], device=x.device, dtype=torch.int64)[i % 3] << (7 * (i // 3))
+    return b5_word_halves((d * weights).sum(-1))
+
+
+def decode_b5_bytes(words: torch.Tensor) -> torch.Tensor:
+    """Decode packed u32[..., 2 * W] to ASCII u8[..., 27 * W] (full blocks;
+    callers truncate to the nucleotide count)."""
+    if words.dtype != torch.uint32:
+        raise TypeError(f"expected uint32 words, got {words.dtype}")
+    if words.shape[-1] % 2:
+        raise ValueError("base-5 packed stream must have even u32 count")
+    lead, W = words.shape[:-1], words.shape[-1] // 2
+    pair = u32_to_i64(words).reshape(*lead, W, 2)
+    d = b5_triplet_digits(b5_word_triplets(pair[..., 0], pair[..., 1]))
+    return b5_digit_chars(d).to(torch.uint8).reshape(*lead, spec.NT_PER_WORD_B5 * W)

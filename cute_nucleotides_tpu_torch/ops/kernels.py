@@ -1,5 +1,6 @@
 """The ``cuda`` tier: wrappers of the hand-written Hopper kernels in
-``csrc/codec2bit.cu``, each beside its plain PyTorch version.
+``csrc/codec2bit.cu`` and ``csrc/codec_b5.cu``, each beside its plain
+PyTorch version.
 
 A wrapper runs its plain version only for a tensor on the CPU; for a CUDA
 tensor it launches its kernel (building the library on first use) or raises.
@@ -13,9 +14,14 @@ packed byte holds 4 nt at 2 bits each, LSB-first.  The kernels need no TPU
 tiling: any lane count works, except that a checked row and the pext words
 need whole 16-nt groups (C % 4 == 0).
 
-Every kernel is bound by device memory: the encoders read 4 bytes and write
-1 per 4 nt, the decoder the reverse, i.e. 5 bytes moved per 4 nt.  Times on
-the H100 beside the plain versions' are in PERF.md.
+The base-5 kernels take flat streams: 27 N ASCII bytes <-> N u64 words as
+2 N u32 halves.  A batch u8[..., L] with L % 27 == 0 flattens into one
+stream, because word boundaries survive the flatten.
+
+Every kernel is bound by device memory: the 2-bit encoders read 4 bytes and
+write 1 per 4 nt, the decoder the reverse (5 bytes moved per 4 nt); the
+base-5 kernels move 27 bytes and one 8-byte word per 27 nt (35 bytes).
+Times on the H100 beside the plain versions' are in PERF.md.
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ import math
 
 import torch
 
-from . import _build, eager
+from cute_nucleotides_tpu.ops import spec
+
+from . import _build, eager, seqops, validate
 
 ENCODE_2BIT_VARIANTS = ("mul", "shift", "interleave", "mxu")
 DECODE_2BIT_VARIANTS = ("shuffle", "select", "swar")
@@ -231,7 +239,129 @@ def encode_2bit_nt4_mxu(x: torch.Tensor, checked: bool = False):
 
 encode_2bit_nt4_mxu.launches = 0
 
-WRAPPERS = (encode_2bit_nt4, decode_2bit_nt4, encode_2bit_nt4_checked, encode_2bit_nt4_mxu)
+
+# --- kernel #5: base-5 encode (+ validity flag) --------------------------------
+
+def _check_stream(x: torch.Tensor, dtype: torch.dtype, unit: int, what: str) -> int:
+    """The unit count of a flat stream of ``unit`` elements per unit."""
+    if x.dtype != dtype or x.ndim != 1:
+        raise TypeError(f"expected {what}, got {x.dtype}{tuple(x.shape)}")
+    if x.numel() % unit:
+        raise ValueError(f"{what}: length {x.numel()} is not a multiple of {unit}")
+    return x.numel() // unit
+
+
+def encode_b5_stream_plain(x: torch.Tensor, checked: bool = False):
+    """Plain version of :func:`encode_b5_stream`: digits, triplets, then the
+    9 triplets shifted into an int64 word."""
+    d = eager.b5_digits(x).reshape(-1, spec.TRIPLETS_PER_WORD, 3)
+    t = (d[..., 0] + 5 * d[..., 1] + 25 * d[..., 2]).to(torch.int64)
+    shifts = 7 * torch.arange(spec.TRIPLETS_PER_WORD, device=x.device, dtype=torch.int64)
+    words = eager.b5_word_halves((t << shifts).sum(-1))  # disjoint bit fields: sum == OR
+    if not checked:
+        return words
+    bad = (~validate.valid_mask(x, allow_n=True)).any()
+    return words, eager.i64_to_u32(bad.to(torch.int64).reshape(1))
+
+
+def encode_b5_stream(x: torch.Tensor, checked: bool = False):
+    """Encode a flat ASCII stream u8[27 N] -> packed u32[2 N], the u32
+    halves of N base-5 u64 words.  With ``checked=True`` it returns
+    ``(words, flag u32[1])``; the flag is 1 iff some byte lies outside
+    {A,C,G,T,U,N} (either case), one flag per call as the reference's.
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:
+    _encode_b5_panels_call`` (the interleaved panel encoder and its checked
+    mode), whose constant bf16 matmul did the 7-bit packing because the TPU
+    has no byte gather.  Here one thread packs one word: a block stages
+    3456 bytes (128 words) into shared memory with 16-byte loads, each
+    thread realigns its 27 bytes with funnel shifts and writes one 8-byte
+    word.  Bound by memory (27 B read, 8 B written per 27 nt); the digits
+    and the validity test work on 4 bytes per u32 op, so the integer pipes
+    keep up (the checked mode adds one ``__reduce_or_sync`` per warp and
+    one ``atomicOr``).  Time on the H100: PERF.md.
+    """
+    n = _check_stream(x, torch.uint8, spec.NT_PER_WORD_B5, "ASCII u8[27 N]")
+    if not _on_cuda(x):
+        return encode_b5_stream_plain(x, checked)
+    out = torch.empty(2 * n, dtype=torch.uint32, device=x.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=x.device) if checked else None
+    if n:
+        lib = _build.load()
+        with torch.cuda.device(x.device):
+            _launch(lib.cn_encode_b5, x.data_ptr(), out.data_ptr(),
+                    flag.data_ptr() if checked else None, n, _stream(x))
+        encode_b5_stream.launches += 1
+    return (out, flag.view(torch.uint32)) if checked else out
+
+
+encode_b5_stream.launches = 0
+
+
+# --- kernel #6: base-5 decode (chars, checked, digits) --------------------------
+
+#: the kernel's modes (``DecodeMode`` in csrc/codec_b5.cu)
+_B5_CHARS, _B5_CHECKED, _B5_DIGITS = 0, 1, 2
+
+
+def _b5_decode_mode(checked: bool, digits: bool) -> int:
+    if checked and digits:
+        raise ValueError(
+            "checked digit decode is not a mode of the kernel: the checked "
+            "decode emits chars (decode digits without the check)"
+        )
+    return _B5_CHECKED if checked else _B5_DIGITS if digits else _B5_CHARS
+
+
+def decode_b5_stream_plain(words: torch.Tensor, checked: bool = False, digits: bool = False):
+    """Plain version of :func:`decode_b5_stream`."""
+    _b5_decode_mode(checked, digits)
+    pair = eager.u32_to_i64(words).reshape(-1, 2)
+    t = eager.b5_word_triplets(pair[:, 0], pair[:, 1])
+    d = eager.b5_triplet_digits(t)
+    out = (d if digits else eager.b5_digit_chars(d)).to(torch.uint8).reshape(-1)
+    if not checked:
+        return out
+    bad = seqops.first_invalid_word_b5(words) >= 0
+    return out, eager.i64_to_u32(bad.to(torch.int64).reshape(1))
+
+
+def decode_b5_stream(words: torch.Tensor, checked: bool = False, digits: bool = False):
+    """Decode packed u32[2 N] (N base-5 u64 words) -> u8[27 N]: upper-case
+    ASCII 'ACTGN', or with ``digits=True`` the digit bytes 0..4 in that
+    order.  With ``checked=True`` it returns ``(bytes, flag u32[1])``; the
+    flag is 1 iff some word has a triplet >= 125 or bit 63 set.  A corrupt
+    triplet decodes as the host oracle's (high digit clamped to 4).
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:
+    _decode_b5_inter_call`` (chars, checked and digits modes), whose bf16
+    gather and int8 scatter matmuls stood in for the TPU's missing byte
+    shuffle.  Here one thread decodes one word (one coalesced 8-byte load),
+    splits its triplets with exact multiply-shifts, and writes 27 digit
+    bytes into shared memory; the block stores its 3456-byte tile with
+    16-byte vectors, turning digits into chars 4 bytes per u32 op on the
+    way.  Bound by memory (8 B read, 27 B written per 27 nt).  Time on the
+    H100: PERF.md.
+    """
+    mode = _b5_decode_mode(checked, digits)
+    n = _check_stream(words, torch.uint32, 2, "packed u32[2 N]")
+    if not _on_cuda(words):
+        return decode_b5_stream_plain(words, checked, digits)
+    out = torch.empty(spec.NT_PER_WORD_B5 * n, dtype=torch.uint8, device=words.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=words.device) if checked else None
+    if n:
+        lib = _build.load()
+        with torch.cuda.device(words.device):
+            _launch(lib.cn_decode_b5, words.data_ptr(), out.data_ptr(),
+                    flag.data_ptr() if checked else None, n, mode, _stream(words))
+        decode_b5_stream.launches += 1
+    return (out, flag.view(torch.uint32)) if checked else out
+
+
+decode_b5_stream.launches = 0
+
+WRAPPERS = (encode_2bit_nt4, decode_2bit_nt4, encode_2bit_nt4_checked, encode_2bit_nt4_mxu,
+            encode_b5_stream, decode_b5_stream)
 
 
 def reset_launch_counts() -> None:
@@ -291,3 +421,65 @@ def decode_2bit_bytes(words: torch.Tensor, variant: str = "swar") -> torch.Tenso
     W = words.shape[-1]
     nt4 = decode_2bit_nt4(_rows(words, W).view(torch.uint8), variant)
     return nt4.view(torch.uint8).view(*words.shape[:-1], 16 * W)
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    """View t as one flat stream without copying (raises if it cannot)."""
+    return t.new_empty(0) if t.numel() == 0 else t.view(-1)
+
+
+def _b5_bytes(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype != torch.uint8:
+        raise TypeError(f"expected uint8 bytes, got {x.dtype}")
+    if x.shape[-1] % spec.NT_PER_WORD_B5:
+        raise ValueError(f"last dim {x.shape[-1]} not a multiple of 27")
+    return _flat(x)
+
+
+def _b5_words(words: torch.Tensor) -> torch.Tensor:
+    if words.dtype != torch.uint32:
+        raise TypeError(f"expected uint32 words, got {words.dtype}")
+    if words.shape[-1] % 2:
+        raise ValueError("base-5 packed stream must have even u32 count")
+    return _flat(words)
+
+
+def _flag(flag: torch.Tensor) -> torch.Tensor:
+    """u32[1] kernel flag -> bool scalar tensor."""
+    return flag.view(torch.int32)[0] != 0
+
+
+def _b5_encoded(x: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    return words.view(*x.shape[:-1], 2 * (x.shape[-1] // spec.NT_PER_WORD_B5))
+
+
+def encode_b5_words(x: torch.Tensor) -> torch.Tensor:
+    """u8[..., L] (L % 27 == 0) -> packed u32[..., 2 * (L // 27)]."""
+    return _b5_encoded(x, encode_b5_stream(_b5_bytes(x)))
+
+
+def encode_b5_words_checked(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """u8[..., L] -> (u32[..., 2 * (L // 27)], bool scalar: some byte lies
+    outside {A,C,G,T,U,N})."""
+    words, flag = encode_b5_stream(_b5_bytes(x), checked=True)
+    return _b5_encoded(x, words), _flag(flag)
+
+
+def _b5_decoded(words: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    return out.view(*words.shape[:-1], spec.NT_PER_WORD_B5 * (words.shape[-1] // 2))
+
+
+def decode_b5_bytes(words: torch.Tensor) -> torch.Tensor:
+    """u32[..., 2 * W] -> ASCII u8[..., 27 * W] (full blocks)."""
+    return _b5_decoded(words, decode_b5_stream(_b5_words(words)))
+
+
+def decode_b5_bytes_checked(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """u32[..., 2 * W] -> (u8[..., 27 * W], bool scalar: some word is corrupt)."""
+    out, flag = decode_b5_stream(_b5_words(words), checked=True)
+    return _b5_decoded(words, out), _flag(flag)
+
+
+def decode_b5_digits(words: torch.Tensor) -> torch.Tensor:
+    """u32[..., 2 * W] -> digit bytes u8[..., 27 * W] (0..4 as A, C, T, G, N)."""
+    return _b5_decoded(words, decode_b5_stream(_b5_words(words), digits=True))

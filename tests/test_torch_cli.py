@@ -78,10 +78,11 @@ def test_refusals(tmp_path, capsys):
     assert cli.main(["encode", str(fa), str(tmp_path / "o.nup"), "--tier", "oracle", "--batch", "4"]) == 2
     b5 = tmp_path / "b5.nup"
     assert ref_cli.main(["encode", str(fa), str(b5), "--codec", "base5", "--tier", "oracle"]) == 0
-    assert cli.main(["decode", str(b5), str(tmp_path / "o.fa")]) == 2
-    assert "base5" in capsys.readouterr().err
+    assert cli.main(["decode", str(b5), str(tmp_path / "o.fa"), "--tier", "oracle", "--batch", "4"]) == 2
+    assert "no batch device path" in capsys.readouterr().err
+    assert not (tmp_path / "o.fa").exists()
     with pytest.raises(SystemExit):
-        cli.main(["encode", str(fa), str(tmp_path / "o.nup"), "--codec", "base5"])
+        cli.main(["encode", str(fa), str(tmp_path / "o.nup"), "--codec", "base7"])
     with pytest.raises(SystemExit):
         cli.main(["encode", str(fa), str(tmp_path / "o.nup"), "--tier", "pallas"])
 

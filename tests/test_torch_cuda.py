@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card: each against its plain version, the cuda
-tier against the torch tier and the oracle, launch counts and refusals.
+"""The CUDA kernels of both codecs on the card: each against its plain
+version, the cuda tier against the torch tier and the oracle, launch counts
+and refusals.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX, so it also runs where JAX is not installed; the tests' conftest
@@ -19,6 +20,8 @@ from cute_nucleotides_tpu_torch.ops import kernels as K
 pytestmark = pytest.mark.cuda
 
 ALPHABET = np.frombuffer(b"ACGTUacgtu", np.uint8)
+ALPHABET_N = np.frombuffer(b"ACGTUNacgtun", np.uint8)
+B5_MODES = ((False, False), (True, False), (False, True))  # chars, checked, digits
 ENCODE = ("mul", "shift", "interleave")
 DECODE = ("shuffle", "select", "swar")
 RAGGED = (1, 15, 16, 17, 31, 32, 33)
@@ -104,10 +107,95 @@ def test_launch_counts_and_alignment(cuda_device):
     K.encode_2bit_nt4_mxu(t)
     K.encode_2bit_nt4_mxu(t, checked=True)
     K.decode_2bit_nt4(K.encode_2bit_nt4(t))
-    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2]
+    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0]
     misaligned = torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:36]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_2bit_nt4(misaligned.view(torch.uint32).view(2, 4))
     with pytest.raises(ValueError, match="contiguous"):
         K.encode_2bit_nt4(interop.to_tensor(_nt4(4, 8, 9), cuda_device)[:, ::2])
     assert K.encode_2bit_nt4.launches == 2
+
+
+@pytest.mark.parametrize("n_words", (1, 2, 127, 128, 129, 40_000))
+def test_b5_kernels_match_plain(cuda_device, n_words):
+    x = interop.to_tensor(np.random.default_rng(n_words).choice(ALPHABET_N, size=27 * n_words), cuda_device)
+    assert _same(K.encode_b5_stream(x), K.encode_b5_stream_plain(x))
+    for bad in (False, True):
+        if bad:
+            x[27 * n_words // 2] = ord("X")
+        words, flag = K.encode_b5_stream(x, checked=True)
+        pwords, pflag = K.encode_b5_stream_plain(x, checked=True)
+        assert _same(words, pwords) and _same(flag, pflag)
+        assert interop.to_numpy(flag).tolist() == [int(bad)]
+    words = K.encode_b5_stream_plain(x)
+    for corrupt in (False, True):
+        if corrupt:
+            words.view(torch.int32)[-1] |= -(1 << 31)  # bit 63 of the last word
+        for checked, digits in B5_MODES:
+            got = K.decode_b5_stream(words, checked, digits)
+            want = K.decode_b5_stream_plain(words, checked, digits)
+            if checked:
+                assert _same(got[0], want[0]) and _same(got[1], want[1])
+                assert interop.to_numpy(got[1]).tolist() == [int(corrupt)]
+            else:
+                assert _same(got, want)
+
+
+def test_b5_flags_exact_on_every_byte_and_triplet(cuda_device):
+    valid = set(ALPHABET_N.tolist())
+    for v in range(256):
+        x = torch.full((54,), ord("A"), dtype=torch.uint8, device=cuda_device)
+        x[v % 54] = v
+        _, flag = K.encode_b5_stream(x, checked=True)
+        assert interop.to_numpy(flag).tolist() == [int(v not in valid)], v
+    t = np.arange(128, dtype=np.uint64)
+    w64 = np.concatenate([(t << np.uint64(7 * j)) | (np.uint64(b) << np.uint64(63))
+                          for j in range(9) for b in (0, 1)])
+    w = interop.u64_to_tensor(w64, cuda_device)
+    for checked, digits in B5_MODES:
+        got, want = K.decode_b5_stream(w, checked, digits), K.decode_b5_stream_plain(w, checked, digits)
+        assert _same(got[0], want[0]) if checked else _same(got, want)
+    assert np.array_equal(interop.to_numpy(K.decode_b5_stream(w)), native.bits_to_n2(w64, 27 * w64.size))
+    for v in range(128):
+        for b in (0, 1):
+            one = np.array([(v << (7 * (v % 9))) | (b << 63)], dtype=np.uint64)
+            _, flag = K.decode_b5_stream(interop.u64_to_tensor(one, cuda_device), checked=True)
+            assert interop.to_numpy(flag).tolist() == [int(v >= 125 or b == 1)], (v, b)
+
+
+def test_b5_cuda_tier_matches_torch_tier(cuda_device):
+    x = np.random.default_rng(4).choice(ALPHABET_N, size=(7, 27 * 150))
+    cpu, gpu = interop.to_tensor(x), interop.to_tensor(x, cuda_device)
+    ref, codec = models.Base5Codec(tier="torch"), models.Base5Codec(device=cuda_device)
+    assert codec.tier == "cuda"
+    words = ref.encode(cpu)
+    assert _same(codec.encode(gpu), words)
+    got_words, bad = codec.encode_checked(gpu)
+    assert _same(got_words, words) and not bool(bad)
+    gw = interop.to_tensor(interop.to_numpy(words), cuda_device)
+    assert torch.equal(codec.decode(gw).cpu(), ref.decode(words))
+    out, bad = codec.decode_checked(gw)
+    assert torch.equal(out.cpu(), ref.decode(words)) and not bool(bad)
+
+
+@pytest.mark.parametrize("n", (0, 1, 26, 27, 28, 53, 54, 55, 100_003))
+def test_b5_api_cuda_tier_matches_oracle(cuda_device, n):
+    s = np.random.default_rng(n).choice(ALPHABET_N, size=n)
+    want = native.n_to_bits2(s)
+    assert np.array_equal(api.n_to_bits2(s, tier="cuda"), want)
+    assert np.array_equal(api.bits_to_n2(want, n, tier="cuda"), native.bits_to_n2(want, n))
+
+
+def test_b5_launch_counts_and_alignment(cuda_device):
+    K.reset_launch_counts()
+    x = interop.to_tensor(np.random.default_rng(5).choice(ALPHABET_N, size=27 * 64), cuda_device)
+    w = K.encode_b5_stream(x)
+    K.encode_b5_stream(x, checked=True)
+    for checked, digits in B5_MODES:
+        K.decode_b5_stream(w, checked, digits)
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3]
+    with pytest.raises(ValueError, match="aligned"):
+        K.encode_b5_stream(torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:31])
+    with pytest.raises(ValueError, match="checked digit"):
+        K.decode_b5_stream(w, checked=True, digits=True)
+    assert K.encode_b5_stream.launches == 2 and K.decode_b5_stream.launches == 3

@@ -39,7 +39,7 @@ def test_port_runs_without_loading_jax():
 import sys
 import cute_nucleotides_tpu_torch as cnt
 from cute_nucleotides_tpu_torch import api, cli, compat, interop, models
-from cute_nucleotides_tpu_torch.ops import eager, kernels, validate
+from cute_nucleotides_tpu_torch.ops import eager, kernels, seqops, validate
 import chip_smoke
 seq = b"ACGTUacgtuNACGT" * 11
 words = api.n_to_bits(seq)
@@ -49,6 +49,13 @@ codec = models.TwoBitCodec()
 x = interop.to_tensor(bytes(seq[:160]), "cpu").view(2, 80)
 assert codec.decode(codec.encode(x)).shape == (2, 80)
 assert compat.n_to_bits_pext(b"ACGT" * 8).tolist() == compat.n_to_bits_lut(b"ACGT" * 8).tolist()
+words2 = api.n_to_bits2(seq)
+assert bytes(api.bits_to_n2(words2, len(seq))) == seq.upper().replace(b"U", b"T")
+b5 = models.Base5Codec()
+w5, bad = b5.decode_checked(b5.encode(interop.to_tensor(bytes(seq[:162]), "cpu").view(2, 81)))
+assert w5.shape == (2, 81) and not bool(bad)
+assert int(seqops.first_invalid_word_b5(b5.encode(x[:, :54]))[0]) == -1
+assert compat.n_to_bits2_pext(b"ATCGN" * 7).tolist() == compat.n_to_bits2_lut(b"ATCGN" * 7).tolist()
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX", loaded)
 assert not loaded, loaded
@@ -68,19 +75,22 @@ for call in (lambda: api.n_to_bits(b"ACGT", tier="cuda"),
              lambda: api.bits_to_n(np.zeros(1, np.uint64), 4, tier="cuda"),
              lambda: models.TwoBitCodec(tier="cuda"),
              lambda: models.TwoBitCodec(tier="cuda", device="cpu"),
-             lambda: api.n_to_bits(b"ACGT", tier="auto", device="cuda")):
+             lambda: api.n_to_bits(b"ACGT", tier="auto", device="cuda"),
+             lambda: api.n_to_bits2(b"ACGTN", tier="cuda"),
+             lambda: api.bits_to_n2(np.zeros(1, np.uint64), 5, tier="cuda"),
+             lambda: models.Base5Codec(tier="cuda")):
     try:
         call()
     except (RuntimeError, ValueError) as e:
         print("raised", type(e).__name__)
     else:
         raise SystemExit("no error")
-print("auto resolves to", models.TwoBitCodec().tier)
+print("auto resolves to", models.TwoBitCodec().tier, models.Base5Codec().tier)
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.count("raised") == 5
-    assert "auto resolves to torch" in proc.stdout
+    assert proc.stdout.count("raised") == 8
+    assert "auto resolves to torch torch" in proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda():
