@@ -18,9 +18,19 @@ calls:
      --validate`` -> ``decode --batch 8192`` -> FASTA, for ``--codec 2bit``
      and for ``--codec base5`` (decode with ``--verify-stream``, and a
      corrupted copy refused);
-  6. launch counts of phases 3-5, read per codec (each codec's path runs
-     with the counts set to 0 just before it), then each kernel's time
-     beside its plain version's (CUDA events).
+  6. launch counts of phases 3-5, read per path (each codec's path and the
+     search path run with the counts set to 0 just before them), then each
+     kernel's time beside its plain version's (CUDA events).
+
+The search path: phase 2 holds both search kernels against their plain
+versions at the word seams, with wildcards, planted hits, a poly-A query
+on a poly-A stream, a query over 8192 nt (2-bit) and every triplet value
+with and without bit 63 (base-5); phase 3 runs ``search.match_bits`` /
+``match_count`` and their ``_b5`` twins on the flattened 1-Gnt and
+1.07-Gnt batches (7 nt, 45 nt with wildcards, a planted 20-nt primer);
+phase 5 runs ``grep --both`` on one chr1-length record of each codec with a
+45-nt query planted on both strands, and ``grep --count --both --batch
+8192`` on the 200,000-read files, each against a numpy scan of the bytes.
 
 Phases 4 and 5 run their calls under ``torch.profiler`` (CUDA activity) and
 print the device time of the port's kernels, of copies and of other device
@@ -60,6 +70,11 @@ CLI_READS, CLI_READ_NT, CLI_BATCH = 200_000, 150, 8192
 RAGGED = (1, 15, 16, 17, 31, 32, 33)
 RAGGED_B5 = (1, 26, 27, 28, 53, 54, 55)  # nt, through the api
 B5_WORDS = (1, 2, 127, 128, 129)  # words, straight into the kernels
+SEARCH_NT = (1, 15, 16, 17, 31, 32, 33, 5000, 100_003)  # 2-bit stream lengths, nt
+SEARCH_NT_B5 = (1, 15, 16, 17, 26, 27, 28, 31, 32, 33, 27 * 127, 27 * 128, 27 * 129, 27 * 129 + 13)
+SEARCH_M = (1, 7, 16, 17, 32, 33, 45, 141)  # query lengths, nt
+LONG_QUERY, B5_MAX_QUERY = 8200, 1024
+PRIMER = b"GTTCAGAGTTCTACAGTCCG"  # 20 nt
 _PK = "cute_nucleotides_tpu/ops/pallas_kernels.py"
 REPLACES = {
     "encode_2bit_nt4": f"{_PK}:216",
@@ -68,10 +83,14 @@ REPLACES = {
     "encode_2bit_nt4_mxu": f"{_PK}:819",
     "encode_b5_stream": f"{_PK}:1067",
     "decode_b5_stream": f"{_PK}:1423",
+    "match_bits_stream": "cute_nucleotides_tpu/ops/search.py:263",
+    "match_b5_bits_stream": f"{_PK}:1986",
 }
-B5_KERNELS = ("encode_b5_stream", "decode_b5_stream")
+B5_KERNELS = ("encode_b5_stream", "decode_b5_stream", "match_b5_bits_stream")
+SEARCH_KERNELS = ("match_bits_stream", "match_b5_bits_stream")
 _CSRC = "cute_nucleotides_tpu_torch/csrc"
-SOURCES = {k: f"{_CSRC}/codec_b5.cu" if k in B5_KERNELS else f"{_CSRC}/codec2bit.cu" for k in REPLACES}
+SOURCES = {k: f"{_CSRC}/search.cu" if k in SEARCH_KERNELS else f"{_CSRC}/codec_b5.cu" if k in B5_KERNELS
+           else f"{_CSRC}/codec2bit.cu" for k in REPLACES}
 
 
 class SmokeFailure(Exception):
@@ -313,6 +332,88 @@ def phase_kernels_b5(errors: Errors, rng) -> None:
         f"({errors.count} comparisons in phase 2; max abs err {errors.max})")
 
 
+def _planted(rng, n: int, alpha: bytes, m: int, wildcard: bytes):
+    """A seeded n-nt stream over alpha and an m-nt query taken from it with
+    every fifth byte a wildcard, planted at the last start, in the middle
+    and at 0."""
+    a = np.frombuffer(alpha, np.uint8)
+    q = bytearray(rng.choice(a, m).tobytes())
+    q[::5] = wildcard * len(q[::5])
+    s = rng.choice(a, n)
+    concrete = np.frombuffer(bytes(q).replace(wildcard, alpha[:1]), np.uint8)
+    for p in (n - m, n // 2, 0):  # 0 last: its hit survives any overlap
+        if 0 <= p <= n - m:
+            s[p : p + m] = concrete
+    return s, bytes(q)
+
+
+def phase_kernels_search(errors: Errors, rng) -> None:
+    """Both search kernels against their plain versions at the word seams,
+    every query length, wildcards and planted hits; poly-A on poly-A (every
+    anchor fires); a query over 8192 nt (2-bit); every triplet value with and
+    without bit 63 against literal-N queries (base-5)."""
+    import torch
+
+    from cute_nucleotides_tpu_torch import api, interop
+    from cute_nucleotides_tpu_torch.ops import kernels as K, search
+
+    dev = "cuda"
+    k2, k5 = SEARCH_KERNELS
+
+    def one_2bit(w, n, query, what):
+        q, care, m = search.compile_query(query)
+        errors.compare(k2, K.match_bits_stream(w, q, care, n - m + 1),
+                       K.match_bits_stream_plain(w, q, care, n - m + 1), what)
+
+    def one_b5(w, n, query, what):
+        qc = search.compile_query_b5(query)
+        errors.compare(k5, K.match_b5_bits_stream(w, qc, n - len(query) + 1),
+                       K.match_b5_bits_stream_plain(w, qc, n - len(query) + 1), what)
+
+    cases = 0
+    for n in SEARCH_NT:
+        for m in SEARCH_M + (LONG_QUERY,):
+            if m <= n:
+                s, query = _planted(rng, n, b"ACGT", m, b"N")
+                w = interop.u64_to_tensor(api.n_to_bits(s, tier="oracle"), dev)
+                one_2bit(w, n, query, f"2-bit search {n} nt, {m}-nt query")
+                check(0 in search.match_positions(w, n, query).tolist(), f"2-bit search {n}/{m}: hit at 0 missed")
+                cases += 1
+        w = interop.u64_to_tensor(api.n_to_bits(np.full(n, ord("A"), np.uint8), tier="oracle"), dev)
+        for m in (1, 17, 45):
+            if m <= n:
+                one_2bit(w, n, b"A" * m, f"2-bit poly-A {n} nt, {m} nt")
+                check(int(search.match_count(w, n, b"A" * m)) == n - m + 1, f"2-bit poly-A {n}/{m} count")
+    for n in SEARCH_NT_B5:
+        for m in SEARCH_M + (B5_MAX_QUERY,):
+            if m <= n:
+                s, query = _planted(rng, n, b"ACGTN", m, b"?")
+                w = interop.u64_to_tensor(api.n_to_bits2(s, tier="oracle"), dev)
+                one_b5(w, n, query, f"base-5 search {n} nt, {m}-nt query")
+                check(0 in search.match_positions_b5(w, n, query).tolist(), f"base-5 search {n}/{m}: hit at 0 missed")
+                cases += 1
+        w = interop.u64_to_tensor(api.n_to_bits2(np.full(n, ord("A"), np.uint8), tier="oracle"), dev)
+        for m in (1, 17, 45):
+            if m <= n:
+                one_b5(w, n, b"A" * m, f"base-5 poly-A {n} nt, {m} nt")
+                check(int(search.match_count_b5(w, n, b"A" * m)) == n - m + 1, f"base-5 poly-A {n}/{m} count")
+    t = np.arange(128, dtype=np.uint64)
+    w64 = np.concatenate([(t << np.uint64(7 * j)) | (np.uint64(b) << np.uint64(63)) for j in range(9) for b in (0, 1)])
+    w = interop.u64_to_tensor(w64, dev)
+    n = 27 * w64.size
+    corrupt = {27 * k + 3 * j + 2 for k, word in enumerate(w64.tolist()) for j in range(9)
+               if (word >> (7 * j)) & 0x7F >= 125}
+    for query in (b"N", b"NN", b"?N", b"N?A", b"AAN", b"CAN", b"?", b"ACGTN?" * 7 + b"ACG"):
+        one_b5(w, n, query, f"base-5 search, all triplets, query {query!r}")
+    hits = set(search.match_positions_b5(w, n, b"N").tolist())
+    check(not hits & corrupt, "a literal-N query matched the high digit of a corrupt triplet")
+    torch.cuda.synchronize()
+    say(f"phase 2 search kernels: {cases} planted (stream, query) cases at {SEARCH_NT} nt (2-bit) and "
+        f"{SEARCH_NT_B5} nt (base-5), queries {SEARCH_M} + {LONG_QUERY} (2-bit) / {B5_MAX_QUERY} (base-5) "
+        f"nt, poly-A, all 128 triplets +- bit 63: bit-identical to the plain versions "
+        f"({errors.count} comparisons in phase 2; max abs err {errors.max})")
+
+
 # --- phase 3: the resident 1-Gnt batch -----------------------------------------
 
 def _make_batch(seed: int, nt: int = BATCH_NT, alphabet: bytes = ALPHABET):
@@ -486,6 +587,84 @@ def phase_batch_b5(errors: Errors, rng):
     return x, words
 
 
+def _plain_by_chunks(errors: Errors, name: str, got, plain, words, n_starts: int, per_word: int,
+                     halves: int, look: int, what: str, step: int = 1 << 22) -> int:
+    """Hold kernel bits u32[W] against a plain version run on chunks of
+    ``step`` words (plus ``look`` words it reads past each), so that its
+    int64 temporaries stay small; returns the plain version's bit count."""
+    import torch
+
+    W = got.numel()
+    total = 0
+    for a in range(0, W, step):
+        b = min(a + step, W)
+        want = plain(words[halves * a : halves * min(b + look, W)], n_starts - per_word * a)[: b - a]
+        errors.compare(name, got[a:b], want, f"{what} words {a}..{b}")
+        total += int(torch.sum(_popcount(_i64(want))))
+    return total
+
+
+def _popcount(v):
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) >> 24) & 0xFF
+
+
+def _plant(x, starts, pattern: bytes) -> None:
+    import torch
+
+    idx = torch.as_tensor(starts, device=x.device)[:, None] + torch.arange(len(pattern), device=x.device)
+    x.view(-1)[idx.flatten()] = torch.tensor(list(pattern), dtype=torch.uint8, device=x.device).repeat(len(starts))
+
+
+def phase_search_batch(errors: Errors, rng, x, x5):
+    """Search on the phase-3 batches flattened into streams: the primer is
+    planted at seeded starts and the batches re-encoded, then match_bits and
+    match_count (and the _b5 twins) for 7 nt, 45 nt with wildcards and the
+    primer, each against its plain version."""
+    from cute_nucleotides_tpu_torch.models import Base5Codec, TwoBitCodec
+    from cute_nucleotides_tpu_torch.ops import kernels as K, search
+
+    t0 = time.perf_counter()
+    k2, k5 = SEARCH_KERNELS
+    out = []
+    for label, batch, codec, alpha, wildcard in (("2-bit", x, TwoBitCodec, b"ACGT", b"N"),
+                                                 ("base-5", x5, Base5Codec, b"ACGTN", b"?")):
+        n = batch.numel()
+        span = n // 64  # one primer per span: no two overlap
+        starts = [i * span + int(rng.integers(0, span - len(PRIMER))) for i in range(64)]
+        _plant(batch, starts, PRIMER)
+        words = codec(device="cuda").encode(batch)
+        wf = words.view(-1)
+        q45 = bytearray(rng.choice(np.frombuffer(alpha, np.uint8), 45).tobytes())
+        q45[3::7] = wildcard * len(q45[3::7])
+        reads = []
+        for query in (b"GATTACA", bytes(q45), PRIMER):
+            m = len(query)
+            if codec is TwoBitCodec:
+                bits, count = search.match_bits(wf, n, query), search.match_count(wf, n, query)
+                q, care, _ = search.compile_query(query)
+                total = _plain_by_chunks(errors, k2, bits, lambda w, ns: K.match_bits_stream_plain(w, q, care, ns),
+                                         wf, n - m + 1, 16, 1, q.size + 1, f"{label} search {query!r}")
+                hits = search.match_positions(wf, n, query) if query == PRIMER else None
+            else:
+                bits, count = search.match_bits_b5(wf, n, query), search.match_count_b5(wf, n, query)
+                qc = search.compile_query_b5(query)
+                total = _plain_by_chunks(errors, k5, bits, lambda w, ns: K.match_b5_bits_stream_plain(w, qc, ns),
+                                         wf, n - m + 1, 27, 2, 40, f"{label} search {query!r}")
+                hits = search.match_positions_b5(wf, n, query) if query == PRIMER else None
+            check(int(count) == total, f"{label} match_count {int(count)} != plain bit count {total}")
+            if hits is not None:
+                check(set(starts) <= set(hits.tolist()), f"{label}: a planted primer was not found")
+            reads.append(f"{m} nt: {total} hits")
+        say(f"phase 3 search {label}: {n} nt stream ({wf.numel()} u32): {', '.join(reads)}; kernel bits "
+            f"== plain version (chunked); 64 planted primers found")
+        out.append(words)
+    say(f"phase 3 search: {time.perf_counter() - t0:.1f} s with the checks")
+    return out
+
+
 # --- phase 4: host API and compat names ----------------------------------------
 
 def _upper_t_np(s: np.ndarray) -> np.ndarray:
@@ -497,7 +676,8 @@ def _upper_t_np(s: np.ndarray) -> np.ndarray:
 def _profiled(fn):
     """Run fn under torch.profiler (CUDA activity only).  Returns its result,
     the wall seconds, and the device ms of the port's kernels, of copies
-    (memcpy) and of other device work, read from ``key_averages()``."""
+    (memcpy) and of other device work, read from ``key_averages()``, with
+    the three largest device events by name under "top"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -508,6 +688,7 @@ def _profiled(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device = {"kernels": 0.0, "copies": 0.0, "other": 0.0}
+    events = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -516,11 +697,13 @@ def _profiled(fn):
         else:
             kind = "copies" if ev.key.startswith("Memcpy") else "other"
         device[kind] += ev.self_device_time_total / 1e3
+        events.append((ev.self_device_time_total / 1e3, ev.key[:48]))
+    device["top"] = sorted(events, reverse=True)[:3]
     return out, wall, device
 
 
 def _breakdown(wall: float, device: dict) -> str:
-    busy = sum(device.values()) / 1e3
+    busy = (device["kernels"] + device["copies"] + device["other"]) / 1e3
     if busy == 0:
         return f"{wall:.3f} s wall; device time not measured (the profiler saw no device events)"
     return (f"{wall:.3f} s wall; device: kernels {device['kernels']:.4f} ms, copies "
@@ -618,7 +801,7 @@ def _fasta(records) -> bytes:
     return out.getvalue()
 
 
-def phase_cli(rng, workdir: str) -> None:
+def phase_cli(rng, workdir: str) -> list[tuple[bytes, bytes]]:
     from cute_nucleotides_tpu_torch import cli
 
     t0 = time.perf_counter()
@@ -642,9 +825,10 @@ def phase_cli(rng, workdir: str) -> None:
         f"with the checks)")
     say(f"  encode --batch {CLI_BATCH} --validate: {_breakdown(enc_wall, enc_dev)}")
     say(f"  decode --batch {CLI_BATCH}: {_breakdown(dec_wall, dec_dev)}")
+    return records
 
 
-def phase_cli_b5(rng, workdir: str) -> None:
+def phase_cli_b5(rng, workdir: str) -> list[tuple[bytes, bytes]]:
     from cute_nucleotides_tpu_torch import cli
 
     t0 = time.perf_counter()
@@ -683,6 +867,95 @@ def phase_cli_b5(rng, workdir: str) -> None:
         f"with the checks)")
     say(f"  encode --codec base5 --batch {CLI_BATCH} --validate: {_breakdown(enc_wall, enc_dev)}")
     say(f"  decode --batch {CLI_BATCH} --verify-stream: {_breakdown(dec_wall, dec_dev)}")
+    return records
+
+
+def _revcomp(pattern: bytes) -> bytes:
+    """Reverse complement of a grep pattern; the wildcard ? keeps its place."""
+    return pattern[::-1].translate(bytes.maketrans(b"ACGTN", b"TGCAN"))
+
+
+def _find_all(hay: bytes, needle: bytes) -> list[int]:
+    out, i = [], hay.find(needle)
+    while i >= 0:
+        out.append(i)
+        i = hay.find(needle, i + 1)
+    return out
+
+
+def _count_rows(seqs: np.ndarray, pattern: bytes, wildcard: int) -> np.ndarray:
+    """Occurrences of pattern in each row of u8[R, L], by a byte compare."""
+    k, L = len(pattern), seqs.shape[1]
+    ok = np.ones((seqs.shape[0], L - k + 1), dtype=bool)
+    for j, c in enumerate(pattern):
+        if c != wildcard:
+            ok &= seqs[:, j : j + L - k + 1] == c
+    return ok.sum(1)
+
+
+def _grep(argv) -> tuple[int, str, float, dict]:
+    from cute_nucleotides_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, wall, dev = _profiled(lambda: cli.main(argv))
+    return rc, out.getvalue(), wall, dev
+
+
+def phase_grep(rng, workdir: str, reads2: list, reads5: list) -> None:
+    """``grep --both`` on one chr1-length record per codec, with a 45-nt query
+    planted on both strands, and ``grep --count --both --batch`` on the
+    200,000-read files; every expected line comes from a numpy scan of the
+    ASCII bytes."""
+    from cute_nucleotides_tpu_torch import api, cli
+
+    for label, codec, alpha, encode in (("2-bit", "2bit", b"ACGT", api.n_to_bits),
+                                        ("base-5", "base5", b"ACGTN", api.n_to_bits2)):
+        t0 = time.perf_counter()
+        a = np.frombuffer(alpha, np.uint8)
+        seq = a[rng.integers(0, len(a), CHR1_NT, dtype=np.uint8)]
+        query = bytearray(rng.choice(a[:4], 45).tobytes())
+        if codec == "base5":
+            query[10] = query[30] = ord("N")  # a literal N on base-5
+        query = bytes(query)
+        span = CHR1_NT // 12
+        for i in range(12):  # six planted per strand, one at each end
+            start = 0 if i == 0 else CHR1_NT - 45 if i == 11 else i * span + int(rng.integers(0, span - 45))
+            seq[start : start + 45] = np.frombuffer(query if i % 2 == 0 else _revcomp(query), np.uint8)
+        nup = os.path.join(workdir, f"chr1_{codec}.nup")
+        cli.write_nup(nup, [b"chr1"], [encode(seq)], [CHR1_NT], codec)
+        hay = seq.tobytes()
+        want = sorted([(p, "+") for p in _find_all(hay, query)] + [(p, "-") for p in _find_all(hay, _revcomp(query))])
+        check(sum(s == "+" for _, s in want) >= 6 and sum(s == "-" for _, s in want) >= 6,
+              f"{label}: the planted hits are not in the byte scan")
+        rc, text, wall, dev = _grep(["grep", nup, query.decode(), "--both"])
+        got = [json.loads(line) for line in text.splitlines()]
+        check(rc == 0, f"{label} grep --both exit {rc}")
+        check(got == [{"record": "chr1", "pos": p, "strand": st} for p, st in want],
+              f"{label} grep --both hits {got[:4]}... != byte scan {want[:4]}...")
+        say(f"phase 5 grep {label}: one {CHR1_NT}-nt record, 45-nt query {query.decode()} --both: "
+            f"{len(got)} hits == numpy byte scan ({time.perf_counter() - t0:.1f} s with the checks)")
+        say(f"  grep --both, chr1 length, {label}: {_breakdown(wall, dev)}; top device events (ms) "
+            f"{dev['top']}")
+        del seq, hay
+    for label, nup, records, pattern, wildcard in (
+            ("2-bit", "reads.nup", reads2, b"GANTACA", ord("N")),
+            ("base-5", "reads_b5.nup", reads5, b"GAT?AN", ord("?"))):
+        t0 = time.perf_counter()
+        seqs = np.frombuffer(b"".join(seq for _, seq in records), np.uint8).reshape(len(records), -1)
+        seqs = _upper_t_np(seqs.copy())
+        fwd, rev = _count_rows(seqs, pattern, wildcard), _count_rows(seqs, _revcomp(pattern), wildcard)
+        want = "".join(json.dumps({"record": name.decode(), "fwd": int(f), "rev": int(r)}) + "\n"
+                       for (name, _), f, r in zip(records, fwd, rev))
+        rc, text, wall, dev = _grep(["grep", os.path.join(workdir, nup), pattern.decode(), "--count", "--both",
+                                     "--batch", str(CLI_BATCH)])
+        check(rc == 0, f"{label} grep --count --batch exit {rc}")
+        check(text == want, f"{label} grep --count --both --batch: output != numpy byte counts")
+        say(f"phase 5 grep {label}: --count --both --batch {CLI_BATCH} on {len(records)} x {CLI_READ_NT} nt, "
+            f"pattern {pattern.decode()}: {int(fwd.sum())} + {int(rev.sum())} hits == numpy byte counts "
+            f"({time.perf_counter() - t0:.1f} s with the checks)")
+        say(f"  grep --count --both --batch {CLI_BATCH}, {label}: {_breakdown(wall, dev)}; top device "
+            f"events (ms) {dev['top']}")
 
 
 # --- timing -------------------------------------------------------------------
@@ -705,7 +978,7 @@ def phase_timing(x, words, x5, words5, card: str) -> dict:
     """Each kernel and its plain version at the batches' shapes, in turns."""
     import torch
 
-    from cute_nucleotides_tpu_torch.ops import kernels as K
+    from cute_nucleotides_tpu_torch.ops import kernels as K, search
 
     nt4 = x.view(torch.uint32)
     packed = words.view(torch.uint8)
@@ -727,6 +1000,18 @@ def phase_timing(x, words, x5, words5, card: str) -> dict:
                              for m, c, d in (("chars", False, False), ("checked", True, False),
                                              ("digits", False, True))],
     }
+    w2, n2, n5 = words.view(-1), x.numel(), x5.numel()
+    queries = {"7 nt": b"GATTACA", "45 nt": (b"ACGTACNGTT" * 5)[:45]}
+    compiled = {k: search.compile_query(q) for k, q in queries.items()}
+    compiled5 = {k: (search.compile_query_b5(q.replace(b"N", b"?")), len(q)) for k, q in queries.items()}
+    cases["match_bits_stream"] = [
+        (f"[{k}]", lambda q=q, c=c, m=m: K.match_bits_stream(w2, q, c, n2 - m + 1),
+         lambda q=q, c=c, m=m: K.match_bits_stream_plain(w2, q, c, n2 - m + 1))
+        for k, (q, c, m) in compiled.items()]
+    cases["match_b5_bits_stream"] = [
+        (f"[{k}]", lambda qc=qc, m=m: K.match_b5_bits_stream(w5, qc, n5 - m + 1),
+         lambda qc=qc, m=m: K.match_b5_bits_stream_plain(w5, qc, n5 - m + 1))
+        for k, (qc, m) in compiled5.items()]
     say(f"timing on {card}: 2-bit u8[{BATCH_ROWS}, {BATCH_NT}] ({gib:.3f} Gnt), base-5 "
         f"u8[{BATCH_ROWS}, {B5_NT}] ({gib5:.3f} Gnt)")
     for label, batch, g in (("2-bit", x, gib), ("base-5", x5, gib5)):
@@ -765,27 +1050,36 @@ def main() -> int:
         errors = Errors()
         phase_kernels(errors, rng)
         phase_kernels_b5(errors, rng)
+        phase_kernels_search(errors, rng)
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        # each codec's path runs with the counts set to 0 just before it and
-        # read just after; each kernel must have launched on its own path
+        # each path (2-bit, base-5, search) runs with the counts set to 0
+        # just before it and read just after; each kernel must have launched
+        # on its own path
         launches = {}
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
             K.reset_launch_counts()
             x, words, dec = phase_batch(errors, rng)
             del dec
             phase_api(rng)
-            phase_cli(rng, workdir)
+            reads2 = phase_cli(rng, workdir)
             torch.cuda.synchronize()
             launches["2-bit"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
             say(f"phase 6 launches by the 2-bit path (phases 3-5): {launches['2-bit']}")
             K.reset_launch_counts()
             x5, words5 = phase_batch_b5(errors, rng)
             phase_api_b5(rng)
-            phase_cli_b5(rng, workdir)
+            reads5 = phase_cli_b5(rng, workdir)
             torch.cuda.synchronize()
             launches["base-5"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
             say(f"phase 6 launches by the base-5 path (phases 3-5): {launches['base-5']}")
-        path_of = {k: "base-5" if k in B5_KERNELS else "2-bit" for k in REPLACES}
+            K.reset_launch_counts()
+            words, words5 = phase_search_batch(errors, rng, x, x5)
+            phase_grep(rng, workdir, reads2, reads5)
+            torch.cuda.synchronize()
+            launches["search"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+            say(f"phase 6 launches by the search path (phases 3 and 5): {launches['search']}")
+        path_of = {k: "search" if k in SEARCH_KERNELS else "base-5" if k in B5_KERNELS else "2-bit"
+                   for k in REPLACES}
         own = {k: launches[path_of[k]][k] for k in REPLACES}
         check(all(n > 0 for n in own.values()), f"a kernel of its path never launched: {own}")
         torch.cuda.empty_cache()

@@ -1,19 +1,25 @@
-"""Command-line interface of the port: encode / decode / parity, both codecs.
+"""Command-line interface of the port: encode / decode / parity / grep, both codecs.
 
-Counterpart of ``encode``, ``decode`` and ``parity`` in
+Counterpart of ``encode``, ``decode``, ``parity`` and ``grep`` in
 ``cute_nucleotides_tpu/cli.py``; it reads and writes the same ``.nup``
 container with the reference's own ``write_nup``/``read_nup``, so files are
-byte-identical between the two packages::
+byte-identical between the two packages, and ``grep`` prints the same
+lines::
 
     python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --batch 8192 --validate
     python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --codec base5 --batch 8192 --validate
     python -m cute_nucleotides_tpu_torch decode out.nup out.fa --batch 8192 --verify-stream
     python -m cute_nucleotides_tpu_torch parity --tiers torch,auto
+    python -m cute_nucleotides_tpu_torch grep out.nup GATTACA --both
 
 ``--batch N`` is the production path: batches of N reads as resident
 tensors through :class:`.models.TwoBitCodec` or :class:`.models.Base5Codec`.
 Without it each record goes through :mod:`.api` on its own.  The codec of
-``decode`` is the one the ``.nup`` names.
+``decode`` and ``grep`` is the one the ``.nup`` names; ``grep`` scans on the
+card when there is one (the ``auto`` tier's device).
+
+A malformed or missing file ends in one ``error:`` line and exit 1, and a
+closed output pipe (``grep ... | head``) in exit 141, as in the reference.
 """
 
 from __future__ import annotations
@@ -174,14 +180,16 @@ def cmd_decode(args) -> int:
                     # is diagnosed row by row (zero pad words are valid)
                     dec, bad = cd.decode_checked(words)
                     if bool(bad):
+                        # every corrupt record of the batch is named
                         first = seqops.first_invalid_word_b5(words).cpu()
                         rows = torch.nonzero(first >= 0).flatten().tolist()
                         if not rows:
                             print("error: the fused integrity check flagged this batch but "
                                   "the scan found no corrupt word (refusing to write)",
                                   file=sys.stderr)
-                            return 1
-                        return _report_corrupt(chunk[rows[0]][0], int(first[rows[0]]))
+                        for row in rows:
+                            _report_corrupt(chunk[row][0], int(first[row]))
+                        return 1
                 else:
                     dec = cd.decode(words)
                 dec = dec.cpu().numpy()
@@ -239,6 +247,112 @@ def cmd_parity(args) -> int:
     return 0 if failures == 0 else 1
 
 
+def _revcomp_pattern(raw: bytes, is_b5: bool) -> bytes:
+    """Reverse complement of a CLI pattern.  A base-5 ``?`` is no base: it
+    is complemented as N and restored at its reversed position (a literal N
+    stays N)."""
+    from .ops import search
+
+    if is_b5:
+        rc = search.revcomp_query(raw.replace(b"?", b"N"))
+        return bytes(ord("?") if p == ord("?") else w for p, w in zip(raw[::-1], rc))
+    return search.revcomp_query(raw)
+
+
+def _print_hits(name: bytes, hits) -> None:
+    rec = name.decode(errors="replace")
+    for p, strand in hits:
+        print(json.dumps({"record": rec, "pos": p, "strand": strand}))
+
+
+def _print_counts(name: bytes, counts: dict) -> None:
+    print(json.dumps({"record": name.decode(errors="replace"),
+                      **{("fwd" if s == "+" else "rev"): c for s, c in counts.items()}}))
+
+
+def _grep_batched(args, entries, queries, is_b5: bool, device) -> int:
+    """Batched grep: fixed-shape batches (the word width bucketed by
+    ``pack_words_batch``, as the decode path does), one mask-tier call per
+    batch and strand; hits print per record, in record order."""
+    from cute_nucleotides_tpu.utils import io as io_lib
+
+    from . import interop
+    from .ops import search
+
+    mask_fn = search.match_mask_b5_batch if is_b5 else search.match_mask_batch
+    total = 0
+    for start in range(0, len(entries), args.batch):
+        chunk = entries[start : start + args.batch]
+        w32 = interop.to_tensor(io_lib.pack_words_batch(chunk, args.batch), device)
+        lengths = np.zeros(args.batch, np.int32)
+        for i, (_, length, _) in enumerate(chunk):
+            lengths[i] = length
+        cap = (w32.shape[1] // 2) * 27 if is_b5 else w32.shape[1] * 16
+        per_strand = {}
+        for q, strand in queries:
+            if cap - len(q) + 1 <= 0:  # every record shorter than the query
+                per_strand[strand] = np.zeros((args.batch, 0), dtype=bool)
+            else:
+                per_strand[strand] = interop.to_numpy(mask_fn(w32, lengths, q))
+        for i, (name, _, _) in enumerate(chunk):
+            if args.count:
+                counts = {s: int(m[i].sum()) for s, m in per_strand.items()}
+                _print_counts(name, counts)
+                total += sum(counts.values())
+            else:
+                hits = sorted((int(p), s) for s, m in per_strand.items() for p in np.flatnonzero(m[i]))
+                total += len(hits)
+                _print_hits(name, hits)
+    return 0 if total or args.count else 1
+
+
+def cmd_grep(args) -> int:
+    """Every occurrence of a pattern in a .nup's records, found on the
+    packed words (no decode).  2-bit: ``N`` is a wildcard; base-5: ``N`` is
+    a literal and ``?`` the wildcard.  One JSON line per hit (record,
+    0-based position, strand), or per record with ``--count``; exit 1 when
+    nothing matched (and no ``--count``)."""
+    from . import interop
+    from .models import resolve_device
+    from .ops import search
+
+    codec, entries = read_nup(args.input)
+    is_b5 = codec != "2bit"
+    compile_q = search.compile_query_b5 if is_b5 else search.compile_query
+    positions = search.match_positions_b5 if is_b5 else search.match_positions
+    try:
+        compile_q(args.pattern.encode())
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    queries = [(args.pattern.encode(), "+")]
+    if args.both:
+        raw = args.pattern.encode()
+        rc = _revcomp_pattern(raw, is_b5)
+        if rc != raw.upper().replace(b"U", b"T"):
+            queries.append((rc, "-"))
+    device = resolve_device("auto")
+    if args.batch:
+        return _grep_batched(args, entries, queries, is_b5, device)
+    total = 0
+    for name, length, words in entries:
+        counts, hits = {}, []
+        w32 = interop.u64_to_tensor(words, device)  # one transfer, both strands
+        for q, strand in queries:
+            if length < len(q):
+                counts[strand] = 0
+                continue
+            pos = positions(w32, length, q)
+            counts[strand] = len(pos)
+            hits.extend((int(p), strand) for p in pos)
+        total += len(hits)
+        if args.count:
+            _print_counts(name, counts)
+        else:
+            _print_hits(name, sorted(hits))
+    return 0 if total or args.count else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="cute-nucleotides-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -278,8 +392,34 @@ def main(argv=None) -> int:
     pp.add_argument("--tiers", default="auto")
     pp.set_defaults(fn=cmd_parity)
 
+    pg = sub.add_parser(
+        "grep",
+        help="find a pattern in packed records, no decode (2-bit: N = wildcard; "
+        "base-5: N literal, ? = wildcard)",
+    )
+    pg.add_argument("input")
+    pg.add_argument("pattern")
+    pg.add_argument("--both", action="store_true",
+                    help="also scan the reverse strand (revcomp pattern, + / - in output)")
+    pg.add_argument("--count", action="store_true",
+                    help="print per-record totals instead of individual hits")
+    pg.add_argument("--batch", type=int, default=0, metavar="N",
+                    help="scan N records per device call (fixed-shape batches)")
+    pg.set_defaults(fn=cmd_grep)
+
     args = p.parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except BrokenPipeError:
+        # the reader closed the pipe early (`grep ... | head`): the
+        # conventional SIGPIPE exit, and nothing more written to stdout
+        devnull = os.open(os.devnull, os.O_WRONLY)
+        os.dup2(devnull, sys.stdout.fileno())
+        return 141
+    except (ValueError, KeyError, OSError) as e:
+        # malformed or missing containers: one line and exit 1, no traceback
+        print(f"error: {e}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

@@ -31,12 +31,12 @@ DECODE_2BIT_VARIANTS = ("shuffle", "select", "swar", "broadcast")
 #: with t = w & 0x06060606 (code*2 in each byte), bits 24..31 of t * MUL_MAGIC
 #: are c0 | c1<<2 | c2<<4 | c3<<6
 MUL_MAGIC = (1 << 5) | (1 << 11) | (1 << 17) | (1 << 23)
-_U32 = 0xFFFFFFFF
+U32 = 0xFFFFFFFF
 
 
 def u32_to_i64(w: torch.Tensor) -> torch.Tensor:
     """uint32 tensor -> int64 tensor of the same unsigned values."""
-    return w.view(torch.int32).to(torch.int64) & _U32
+    return w.view(torch.int32).to(torch.int64) & U32
 
 
 def i64_to_u32(v: torch.Tensor) -> torch.Tensor:
@@ -55,7 +55,7 @@ def bytes_to_lanes(x: torch.Tensor) -> torch.Tensor:
 
 def pack4_mul(w: torch.Tensor) -> torch.Tensor:
     """Lane of 4 ASCII nt -> packed byte, multiply-as-bit-shuffle."""
-    return (((w & 0x06060606) * MUL_MAGIC) & _U32) >> 24
+    return (((w & 0x06060606) * MUL_MAGIC) & U32) >> 24
 
 
 def pack4_shift(w: torch.Tensor) -> torch.Tensor:
@@ -180,7 +180,7 @@ def b5_digits(x: torch.Tensor) -> torch.Tensor:
 
 def b5_word_halves(word: torch.Tensor) -> torch.Tensor:
     """int64 u64 words [..., W] -> their little-endian u32 halves u32[..., 2W]."""
-    halves = torch.stack([word & _U32, word >> 32], dim=-1)
+    halves = torch.stack([word & U32, word >> 32], dim=-1)
     return i64_to_u32(halves).reshape(*word.shape[:-1], 2 * word.shape[-1])
 
 
@@ -200,6 +200,16 @@ def b5_triplet_digits(t: torch.Tensor) -> torch.Tensor:
     q5 = (t * 205) >> 10
     q25 = (t * 41) >> 10
     return torch.stack([t - 5 * q5, q5 - 5 * q25, q25.clamp(max=4)], dim=-1)
+
+
+def b5_b8_slots(t: torch.Tensor) -> torch.Tensor:
+    """Triplets [...] -> the search's base-8 digit slots ``a | b << 3 |
+    c << 6`` [...], by the same multiply-shifts as :func:`b5_triplet_digits`
+    but unclamped: a corrupt triplet (125..127) keeps c = 5, so it never
+    equals a literal N (4), as in every tier of the reference's search."""
+    q5 = (t * 205) >> 10
+    q25 = (t * 41) >> 10
+    return (t - 5 * q5) | ((q5 - 5 * q25) << 3) | (q25 << 6)
 
 
 def b5_digit_chars(d: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The ``cuda`` tier: wrappers of the hand-written Hopper kernels in
-``csrc/codec2bit.cu`` and ``csrc/codec_b5.cu``, each beside its plain
-PyTorch version.
+``csrc/codec2bit.cu``, ``csrc/codec_b5.cu`` and ``csrc/search.cu``, each
+beside its plain PyTorch version.
 
 A wrapper runs its plain version only for a tensor on the CPU; for a CUDA
 tensor it launches its kernel (building the library on first use) or raises.
@@ -18,16 +18,23 @@ The base-5 kernels take flat streams: 27 N ASCII bytes <-> N u64 words as
 2 N u32 halves.  A batch u8[..., L] with L % 27 == 0 flattens into one
 stream, because word boundaries survive the flatten.
 
-Every kernel is bound by device memory: the 2-bit encoders read 4 bytes and
-write 1 per 4 nt, the decoder the reverse (5 bytes moved per 4 nt); the
-base-5 kernels move 27 bytes and one 8-byte word per 27 nt (35 bytes).
-Times on the H100 beside the plain versions' are in PERF.md.
+The search kernels take flat packed streams too and write one u32 of match
+bits per stream word (16 starts per 2-bit word, 27 per base-5 word).
+
+Every codec kernel is bound by device memory: the 2-bit encoders read 4
+bytes and write 1 per 4 nt, the decoder the reverse (5 bytes moved per 4
+nt); the base-5 kernels move 27 bytes and one 8-byte word per 27 nt (35
+bytes).  The search kernels move less (8 or 12 bytes per word) and are
+bound by integer work at short queries.  Times on the H100 beside the plain
+versions' are in PERF.md.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from cute_nucleotides_tpu.ops import spec
@@ -360,8 +367,184 @@ def decode_b5_stream(words: torch.Tensor, checked: bool = False, digits: bool = 
 
 decode_b5_stream.launches = 0
 
+# --- kernels #8 and #9: packed-domain search ------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _device_table(buf: bytes, device: torch.device) -> torch.Tensor:
+    """A query table (u32 values as bytes) on ``device``, uploaded once per
+    query and device, so that repeated scans launch without a host copy."""
+    return torch.from_numpy(np.frombuffer(buf, np.int32).copy()).to(device)
+
+
+def _clear_tail(bits: torch.Tensor, n_starts: int, per_word: int) -> torch.Tensor:
+    """Clear the bits of starts >= n_starts (bit s of word w is start
+    per_word * w + s)."""
+    lim = n_starts - per_word * torch.arange(bits.numel(), device=bits.device, dtype=torch.int64)
+    lim = lim.clamp(0, per_word)
+    return bits & ((torch.ones_like(lim) << lim) - 1)
+
+
+def _query_words(q, care) -> tuple[np.ndarray, np.ndarray]:
+    q, care = np.asarray(q, dtype=np.uint32), np.asarray(care, dtype=np.uint32)
+    if q.ndim != 1 or q.shape != care.shape or q.size == 0:
+        raise ValueError(f"expected non-empty q and care of one length, got {q.shape} and {care.shape}")
+    return q, care
+
+
+def match_bits_stream_plain(words: torch.Tensor, q, care, n_starts: int) -> torch.Tensor:
+    """Plain version of :func:`match_bits_stream`: per phase s, the funnel
+    window of every word on int64 lanes, compared with each query word (O(W)
+    memory)."""
+    q, care = _query_words(q, care)
+    W, wq = words.numel(), q.size
+    x = torch.cat([eager.u32_to_i64(words), words.new_zeros(wq + 1, dtype=torch.int64)])
+    bits = torch.zeros(W, dtype=torch.int64, device=words.device)
+    for s in range(spec.NT_PER_U32_2BIT):
+        win = x if s == 0 else ((x[:-1] >> (2 * s)) | (x[1:] << (32 - 2 * s))) & eager.U32
+        diff = torch.zeros_like(bits)
+        for k in range(wq):
+            if care[k]:
+                diff |= (win[k : k + W] ^ int(q[k])) & int(care[k])
+        bits |= (diff == 0).to(torch.int64) << s
+    return eager.i64_to_u32(_clear_tail(bits, n_starts, spec.NT_PER_U32_2BIT))
+
+
+def match_bits_stream(words: torch.Tensor, q, care, n_starts: int) -> torch.Tensor:
+    """2-bit exact search: packed u32[W] stream -> match bits u32[W]; bit s
+    of word w is 1 iff the query (``q``/``care`` u32[Wq] from
+    ``search.compile_query``: care is 0b11 per concrete field, 0b00 at an N
+    wildcard) matches at nt 16 w + s < n_starts.  Stream words past W read
+    as 0.
+
+    Replaces ``cute_nucleotides_tpu/ops/search.py:match_bits_rows``, whose
+    (base, halo) rows of 512 lanes and per-query compiled constants were TPU
+    artefacts.  One thread per output word: a block stages its 256 words
+    and the query's lookahead in shared memory (longer lookahead reads
+    through ``__ldg``), the query table sits on the device once per query,
+    and the word with the most cared-for bits folds first so that a thread
+    stops when its 16 starts all missed.  Bound by integer work at short
+    queries (16 funnel-compare steps per word and query word); 8 bytes move
+    per 16 nt.  Time on the H100: PERF.md.
+    """
+    W = _check_stream(words, torch.uint32, 1, "packed u32[W]")
+    q, care = _query_words(q, care)
+    if not _on_cuda(words):
+        return match_bits_stream_plain(words, q, care, n_starts)
+    out = torch.empty(W, dtype=torch.uint32, device=words.device)
+    if W:
+        anchor = max(range(q.size), key=lambda k: bin(int(care[k])).count("1"))
+        table = _device_table(np.concatenate([q, care]).tobytes(), words.device)
+        lib = _build.load()
+        with torch.cuda.device(words.device):
+            _launch(lib.cn_match_2bit, words.data_ptr(), W, table.data_ptr(), q.size, anchor,
+                    n_starts, out.data_ptr(), _stream(words))
+        match_bits_stream.launches += 1
+    return out
+
+
+match_bits_stream.launches = 0
+
+#: anchor taps per phase for the base-5 prefilter (~4 triplets = 12 nt)
+_B5_ANCHOR_TAPS = 4
+
+#: taps per phase the base-5 kernel stages for (a 1024-nt query's 342)
+_B5_MAX_TAPS = 342
+
+
+def _b5_anchor_taps(qc) -> tuple | None:
+    """Per-phase anchor tap indices of the prefilter, or None when the query
+    is too short for a split to pay (the reference's choice,
+    ``pallas_kernels.py:_b5_anchor_taps``)."""
+    taps = []
+    for _, care8 in qc:
+        order = sorted(range(len(care8)), key=lambda i: bin(int(care8[i])).count("1"), reverse=True)
+        taps.append(frozenset(order[:_B5_ANCHOR_TAPS]))
+    if min(len(qc[p][0]) - len(taps[p]) for p in range(3)) < _B5_ANCHOR_TAPS:
+        return None
+    return tuple(taps)
+
+
+def _b5_table(qc) -> tuple[np.ndarray, int, int]:
+    """The kernel's query table: ntaps[3], nanchor[3], then per phase its
+    cared-for taps (offset << 18 | care8 << 9 | q8), anchors first; with the
+    tap capacity per phase and the lookahead words the taps reach."""
+    if len(qc) != 3:
+        raise ValueError(f"expected three phase tables, got {len(qc)}")
+    max_taps = max(len(q8) for q8, _ in qc)
+    if max_taps > _B5_MAX_TAPS:
+        raise ValueError(f"the base-5 search kernel takes at most {_B5_MAX_TAPS} triplets per "
+                         f"phase (a 1024-nt query), got {max_taps}")
+    anchors = _b5_anchor_taps(qc)
+    table = np.zeros(6 + 3 * max_taps, dtype=np.uint32)
+    max_off = 0
+    for p, (q8, care8) in enumerate(qc):
+        live = [i for i in range(len(care8)) if care8[i]]
+        first = [i for i in live if anchors is None or i in anchors[p]]
+        order = first + [i for i in live if i not in first]
+        table[p], table[3 + p] = len(order), len(first)
+        for k, i in enumerate(order):
+            table[6 + p * max_taps + k] = (i << 18) | (int(care8[i]) << 9) | int(q8[i])
+        max_off = max([max_off, *order])
+    return table, max_taps, (max_off + 8) // 9 + 1
+
+
+def match_b5_bits_stream_plain(words: torch.Tensor, qc, n_starts: int) -> torch.Tensor:
+    """Plain version of :func:`match_b5_bits_stream`: the stream's triplets
+    as base-8 digit slots on int64 lanes, each phase's taps compared as
+    shifted slices (O(W) memory)."""
+    n = _check_stream(words, torch.uint32, 2, "packed u32[2 N]")
+    pair = eager.u32_to_i64(words).reshape(n, 2)
+    t8 = eager.b5_b8_slots(eager.b5_word_triplets(pair[:, 0], pair[:, 1])).reshape(-1)
+    t8 = torch.cat([t8, t8.new_zeros(max(len(q8) for q8, _ in qc))])
+    U = spec.TRIPLETS_PER_WORD * n
+    shifts = 3 * torch.arange(spec.TRIPLETS_PER_WORD, device=words.device, dtype=torch.int64)
+    bits = torch.zeros(n, dtype=torch.int64, device=words.device)
+    for p, (q8, care8) in enumerate(qc):
+        diff = torch.zeros(U, dtype=torch.int64, device=words.device)
+        for i in range(len(q8)):
+            if care8[i]:
+                diff |= (t8[i : i + U] ^ int(q8[i])) & int(care8[i])
+        hit = (diff == 0).to(torch.int64).reshape(n, spec.TRIPLETS_PER_WORD)
+        bits |= (hit << (shifts + p)).sum(-1)  # disjoint bits: sum == OR
+    return eager.i64_to_u32(_clear_tail(bits, n_starts, spec.NT_PER_WORD_B5))
+
+
+def match_b5_bits_stream(words: torch.Tensor, qc, n_starts: int) -> torch.Tensor:
+    """Base-5 exact search: packed u32[2 N] stream (N u64 words) -> match
+    bits u32[N]; bit 3 j + p of word w is 1 iff the query (``qc``, the three
+    phase tables of ``search.compile_query_b5``: N literal, ? wildcard)
+    matches at nt 27 w + 3 j + p < n_starts.  Queries up to 1024 nt.
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:
+    match_b5_bits_rows``, whose bf16 de-interleave matmuls, (1024 + 256)-lane
+    rows and per-query compiled constants were TPU artefacts.  One thread per
+    u64 word: a block turns its 128 words and up to 40 lookahead words into
+    base-8 digit slots in shared memory (the exact 205/41 multiply-shifts,
+    so a corrupt triplet never equals a literal N), then folds each phase's
+    taps over its 9 start slots, the 4 anchor taps per phase first and the
+    rest only where an anchor matched.  Bound by integer work (9 shared
+    loads and compares per tap); 12 bytes move per 27 nt.  Time on the
+    H100: PERF.md.
+    """
+    n = _check_stream(words, torch.uint32, 2, "packed u32[2 N]")
+    table, max_taps, look = _b5_table(qc)
+    if not _on_cuda(words):
+        return match_b5_bits_stream_plain(words, qc, n_starts)
+    out = torch.empty(n, dtype=torch.uint32, device=words.device)
+    if n:
+        dev_table = _device_table(table.tobytes(), words.device)
+        lib = _build.load()
+        with torch.cuda.device(words.device):
+            _launch(lib.cn_match_b5, words.data_ptr(), n, dev_table.data_ptr(), max_taps, look,
+                    n_starts, out.data_ptr(), _stream(words))
+        match_b5_bits_stream.launches += 1
+    return out
+
+
+match_b5_bits_stream.launches = 0
+
 WRAPPERS = (encode_2bit_nt4, decode_2bit_nt4, encode_2bit_nt4_checked, encode_2bit_nt4_mxu,
-            encode_b5_stream, decode_b5_stream)
+            encode_b5_stream, decode_b5_stream, match_bits_stream, match_b5_bits_stream)
 
 
 def reset_launch_counts() -> None:

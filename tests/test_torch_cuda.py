@@ -1,6 +1,6 @@
-"""The CUDA kernels of both codecs on the card: each against its plain
-version, the cuda tier against the torch tier and the oracle, launch counts
-and refusals.
+"""The CUDA kernels of both codecs and of the search on the card: each
+against its plain version, the cuda tier against the torch tier and the
+oracle, launch counts and refusals.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX, so it also runs where JAX is not installed; the tests' conftest
@@ -15,7 +15,7 @@ import torch
 
 from cute_nucleotides_tpu.ops import native
 from cute_nucleotides_tpu_torch import api, interop, models
-from cute_nucleotides_tpu_torch.ops import kernels as K
+from cute_nucleotides_tpu_torch.ops import kernels as K, search
 
 pytestmark = pytest.mark.cuda
 
@@ -107,7 +107,7 @@ def test_launch_counts_and_alignment(cuda_device):
     K.encode_2bit_nt4_mxu(t)
     K.encode_2bit_nt4_mxu(t, checked=True)
     K.decode_2bit_nt4(K.encode_2bit_nt4(t))
-    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0]
     misaligned = torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:36]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_2bit_nt4(misaligned.view(torch.uint32).view(2, 4))
@@ -193,9 +193,94 @@ def test_b5_launch_counts_and_alignment(cuda_device):
     K.encode_b5_stream(x, checked=True)
     for checked, digits in B5_MODES:
         K.decode_b5_stream(w, checked, digits)
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_b5_stream(torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:31])
     with pytest.raises(ValueError, match="checked digit"):
         K.decode_b5_stream(w, checked=True, digits=True)
     assert K.encode_b5_stream.launches == 2 and K.decode_b5_stream.launches == 3
+
+
+SEARCH_QUERIES = (1, 7, 16, 17, 32, 33, 45, 141)
+
+
+def _planted(rng, n: int, alpha: bytes, m: int, wildcard: bytes) -> tuple[np.ndarray, bytes]:
+    """A seeded stream of n nt over alpha and an m-nt query from it, with
+    every fifth byte a wildcard and hits planted at the last start, in the
+    middle and at 0."""
+    a = np.frombuffer(alpha, np.uint8)
+    q = bytearray(rng.choice(a, m).tobytes())
+    q[::5] = wildcard * len(q[::5])
+    s = rng.choice(a, n)
+    concrete = np.frombuffer(bytes(q).replace(wildcard, alpha[:1]), np.uint8)
+    for p in (n - m, n // 2, 0):  # 0 last: its hit survives any overlap
+        if 0 <= p <= n - m:
+            s[p : p + m] = concrete
+    return s, bytes(q)
+
+
+@pytest.mark.parametrize("n", RAGGED + (5000, 100_003))
+def test_search_2bit_kernel_matches_plain(cuda_device, n):
+    rng = np.random.default_rng(n)
+    for m in SEARCH_QUERIES + (8200,):
+        if m > n:
+            continue
+        s, query = _planted(rng, n, b"ACGT", m, b"N")
+        w = interop.u64_to_tensor(native.n_to_bits(s), cuda_device)
+        q, care, _ = search.compile_query(query)
+        got = K.match_bits_stream(w, q, care, n - m + 1)
+        assert _same(got, K.match_bits_stream_plain(w, q, care, n - m + 1)), (n, m)
+        assert 0 in search.match_positions(w, n, query).tolist()
+    w = interop.u64_to_tensor(native.n_to_bits(np.full(n, ord("A"), np.uint8)), cuda_device)
+    for m in (1, 17, 45):  # poly-A on poly-A: every anchor fires
+        if m <= n:
+            assert int(search.match_count(w, n, b"A" * m)) == n - m + 1
+
+
+@pytest.mark.parametrize("n", (1, 26, 27, 28, 31, 32, 33, 27 * 127, 27 * 128, 27 * 129, 27 * 129 + 13))
+def test_search_b5_kernel_matches_plain(cuda_device, n):
+    rng = np.random.default_rng(n)
+    for m in SEARCH_QUERIES + (1024,):
+        if m > n:
+            continue
+        s, query = _planted(rng, n, b"ACGTN", m, b"?")
+        w = interop.u64_to_tensor(native.n_to_bits2(s), cuda_device)
+        qc = search.compile_query_b5(query)
+        got = K.match_b5_bits_stream(w, qc, n - m + 1)
+        assert _same(got, K.match_b5_bits_stream_plain(w, qc, n - m + 1)), (n, m)
+        assert 0 in search.match_positions_b5(w, n, query).tolist()
+    w = interop.u64_to_tensor(native.n_to_bits2(np.full(n, ord("A"), np.uint8)), cuda_device)
+    for m in (1, 17, 45):
+        if m <= n:
+            assert int(search.match_count_b5(w, n, b"A" * m)) == n - m + 1
+
+
+def test_search_b5_kernel_on_every_triplet(cuda_device):
+    """All 128 triplet values in every slot, with and without bit 63, against
+    literal-N and wildcard queries: corrupt triplets never match N."""
+    t = np.arange(128, dtype=np.uint64)
+    w64 = np.concatenate([(t << np.uint64(7 * j)) | (np.uint64(b) << np.uint64(63))
+                          for j in range(9) for b in (0, 1)])
+    w = interop.u64_to_tensor(w64, cuda_device)
+    n = 27 * w64.size
+    for query in (b"N", b"NN", b"?N", b"N?A", b"AAN", b"CAN", b"?"):
+        m = len(query)
+        qc = search.compile_query_b5(query)
+        assert _same(K.match_b5_bits_stream(w, qc, n - m + 1), K.match_b5_bits_stream_plain(w, qc, n - m + 1))
+        assert np.array_equal(search.match_positions_b5(w, n, query),
+                              np.flatnonzero(interop.to_numpy(search.match_mask_b5(w, n, query))))
+
+
+def test_search_launch_counts(cuda_device):
+    K.reset_launch_counts()
+    s = np.random.default_rng(9).choice(ALPHABET_N, 27 * 600)
+    w2 = interop.u64_to_tensor(native.n_to_bits(s), cuda_device)
+    w5 = interop.u64_to_tensor(native.n_to_bits2(s), cuda_device)
+    search.match_positions(w2, s.size, b"GATTACA")
+    search.match_count(w2, s.size, b"GATTACA")
+    search.match_positions_b5(w5, s.size, b"GAT?ACA")
+    search.match_positions_b5(w5[:1000], 13500, b"GAT?ACA")  # under 1024 u32: the mask tier
+    search.match_count_b5(w5, s.size, b"A" * 1025)  # over 1024 nt: the mask tier
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1]
+    with pytest.raises(ValueError, match="aligned"):
+        K.match_bits_stream(w2[1:], *search.compile_query(b"ACG")[:2], 10)

@@ -39,7 +39,7 @@ def test_port_runs_without_loading_jax():
 import sys
 import cute_nucleotides_tpu_torch as cnt
 from cute_nucleotides_tpu_torch import api, cli, compat, interop, models
-from cute_nucleotides_tpu_torch.ops import eager, kernels, seqops, validate
+from cute_nucleotides_tpu_torch.ops import eager, kernels, search, seqops, validate
 import chip_smoke
 seq = b"ACGTUacgtuNACGT" * 11
 words = api.n_to_bits(seq)
@@ -56,6 +56,12 @@ w5, bad = b5.decode_checked(b5.encode(interop.to_tensor(bytes(seq[:162]), "cpu")
 assert w5.shape == (2, 81) and not bool(bad)
 assert int(seqops.first_invalid_word_b5(b5.encode(x[:, :54]))[0]) == -1
 assert compat.n_to_bits2_pext(b"ATCGN" * 7).tolist() == compat.n_to_bits2_lut(b"ATCGN" * 7).tolist()
+hay = b"ACGTGATTACAGGGGTGTAATCCC" * 50
+assert search.match_positions(interop.u64_to_tensor(api.n_to_bits(hay)), len(hay), b"GATTACA").tolist() == list(range(4, 1200, 24))
+hay5 = b"ACGTNGATTACAN" * 2200  # 1059 u32: the kernel tier's plain version
+w5 = interop.u64_to_tensor(api.n_to_bits2(hay5))
+assert w5.shape[0] >= 1024 and search._use_b5_kernel(w5, b"TACAN")
+assert search.match_positions_b5(w5, len(hay5), b"TACAN").tolist() == list(range(8, len(hay5), 13))
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX", loaded)
 assert not loaded, loaded
@@ -107,3 +113,47 @@ def test_chip_smoke_fails_alone(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_search_wrappers_run_plain_only_for_cpu_tensors():
+    code = """
+import torch
+from cute_nucleotides_tpu_torch import api, interop
+from cute_nucleotides_tpu_torch.ops import kernels, search
+hay = b"ACGTNGATTACAN" * 2200
+w2 = interop.u64_to_tensor(api.n_to_bits(hay))
+w5 = interop.u64_to_tensor(api.n_to_bits2(hay))
+q, care, m = search.compile_query(b"GATTACA")
+qc = search.compile_query_b5(b"GAT?ACA")
+kernels.reset_launch_counts()
+assert torch.equal(kernels.match_bits_stream(w2, q, care, len(hay) - 6),
+                   kernels.match_bits_stream_plain(w2, q, care, len(hay) - 6))
+assert torch.equal(kernels.match_b5_bits_stream(w5, qc, len(hay) - 6),
+                   kernels.match_b5_bits_stream_plain(w5, qc, len(hay) - 6))
+assert kernels.match_bits_stream.launches == kernels.match_b5_bits_stream.launches == 0
+for call in (lambda: kernels.match_bits_stream(w2.to("meta"), q, care, 10),
+             lambda: kernels.match_b5_bits_stream(w5.to("meta"), qc, 10),
+             lambda: search.match_count(w2.to("meta"), len(hay), b"GATTACA"),
+             lambda: search.match_positions_b5(w5.to("meta"), len(hay), b"GAT?ACA")):
+    try:
+        call()
+    except ValueError as e:
+        assert str(e) == "no kernel for device meta", e
+        print("refused")
+    else:
+        raise SystemExit("computed on a device without kernels")
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("refused") == 4
+
+
+def test_chip_smoke_holds_search_plain_versions_only_as_references():
+    """In chip_smoke.py a search kernel's plain version is only ever the
+    reference a kernel is compared with or timed beside, never a stand-in
+    on the path it drives."""
+    lines = (REPO / "chip_smoke.py").read_text().splitlines()
+    calls = [i for i, line in enumerate(lines) if re.search(r"match_(b5_)?bits_stream_plain\(", line)]
+    assert len(calls) >= 6
+    for i in calls:
+        assert "lambda" in lines[i] or "errors.compare(" in lines[i - 1] + lines[i], lines[i]
