@@ -18,9 +18,10 @@ calls:
      --validate`` -> ``decode --batch 8192`` -> FASTA, for ``--codec 2bit``
      and for ``--codec base5`` (decode with ``--verify-stream``, and a
      corrupted copy refused);
-  6. launch counts of phases 3-5, read per path (each codec's path and the
-     search path run with the counts set to 0 just before them), then each
-     kernel's time beside its plain version's (CUDA events).
+  6. launch counts of phases 3-5, read per path (each codec's path, the
+     search path and the k-mer path run with the counts set to 0 just
+     before them), then each kernel's time beside its plain version's (CUDA
+     events).
 
 The search path: phase 2 holds both search kernels against their plain
 versions at the word seams, with wildcards, planted hits, a poly-A query
@@ -32,10 +33,30 @@ phase 5 runs ``grep --both`` on one chr1-length record of each codec with a
 45-nt query planted on both strands, and ``grep --count --both --batch
 8192`` on the 200,000-read files, each against a numpy scan of the bytes.
 
+The k-mer path (the ``stats`` command): phase 2 holds kernels #10 and #11
+against their plain versions at every k (1..15, 16..31) and W in {1, 511,
+512, 513}, and #13 on all-zero, all-65535, one repeated, masked, random and
+out-of-range codes; phase 3 runs ``kmer_histogram_batch(k=8,
+canonical=True)`` on the 1-Gnt batch's words u32[4096, 16384]; phase 4
+runs ``kmer_histogram(k=8)``, ``kmer_counts(k=15)`` and ``kmer_counts(k=21,
+canonical=True)`` on a chr1-length stream, each against the same function
+built from the plain versions; phase 5 runs ``stats`` on a chr1-length
+FASTA (``-k 8 --canonical --top 10``), a 20,000-read ``.nup`` (``-k 8``)
+and a 4-Mnt record (``-k 21 --canonical --top 10``), each stdout against a
+numpy count of the bytes.
+
 Phases 4 and 5 run their calls under ``torch.profiler`` (CUDA activity) and
 print the device time of the port's kernels, of copies and of other device
 work beside each call's wall time.  The script imports only the port, torch
-and numpy; the host oracle it checks against is the port's ``oracle`` tier.
+and numpy; the host oracle it checks against is the port's own
+(``ops/native.py``, through the api's ``oracle`` tier).
+
+The line before the last lists every kernel with its launches on its path,
+its largest difference from its plain version, its time (CUDA events) beside
+the plain version's and, for the histogram, ``torch.bincount``'s, and its
+bound: the least time the card could take, the larger of the bytes it must
+move at 3.35 TB/s and the integer operations its data needs at the card's
+INT32 rate.
 
 All data comes from seeds.  Exits non-zero, without the final line, on any
 failure or without CUDA.  Run from the repository root:
@@ -85,12 +106,24 @@ REPLACES = {
     "decode_b5_stream": f"{_PK}:1423",
     "match_bits_stream": "cute_nucleotides_tpu/ops/search.py:263",
     "match_b5_bits_stream": f"{_PK}:1986",
+    "kmer_codes_planar": "cute_nucleotides_tpu/ops/kmer.py:225",
+    "kmer_codes_planar_pair": "cute_nucleotides_tpu/ops/kmer.py:295",
+    "hist_codes": "cute_nucleotides_tpu/ops/kmer.py:502",
 }
 B5_KERNELS = ("encode_b5_stream", "decode_b5_stream", "match_b5_bits_stream")
 SEARCH_KERNELS = ("match_bits_stream", "match_b5_bits_stream")
+KMER_KERNELS = ("kmer_codes_planar", "kmer_codes_planar_pair", "hist_codes")
 _CSRC = "cute_nucleotides_tpu_torch/csrc"
-SOURCES = {k: f"{_CSRC}/search.cu" if k in SEARCH_KERNELS else f"{_CSRC}/codec_b5.cu" if k in B5_KERNELS
-           else f"{_CSRC}/codec2bit.cu" for k in REPLACES}
+SOURCES = {k: f"{_CSRC}/kmer.cu" if k in KMER_KERNELS else f"{_CSRC}/search.cu" if k in SEARCH_KERNELS
+           else f"{_CSRC}/codec_b5.cu" if k in B5_KERNELS else f"{_CSRC}/codec2bit.cu" for k in REPLACES}
+KMER_W = (1, 511, 512, 513)  # word lanes per row in phase 2; 37 rows, a multiple of no block
+STATS_READS, STATS_REC_NT = 20_000, 4_000_000
+#: the card's peaks (NVIDIA's H100 SXM datasheet): HBM
+#: bytes/s, and INT32 operations/s, a quarter of the 67 TFLOP/s FP32 rate
+#: (which counts an FMA as two operations on 128 FP32 lanes per SM; an SM
+#: has 64 INT32 lanes)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
 
 
 class SmokeFailure(Exception):
@@ -414,6 +447,52 @@ def phase_kernels_search(errors: Errors, rng) -> None:
         f"({errors.count} comparisons in phase 2; max abs err {errors.max})")
 
 
+def _hist_cases(rng) -> dict:
+    """Codes i32[1, n] for #13: n = 2^23 + 3 puts over 32768 codes of one
+    value in each block's counters on 132 SMs (the carry to global) and
+    leaves a ragged tail of 3."""
+    n = (1 << 23) + 3
+    masked = rng.integers(0, 1 << 16, n)
+    masked[np.arange(n) % 8192 >= 143] = 0  # a 150-nt read's 143 k-mers per 8192 codes (8-mers)
+    return {"all zero": np.zeros(n), "all 65535": np.full(n, 65535), "one code": np.full(n, 4242),
+            "masked read": masked, "random": rng.integers(0, 1 << 16, n),
+            "out of range": rng.integers(-70000, 140000, n)}
+
+
+def phase_kernels_kmer(errors: Errors, rng) -> None:
+    """#10 at every k in 1..15 and #11 at every k in 16..31, at W in KMER_W
+    with 37 rows; #13 on the _hist_cases codes; each bit for bit against
+    its plain version."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    dev = "cuda"
+    k10, k11, k13 = KMER_KERNELS
+    for W in KMER_W:
+        w, n, n2 = (torch.from_numpy(rng.integers(0, 2**32, (37, W), dtype=np.uint32)).to(dev) for _ in range(3))
+        for k in range(1, 16):
+            errors.compare(k10, K.kmer_codes_planar(w, n, k), K.kmer_codes_planar_plain(w, n, k),
+                           f"kmer codes k={k} W={W}")
+        for k in range(16, 32):
+            lo, hi = K.kmer_codes_planar_pair(w, n, n2, k)
+            plo, phi = K.kmer_codes_planar_pair_plain(w, n, n2, k)
+            errors.compare(k11, lo, plo, f"kmer pair lo k={k} W={W}")
+            errors.compare(k11, hi, phi, f"kmer pair hi k={k} W={W}")
+    cases = _hist_cases(rng)
+    for label, codes in cases.items():
+        t = torch.from_numpy(codes.astype(np.int32).reshape(1, -1)).to(dev)
+        got = K.hist_codes(t)
+        errors.compare(k13, got, K.hist_codes_plain(t), f"hist {label}")
+        inside = codes[(codes >= 0) & (codes < 1 << 16)].astype(np.int64)
+        check(np.array_equal(got.cpu().numpy().reshape(-1), np.bincount(inside, minlength=1 << 16)),
+              f"hist {label} != numpy bincount")
+    torch.cuda.synchronize()
+    say(f"phase 2 k-mer kernels: #10 at k 1..15 and #11 at k 16..31 on u32[37, W], W in {KMER_W}; #13 on "
+        f"{len(cases)} code sets of 2^23 + 3: bit-identical to the plain versions "
+        f"({errors.count} comparisons in phase 2; max abs err {errors.max})")
+
+
 # --- phase 3: the resident 1-Gnt batch -----------------------------------------
 
 def _make_batch(seed: int, nt: int = BATCH_NT, alphabet: bytes = ALPHABET):
@@ -676,8 +755,10 @@ def _upper_t_np(s: np.ndarray) -> np.ndarray:
 def _profiled(fn):
     """Run fn under torch.profiler (CUDA activity only).  Returns its result,
     the wall seconds, and the device ms of the port's kernels, of copies
-    (memcpy) and of other device work, read from ``key_averages()``, with
-    the three largest device events by name under "top"."""
+    (memcpy) and of other device work, summed over the profiler's raw
+    device events (``key_averages()`` would build a Python object per event,
+    minutes for the 20,000-read ``stats``), with the three largest device
+    event names by total under "top"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -688,17 +769,18 @@ def _profiled(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     device = {"kernels": 0.0, "copies": 0.0, "other": 0.0}
-    events = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+    by_name: dict[str, float] = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
             continue
-        if "_2bit_" in ev.key or "_b5_" in ev.key:
+        key, ms = ev.name(), ev.duration_ns() / 1e6
+        if any(tag in key for tag in ("_2bit_", "_b5_", "kmer_codes", "hist_codes")):
             kind = "kernels"
         else:
-            kind = "copies" if ev.key.startswith("Memcpy") else "other"
-        device[kind] += ev.self_device_time_total / 1e3
-        events.append((ev.self_device_time_total / 1e3, ev.key[:48]))
-    device["top"] = sorted(events, reverse=True)[:3]
+            kind = "copies" if key.startswith("Memcpy") else "other"
+        device[kind] += ms
+        by_name[key] = by_name.get(key, 0.0) + ms
+    device["top"] = sorted(((ms, key[:48]) for key, ms in by_name.items()), reverse=True)[:3]
     return out, wall, device
 
 
@@ -893,7 +975,7 @@ def _count_rows(seqs: np.ndarray, pattern: bytes, wildcard: int) -> np.ndarray:
     return ok.sum(1)
 
 
-def _grep(argv) -> tuple[int, str, float, dict]:
+def _run_cli(argv) -> tuple[int, str, float, dict]:
     from cute_nucleotides_tpu_torch import cli
 
     out = io.StringIO()
@@ -928,7 +1010,7 @@ def phase_grep(rng, workdir: str, reads2: list, reads5: list) -> None:
         want = sorted([(p, "+") for p in _find_all(hay, query)] + [(p, "-") for p in _find_all(hay, _revcomp(query))])
         check(sum(s == "+" for _, s in want) >= 6 and sum(s == "-" for _, s in want) >= 6,
               f"{label}: the planted hits are not in the byte scan")
-        rc, text, wall, dev = _grep(["grep", nup, query.decode(), "--both"])
+        rc, text, wall, dev = _run_cli(["grep", nup, query.decode(), "--both"])
         got = [json.loads(line) for line in text.splitlines()]
         check(rc == 0, f"{label} grep --both exit {rc}")
         check(got == [{"record": "chr1", "pos": p, "strand": st} for p, st in want],
@@ -947,7 +1029,7 @@ def phase_grep(rng, workdir: str, reads2: list, reads5: list) -> None:
         fwd, rev = _count_rows(seqs, pattern, wildcard), _count_rows(seqs, _revcomp(pattern), wildcard)
         want = "".join(json.dumps({"record": name.decode(), "fwd": int(f), "rev": int(r)}) + "\n"
                        for (name, _), f, r in zip(records, fwd, rev))
-        rc, text, wall, dev = _grep(["grep", os.path.join(workdir, nup), pattern.decode(), "--count", "--both",
+        rc, text, wall, dev = _run_cli(["grep", os.path.join(workdir, nup), pattern.decode(), "--count", "--both",
                                      "--batch", str(CLI_BATCH)])
         check(rc == 0, f"{label} grep --count --batch exit {rc}")
         check(text == want, f"{label} grep --count --both --batch: output != numpy byte counts")
@@ -956,6 +1038,180 @@ def phase_grep(rng, workdir: str, reads2: list, reads5: list) -> None:
             f"({time.perf_counter() - t0:.1f} s with the checks)")
         say(f"  grep --count --both --batch {CLI_BATCH}, {label}: {_breakdown(wall, dev)}; top device "
             f"events (ms) {dev['top']}")
+
+
+# --- the k-mer path: phases 3-5 -------------------------------------------------
+
+@contextlib.contextmanager
+def _plain_kmer_kernels():
+    """Inside, ``ops.kmer`` runs the plain versions of #10, #11 and #13: the
+    same function built from the plain versions, which the path's output is
+    held to.  The wrappers are back on exit."""
+    import types
+
+    from cute_nucleotides_tpu_torch.ops import kernels as K, kmer
+
+    saved = kmer.kernels
+    kmer.kernels = types.SimpleNamespace(
+        kmer_codes_planar=K.kmer_codes_planar_plain, kmer_codes_planar_pair=K.kmer_codes_planar_pair_plain,
+        hist_codes=K.hist_codes_plain)
+    try:
+        yield
+    finally:
+        kmer.kernels = saved
+
+
+def phase_kmer_batch(errors: Errors, words) -> None:
+    """``kmer_histogram_batch(k=8, canonical=True)`` on the 1-Gnt batch's
+    words u32[4096, 16384]: 1.07 G codes through #10 and #13."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kmer
+
+    k = 8
+    t0 = time.perf_counter()
+    hist = kmer.kmer_histogram_batch(words, BATCH_NT, k, canonical=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with _plain_kmer_kernels():
+        want = kmer.kmer_histogram_batch(words, BATCH_NT, k, canonical=True)
+    errors.compare("hist_codes", hist, want, "kmer_histogram_batch k=8 canonical vs its plain-built twin")
+    total = int(hist.to(torch.int64).sum())
+    check(total == BATCH_ROWS * (BATCH_NT - k + 1), f"kmer_histogram_batch mass {total}")
+    del want
+    torch.cuda.empty_cache()
+    say(f"phase 3 k-mer batch: kmer_histogram_batch(u32{tuple(words.shape)}, {BATCH_NT}, k=8, canonical) == "
+        f"its plain-built twin; mass {total} == {BATCH_ROWS} x ({BATCH_NT} - 7) ({wall:.3f} s wall)")
+
+
+def _chr1_words():
+    """A random 2-bit chr1-length stream on the card: u32[cdiv(CHR1_NT, 16)],
+    the bits past the last nt zero ('A' padding, as the encoder leaves it)."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 21)
+    nw = -(-CHR1_NT // 16)
+    w = torch.randint(0, 1 << 32, (nw,), dtype=torch.int64, device="cuda", generator=g).to(torch.int32)
+    if CHR1_NT % 16:
+        w[-1] &= (1 << (2 * (CHR1_NT % 16))) - 1
+    return w.view(torch.uint32)
+
+
+def phase_kmer_chr1(errors: Errors):
+    """``kmer_histogram(k=8)``, ``kmer_counts(k=15)`` and ``kmer_counts(k=21,
+    canonical=True)`` on a chr1-length stream, each under torch.profiler and
+    against its plain-built twin; the mass of each is length - k + 1."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kmer
+
+    w = _chr1_words()
+    runs = (("kmer_histogram k=8", "hist_codes", 8, lambda: kmer.kmer_histogram(w, CHR1_NT, 8)),
+            ("kmer_counts k=15", "kmer_codes_planar", 15, lambda: kmer.kmer_counts(w, CHR1_NT, 15)),
+            ("kmer_counts k=21 canonical", "kmer_codes_planar_pair", 21,
+             lambda: kmer.kmer_counts(w, CHR1_NT, 21, canonical=True)))
+    for label, kname, k, fn in runs:
+        got, wall, dev = _profiled(fn)
+        with _plain_kmer_kernels():
+            want = fn()
+        parts = got if isinstance(got, tuple) else (got,)
+        for i, (a, b) in enumerate(zip(parts, want if isinstance(want, tuple) else (want,))):
+            errors.compare(kname, a, b, f"chr1 {label} output {i} vs its plain-built twin")
+        mass = int(parts[-1].to(torch.int64).sum())
+        check(mass == CHR1_NT - k + 1, f"chr1 {label}: mass {mass} != {CHR1_NT - k + 1}")
+        extra = f", {int((parts[-1] > 0).sum())} distinct" if len(parts) == 3 else ""
+        say(f"phase 4 k-mer chr1: {label} on {CHR1_NT} nt == its plain-built twin; mass {mass}{extra}")
+        say(f"  {label}, chr1 length: {_breakdown(wall, dev)}; top device events (ms) {dev['top']}")
+        del got, want, parts
+        torch.cuda.empty_cache()
+    return w
+
+
+def _nt_codes(seq: np.ndarray) -> np.ndarray:
+    """2-bit codes of ASCII bytes ((b >> 1) & 3: A, C, T, G = 0..3)."""
+    return (seq >> 1) & 3
+
+
+def _kmers_np(c: np.ndarray, k: int, canonical: bool) -> np.ndarray:
+    """k-mer codes of code rows c[..., L] (first nt in the low bits), and with
+    ``canonical`` the min with the reverse complement (complement: c ^ 2)."""
+    dt = np.uint16 if k <= 8 else np.uint32 if k <= 15 else np.uint64
+    n = c.shape[-1] - k + 1
+    fwd = np.zeros(c.shape[:-1] + (n,), dt)
+    rc = np.zeros_like(fwd)
+    for j in range(k):
+        part = c[..., j : j + n].astype(dt)
+        if canonical:
+            rc |= np.left_shift(part ^ dt(2), dt(2 * (k - 1 - j)))
+        fwd |= np.left_shift(part, dt(2 * j), out=part)
+    return np.minimum(fwd, rc, out=fwd) if canonical else fwd
+
+
+def _stats_expected(seqs: list[np.ndarray], k: int, top: int, canonical: bool) -> str:
+    """The reference CLI's ``stats`` line, counted from the ASCII bytes; a
+    2-D entry of ``seqs`` holds one record per row."""
+    total = sum(s.size for s in seqs)
+    comp = sum(np.bincount(_nt_codes(s).ravel(), minlength=4) for s in seqs)
+    out = {"records": sum(s.shape[0] if s.ndim == 2 else 1 for s in seqs), "nt": total, "gc_fraction": round(int(comp[1] + comp[3]) / max(total, 1), 6),
+           "composition": dict(zip("ACTG", (int(c) for c in comp))), "k": k, "canonical": canonical}
+
+    def word(c: int) -> str:
+        return "".join("ACTG"[(c >> (2 * j)) & 3] for j in range(k))
+
+    codes = np.concatenate([_kmers_np(_nt_codes(s), k, canonical).ravel() for s in seqs if s.shape[-1] >= k])
+    if k > 12:
+        uniq, cnt = np.unique(codes, return_counts=True)  # ascending codes: the dict's order
+        out["distinct_kmers"] = int(uniq.size)
+        order = np.argsort(-cnt, kind="stable")[:top]
+        out["top_kmers"] = [{"kmer": word(int(uniq[i])), "count": int(cnt[i])} for i in order]
+    else:
+        hist = np.bincount(codes, minlength=4**k).astype(np.int32)
+        out["top_kmers"] = [{"kmer": word(int(c)), "count": int(hist[c])}
+                            for c in np.argsort(hist)[::-1][:top] if hist[c] > 0]
+    return json.dumps(out) + "\n"
+
+
+def _write_fasta_record(path: str, name: bytes, seq: np.ndarray) -> None:
+    full = seq.size // 80 * 80
+    lines = np.concatenate([seq[:full].reshape(-1, 80), np.full((full // 80, 1), ord("\n"), np.uint8)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b">" + name + b"\n")
+        f.write(lines.tobytes())
+        if seq.size > full:
+            f.write(seq[full:].tobytes() + b"\n")
+
+
+def phase_stats(rng, workdir: str, reads2: list) -> None:
+    """``stats`` through the CLI, under torch.profiler, each stdout against
+    :func:`_stats_expected`: a chr1-length FASTA record (-k 8 --canonical
+    --top 10), the first 20,000 phase-5 reads as a .nup (-k 8), and a 4-Mnt
+    record with a planted 30-nt repeat (-k 21 --canonical --top 10)."""
+    from cute_nucleotides_tpu_torch import api, cli
+
+    chr1 = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, CHR1_NT, dtype=np.uint8)]
+    _write_fasta_record(os.path.join(workdir, "chr1.fa"), b"chr1", chr1)
+    prefix = reads2[:STATS_READS]
+    cli.write_nup(os.path.join(workdir, "stats_reads.nup"), [n for n, _ in prefix],
+                  [api.n_to_bits(s, tier="oracle") for _, s in prefix], [len(s) for _, s in prefix], "2bit")
+    rec = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, STATS_REC_NT, dtype=np.uint8)]
+    motif = rec[:30].copy()
+    for i in range(1, 26):  # the first 30 nt again 25 times: their 21-mers count 26
+        rec[i * (STATS_REC_NT // 26) : i * (STATS_REC_NT // 26) + 30] = motif
+    _write_fasta_record(os.path.join(workdir, "rec.fa"), b"rec", rec)
+    reads = np.frombuffer(b"".join(s for _, s in prefix), np.uint8).reshape(len(prefix), -1)
+    runs = (("chr1.fa", ["-k", "8", "--canonical", "--top", "10"], [chr1], 8, 10, True),
+            ("stats_reads.nup", ["-k", "8"], [reads], 8, 5, False),
+            ("rec.fa", ["-k", "21", "--canonical", "--top", "10"], [rec], 21, 10, True))
+    for name, args, seqs, k, top, canonical in runs:
+        t0 = time.perf_counter()
+        rc, text, wall, dev = _run_cli(["stats", os.path.join(workdir, name), *args])
+        check(rc == 0, f"stats {name} exit {rc}")
+        want = _stats_expected(seqs, k, top, canonical)
+        check(text == want, f"stats {name} {' '.join(args)}: {text[:300]!r} != numpy {want[:300]!r}")
+        say(f"phase 5 stats {name} {' '.join(args)}: stdout == numpy count of the bytes "
+            f"({time.perf_counter() - t0:.1f} s with the checks): {text.strip()[:200]}")
+        say(f"  stats {name}: {_breakdown(wall, dev)}; top device events (ms) {dev['top']}")
 
 
 # --- timing -------------------------------------------------------------------
@@ -974,11 +1230,22 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_timing(x, words, x5, words5, card: str) -> dict:
-    """Each kernel and its plain version at the batches' shapes, in turns."""
+def _bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes at
+    the HBM rate and the integer operations at the INT32 rate."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_timing(x, words, x5, words5, chr1_words, card: str) -> dict:
+    """Each kernel and its plain version at its path's shapes, in turns
+    (plain, kernel, kernel, plain), with its bound from those shapes and,
+    for the histogram, torch.bincount of the same codes.  Returns {name:
+    (ms, plain ms, bound ms, bound by, library ms or None)} of the first
+    (default) variant."""
     import torch
 
-    from cute_nucleotides_tpu_torch.ops import kernels as K, search
+    from cute_nucleotides_tpu_torch.ops import kernels as K, kmer, search
 
     nt4 = x.view(torch.uint32)
     packed = words.view(torch.uint8)
@@ -1012,8 +1279,50 @@ def phase_timing(x, words, x5, words5, card: str) -> dict:
         (f"[{k}]", lambda qc=qc, m=m: K.match_b5_bits_stream(w5, qc, n5 - m + 1),
          lambda qc=qc, m=m: K.match_b5_bits_stream_plain(w5, qc, n5 - m + 1))
         for k, (qc, m) in compiled5.items()]
+    # the k-mer kernels at their path's shapes: #10 and #13 on the batch's
+    # words as rows of 512 (k = 8, canonical codes for #13), #11 on the
+    # chr1-length stream (k = 21)
+    panels = kmer._panels(words, 1)
+    codes = kmer.canonical_codes(K.kmer_codes_planar(*panels, 8), 8)
+    panels3 = kmer._panels(chr1_words, 2)
+    cases["kmer_codes_planar"] = [("[k=8]", lambda: K.kmer_codes_planar(*panels, 8),
+                                   lambda: K.kmer_codes_planar_plain(*panels, 8))]
+    cases["kmer_codes_planar_pair"] = [("[k=21]", lambda: K.kmer_codes_planar_pair(*panels3, 21),
+                                        lambda: K.kmer_codes_planar_pair_plain(*panels3, 21))]
+    # and #13 on one 150-nt read's codes, as stats sends them one record at
+    # a time (8049 of its 8192 codes masked to 0), beside 8192 random codes
+    read = torch.randint(0, 1 << 32, (10,), dtype=torch.int64, device="cuda").to(torch.int32)
+    read[-1] &= (1 << 12) - 1  # 150 nt: 6 in the last word (int32: the card has no & on uint32)
+    read_codes = K.kmer_codes_planar(*kmer._panels(read.view(torch.uint32), 1), 8)
+    kmer._mask_tail(read_codes, 150 - 8 + 1, 0)
+    rand_codes = torch.randint(0, K.HIST_BINS, read_codes.shape, dtype=torch.int32, device="cuda")
+    hist_inputs = {"[k=8 canonical]": codes, "[one 150-nt read, 8049 codes 0]": read_codes,
+                   "[8192 random codes]": rand_codes}
+    cases["hist_codes"] = [(label, lambda c=c: K.hist_codes(c), lambda c=c: K.hist_codes_plain(c))
+                           for label, c in hist_inputs.items()]
+    library = {"hist_codes": lambda: torch.bincount(codes.view(-1), minlength=K.HIST_BINS)}
+    # bounds: bytes each input read once and each output written once; the
+    # search kernels' integer work at the least this data needs (2-bit: 3
+    # ops -- funnel shift, masked xor, compare -- per word, start and anchor
+    # query word; base-5: 6 per triplet split and 2 per start slot and
+    # first anchor tap)
+    W2, N5, R1 = w2.numel(), w5.numel() // 2, panels[0].numel()
+    R3 = panels3[0].numel()
+    bounds = {
+        "encode_2bit_nt4": _bound(n2 + 4 * W2),
+        "decode_2bit_nt4": _bound(4 * W2 + n2),
+        "encode_2bit_nt4_checked": _bound(n2 + 4 * W2 + 4 * BATCH_ROWS),
+        "encode_2bit_nt4_mxu": _bound(n2 + 4 * W2),
+        "encode_b5_stream": _bound(n5 + 8 * N5),
+        "decode_b5_stream": _bound(8 * N5 + n5),
+        "match_bits_stream": _bound(8 * W2, 3 * 16 * W2),
+        "match_b5_bits_stream": _bound(12 * N5, (6 * 9 + 2 * 27) * N5),
+        "kmer_codes_planar": _bound(8 * R1 + 64 * R1),
+        "kmer_codes_planar_pair": _bound(12 * R3 + 128 * R3),
+    }
     say(f"timing on {card}: 2-bit u8[{BATCH_ROWS}, {BATCH_NT}] ({gib:.3f} Gnt), base-5 "
-        f"u8[{BATCH_ROWS}, {B5_NT}] ({gib5:.3f} Gnt)")
+        f"u8[{BATCH_ROWS}, {B5_NT}] ({gib5:.3f} Gnt); k-mer codes u32{tuple(panels[0].shape)} (k=8) and "
+        f"u32{tuple(panels3[0].shape)} (k=21), histogram i32{tuple(codes.shape)}")
     for label, batch, g in (("2-bit", x, gib), ("base-5", x5, gib5)):
         copy_ms = _time_ms(lambda b=batch: b.clone(), 10)
         say(f"  device copy of the {label} batch {copy_ms:.4f} ms ({2 * g / (copy_ms / 1e3):.1f} GiB/s "
@@ -1022,16 +1331,22 @@ def phase_timing(x, words, x5, words5, card: str) -> dict:
     for name, variants in cases.items():
         g = gib5 if name in B5_KERNELS else gib
         for suffix, kernel, plain in variants:
+            bound_ms, bound_by = (_bound(4 * hist_inputs[suffix].numel() + 4 * K.HIST_BINS)
+                                  if name == "hist_codes" else bounds[name])
             p1 = _time_ms(plain, 2)
             k1 = _time_ms(kernel, 20)
             k2 = _time_ms(kernel, 20)
             p2 = _time_ms(plain, 2)
             k_ms, p_ms = min(k1, k2), min(p1, p2)
+            lib_ms = _time_ms(library[name], 5) if name in library and name not in times else None
             torch.cuda.empty_cache()
-            say(f"  {name}{suffix}: kernel {k_ms:.4f} ms ({g / (k_ms / 1e3):.1f} GiB/s of nt); "
-                f"plain {p_ms:.3f} ms ({g / (p_ms / 1e3):.2f} GiB/s); runs {k1:.4f}/{k2:.4f} vs "
-                f"{p1:.3f}/{p2:.3f} ms")
-            times.setdefault(name, (k_ms, p_ms))  # the default variant is listed first
+            rate = (f"{g / (k_ms / 1e3):.1f} GiB/s of nt" if name not in KMER_KERNELS
+                    else f"{HBM_BYTES_PER_S * bound_ms / k_ms / 1e12:.2f} TB/s moved")
+            say(f"  {name}{suffix}: kernel {k_ms:.4f} ms ({rate}); plain {p_ms:.3f} ms; runs "
+                f"{k1:.4f}/{k2:.4f} vs {p1:.3f}/{p2:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+                f"{100 * bound_ms / k_ms:.0f}% of it"
+                + (f"; torch.bincount {lib_ms:.4f} ms" if lib_ms is not None else ""))
+            times.setdefault(name, (k_ms, p_ms, bound_ms, bound_by, lib_ms))  # the default variant is first
     return times
 
 
@@ -1051,8 +1366,9 @@ def main() -> int:
         phase_kernels(errors, rng)
         phase_kernels_b5(errors, rng)
         phase_kernels_search(errors, rng)
+        phase_kernels_kmer(errors, rng)
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        # each path (2-bit, base-5, search) runs with the counts set to 0
+        # each path (2-bit, base-5, search, k-mer) runs with the counts set to 0
         # just before it and read just after; each kernel must have launched
         # on its own path
         launches = {}
@@ -1078,16 +1394,23 @@ def main() -> int:
             torch.cuda.synchronize()
             launches["search"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
             say(f"phase 6 launches by the search path (phases 3 and 5): {launches['search']}")
-        path_of = {k: "search" if k in SEARCH_KERNELS else "base-5" if k in B5_KERNELS else "2-bit"
-                   for k in REPLACES}
+            K.reset_launch_counts()
+            phase_kmer_batch(errors, words)
+            chr1_words = phase_kmer_chr1(errors)
+            phase_stats(rng, workdir, reads2)
+            torch.cuda.synchronize()
+            launches["k-mer"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+            say(f"phase 6 launches by the k-mer path (phases 3-5): {launches['k-mer']}")
+        path_of = {k: "k-mer" if k in KMER_KERNELS else "search" if k in SEARCH_KERNELS
+                   else "base-5" if k in B5_KERNELS else "2-bit" for k in REPLACES}
         own = {k: launches[path_of[k]][k] for k in REPLACES}
         check(all(n > 0 for n in own.values()), f"a kernel of its path never launched: {own}")
         torch.cuda.empty_cache()
-        times = phase_timing(x, words, x5, words5, card)
+        times = phase_timing(x, words, x5, words5, chr1_words, card)
         say(json.dumps({"kernels": [
             {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-             "launches": own[k], "max_abs_err": errors.max[k],
-             "ms": times[k][0], "plain_ms": times[k][1]}
+             "launches": own[k], "max_abs_err": errors.max[k], "ms": times[k][0], "plain_ms": times[k][1],
+             "bound_ms": times[k][2], "bound_by": times[k][3], "library_ms": times[k][4]}
             for k in REPLACES
         ]}))
     except Exception:

@@ -1,11 +1,14 @@
-"""tpu-nucleotides on PyTorch and CUDA: the 2-bit and base-5 nucleotide codecs.
+"""tpu-nucleotides on PyTorch and CUDA: the 2-bit and base-5 nucleotide codecs,
+packed-domain search and k-mer counting.
 
 The port of ``cute_nucleotides_tpu`` (the JAX package, kept as the
 reference) to PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
 (sm_90a).  Tiers: ``torch`` (eager PyTorch, any device), ``cuda`` (the
-kernels) and ``auto``.  Framework-free layers -- the bit contract
-(``ops.spec``), the host oracles and the FASTA/FASTQ readers -- are shared
-with the reference, never copied.  Nothing here imports JAX.
+kernels) and ``auto``.  The package imports nothing of the reference: it
+keeps its own copies of the host layers it needs -- the bit contract
+(``ops.spec``), the host oracles (``ops.oracle``, ``ops.native``), the
+FASTA/FASTQ readers (``utils.io``) and the ``.nup`` container (``nup``).
+Nothing here imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,7 @@ Counterpart of ``n_to_bits``/``bits_to_n`` (2-bit) and ``n_to_bits2``/
 reference's exact semantics (u64 packed words, explicit decode length).
 Tiers:
 
-* ``oracle`` -- the host C++ oracle (``cute_nucleotides_tpu.ops.native``);
+* ``oracle`` -- the host C++ oracle (:mod:`.ops.native`);
 * ``torch``  -- eager PyTorch (:mod:`.ops.eager`);
 * ``cuda``   -- the hand-written kernels (:mod:`.ops.kernels`);
 * ``auto``   -- ``cuda`` on a CUDA device, ``torch`` on the CPU.
@@ -22,10 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cute_nucleotides_tpu.ops import native, oracle, spec
-
 from . import TIERS, interop, models
-from .ops import eager, kernels
+from .ops import eager, kernels, native, oracle, spec
 
 __all__ = ["n_to_bits", "bits_to_n", "n_to_bits2", "bits_to_n2"]
 

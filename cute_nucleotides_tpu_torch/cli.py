@@ -1,22 +1,22 @@
-"""Command-line interface of the port: encode / decode / parity / grep, both codecs.
+"""Command-line interface of the port: encode / decode / parity / grep / stats.
 
-Counterpart of ``encode``, ``decode``, ``parity`` and ``grep`` in
-``cute_nucleotides_tpu/cli.py``; it reads and writes the same ``.nup``
-container with the reference's own ``write_nup``/``read_nup``, so files are
-byte-identical between the two packages, and ``grep`` prints the same
-lines::
+Counterpart of ``encode``, ``decode``, ``parity``, ``grep`` and ``stats``
+in ``cute_nucleotides_tpu/cli.py``; it reads and writes the same ``.nup``
+container (:mod:`.nup`), so files are byte-identical between the two
+packages, and ``grep`` and ``stats`` print the same lines::
 
     python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --batch 8192 --validate
     python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --codec base5 --batch 8192 --validate
     python -m cute_nucleotides_tpu_torch decode out.nup out.fa --batch 8192 --verify-stream
     python -m cute_nucleotides_tpu_torch parity --tiers torch,auto
     python -m cute_nucleotides_tpu_torch grep out.nup GATTACA --both
+    python -m cute_nucleotides_tpu_torch stats chr1.fa -k 21 --canonical --top 10
 
 ``--batch N`` is the production path: batches of N reads as resident
 tensors through :class:`.models.TwoBitCodec` or :class:`.models.Base5Codec`.
 Without it each record goes through :mod:`.api` on its own.  The codec of
-``decode`` and ``grep`` is the one the ``.nup`` names; ``grep`` scans on the
-card when there is one (the ``auto`` tier's device).
+``decode`` and ``grep`` is the one the ``.nup`` names; ``grep`` and
+``stats`` work on the card when there is one (the ``auto`` tier's device).
 
 A malformed or missing file ends in one ``error:`` line and exit 1, and a
 closed output pipe (``grep ... | head``) in exit 141, as in the reference.
@@ -31,9 +31,8 @@ import sys
 
 import numpy as np
 
-from cute_nucleotides_tpu.cli import _write_fasta, read_nup, write_nup
-
 from . import TIERS
+from .nup import read_nup, write_fasta, write_nup
 
 _CODECS = ("2bit", "base5")
 
@@ -63,8 +62,8 @@ def _codec_class(codec: str):
 
 
 def cmd_encode(args) -> int:
-    from cute_nucleotides_tpu.ops import native, spec
-    from cute_nucleotides_tpu.utils import io as io_lib
+    from .ops import native, spec
+    from .utils import io as io_lib
 
     records = list(io_lib.open_reads(args.input))
     words_list, lengths = [], []
@@ -194,13 +193,13 @@ def cmd_decode(args) -> int:
                     dec = cd.decode(words)
                 dec = dec.cpu().numpy()
                 for i, (name, length, _) in enumerate(chunk):
-                    _write_fasta(out, name, dec[i, :length].tobytes())
+                    write_fasta(out, name, dec[i, :length].tobytes())
         else:
             from . import api
 
             decode = api.bits_to_n if codec == "2bit" else api.bits_to_n2
             for name, length, words in entries:
-                _write_fasta(out, name, decode(words, length, tier=args.tier).tobytes())
+                write_fasta(out, name, decode(words, length, tier=args.tier).tobytes())
         ok = True
     finally:
         if to_file:
@@ -214,9 +213,8 @@ def cmd_decode(args) -> int:
 
 def cmd_parity(args) -> int:
     """Randomized parity gate: every tier must match the oracle bit-exactly."""
-    from cute_nucleotides_tpu.ops import native, oracle
-
     from . import api
+    from .ops import native, oracle
 
     rng = np.random.default_rng(args.seed)
     alpha = np.frombuffer(b"ACGTUacgtu", np.uint8)
@@ -274,10 +272,9 @@ def _grep_batched(args, entries, queries, is_b5: bool, device) -> int:
     """Batched grep: fixed-shape batches (the word width bucketed by
     ``pack_words_batch``, as the decode path does), one mask-tier call per
     batch and strand; hits print per record, in record order."""
-    from cute_nucleotides_tpu.utils import io as io_lib
-
     from . import interop
     from .ops import search
+    from .utils import io as io_lib
 
     mask_fn = search.match_mask_b5_batch if is_b5 else search.match_mask_batch
     total = 0
@@ -353,6 +350,77 @@ def cmd_grep(args) -> int:
     return 0 if total or args.count else 1
 
 
+def cmd_stats(args) -> int:
+    """GC content, base composition and the top k-mers of a read file or a
+    2-bit ``.nup``, all computed on the packed words (no decode), one record
+    at a time as in the reference.  k <= 12 sums dense histograms; past
+    that the distinct k-mers of each record (``kmer.kmer_counts``) merge
+    into a dict in the reference's order, so ties print alike.  ``--tier``
+    encodes FASTA/FASTQ input and picks the device (``oracle``: the auto
+    device)."""
+    import torch
+
+    from . import api, interop
+    from .models import resolve_device
+    from .ops import kmer, seqops
+    from .utils import io as io_lib
+
+    if args.input.endswith(".nup"):
+        codec, entries = read_nup(args.input)
+        if codec != "2bit":
+            print("stats requires a 2-bit stream", file=sys.stderr)
+            return 1
+        seqs = [(length, words) for _, length, words in entries]
+    else:
+        seqs = [(len(rec.seq), api.n_to_bits(rec.seq, tier=args.tier))
+                for rec in io_lib.open_reads(args.input)]
+    device = resolve_device("auto" if args.tier == "oracle" else args.tier)
+    total_nt = sum(n for n, _ in seqs)
+    # the sums stay on the device until the end: no sync per record
+    comp = torch.zeros(4, dtype=torch.int64, device=device)
+    hist = None
+    counts_map: dict[int, int] = {}
+    use_counts = args.k > 12  # past the dense-histogram ceiling (17 TB at 21)
+    for n, words in seqs:
+        w32 = interop.u64_to_tensor(words, device)
+        comp += seqops.base_composition_packed(w32, n)
+        if n >= args.k:
+            if use_counts:
+                lo, hi, cnt = kmer.kmer_counts(w32, n, args.k, canonical=args.canonical)
+                idx = torch.nonzero(cnt).flatten()
+                hi64, lo64 = (t.view(torch.int32)[idx].to(torch.int64) & 0xFFFFFFFF for t in (hi, lo))
+                for code, c in zip(((hi64 << 32) | lo64).tolist(), cnt[idx].tolist()):
+                    counts_map[code] = counts_map.get(code, 0) + c
+            else:
+                h = kmer.kmer_histogram(w32, n, args.k, canonical=args.canonical)
+                hist = h if hist is None else hist + h
+    comp = comp.tolist()
+    gc = comp[1] + comp[3]  # C + G: the fields with code bit 0 set, what gc_content_packed counts
+    out = {
+        "records": len(seqs),
+        "nt": total_nt,
+        "gc_fraction": round(gc / max(total_nt, 1), 6),
+        "composition": dict(zip("ACTG", comp)),
+        "k": args.k,
+        "canonical": bool(args.canonical),
+    }
+
+    def code_to_str(c):
+        return "".join("ACTG"[(c >> (2 * j)) & 3] for j in range(args.k))
+
+    if use_counts and counts_map:
+        out["distinct_kmers"] = len(counts_map)
+        top = sorted(counts_map.items(), key=lambda kv: -kv[1])[: args.top]  # stable: ties keep code order
+        out["top_kmers"] = [{"kmer": code_to_str(c), "count": n} for c, n in top]
+    elif hist is not None:
+        hist_np = interop.to_numpy(hist)  # i32, as the reference's: argsort breaks ties alike
+        top = np.argsort(hist_np)[::-1][: args.top]
+        out["top_kmers"] = [{"kmer": code_to_str(int(c)), "count": int(hist_np[c])}
+                            for c in top if hist_np[c] > 0]
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="cute-nucleotides-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -406,6 +474,14 @@ def main(argv=None) -> int:
     pg.add_argument("--batch", type=int, default=0, metavar="N",
                     help="scan N records per device call (fixed-shape batches)")
     pg.set_defaults(fn=cmd_grep)
+
+    ps = sub.add_parser("stats", help="packed-domain GC content + top k-mers")
+    ps.add_argument("input")
+    ps.add_argument("-k", type=int, default=8)
+    ps.add_argument("--top", type=int, default=5)
+    ps.add_argument("--canonical", action="store_true")
+    ps.add_argument("--tier", default="auto", choices=TIERS)
+    ps.set_defaults(fn=cmd_stats)
 
     args = p.parse_args(argv)
     try:

@@ -29,9 +29,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from cute_nucleotides_tpu.ops import native
-
 from . import api
+from .ops import native
 
 __all__ = [
     "n_to_bits_lut", "n_to_bits_pext", "n_to_bits_shift",

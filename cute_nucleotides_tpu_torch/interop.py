@@ -3,8 +3,8 @@ tensors.
 
 The codec has no weights; what crosses between the two packages is data:
 u8 byte streams, u32 word arrays (including the nt4 view of a byte stream),
-u64 word streams and ``.nup`` containers (read and written by the
-reference's own ``cli.write_nup``/``cli.read_nup``).  Every function here
+u64 word streams and ``.nup`` containers (read and written alike by both
+packages).  Every function here
 keeps the bits: dtypes map one to one, and a u64 stream travels as its
 little-endian u32 pairs, the form the port's packed words take.
 """

@@ -19,9 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from cute_nucleotides_tpu.ops import spec
-
-from ..ops import eager, kernels, seqops, validate
+from ..ops import eager, kernels, seqops, spec, validate
 
 __all__ = ["Base5Codec", "CodecConfig", "TwoBitCodec", "pad_batch", "resolve_device", "resolve_tier"]
 

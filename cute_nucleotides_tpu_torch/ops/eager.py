@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from cute_nucleotides_tpu.ops import spec
+from . import spec
 
 ENCODE_2BIT_VARIANTS = ("shift", "mul", "interleave", "dot")
 DECODE_2BIT_VARIANTS = ("shuffle", "select", "swar", "broadcast")

@@ -1,6 +1,6 @@
 """The ``cuda`` tier: wrappers of the hand-written Hopper kernels in
-``csrc/codec2bit.cu``, ``csrc/codec_b5.cu`` and ``csrc/search.cu``, each
-beside its plain PyTorch version.
+``csrc/codec2bit.cu``, ``csrc/codec_b5.cu``, ``csrc/search.cu`` and
+``csrc/kmer.cu``, each beside its plain PyTorch version.
 
 A wrapper runs its plain version only for a tensor on the CPU; for a CUDA
 tensor it launches its kernel (building the library on first use) or raises.
@@ -21,12 +21,19 @@ stream, because word boundaries survive the flatten.
 The search kernels take flat packed streams too and write one u32 of match
 bits per stream word (16 starts per 2-bit word, 27 per base-5 word).
 
+The k-mer kernels take 2-bit words cut into rows u32[R, W] beside their
+successor words and write planar codes i32[R, 16 W] (or u32 (lo, hi)
+planes for k >= 16); the histogram kernel counts codes < 65536 into
+i32[256, 256].
+
 Every codec kernel is bound by device memory: the 2-bit encoders read 4
 bytes and write 1 per 4 nt, the decoder the reverse (5 bytes moved per 4
 nt); the base-5 kernels move 27 bytes and one 8-byte word per 27 nt (35
 bytes).  The search kernels move less (8 or 12 bytes per word) and are
-bound by integer work at short queries.  Times on the H100 beside the plain
-versions' are in PERF.md.
+bound by integer work at short queries.  The k-mer code kernels are bound
+by their writes (64 B per 16 nt, twice that for pairs), the histogram by
+reading the codes.  Times on the H100 beside the plain versions' are in
+PERF.md.
 """
 
 from __future__ import annotations
@@ -37,9 +44,7 @@ import math
 import numpy as np
 import torch
 
-from cute_nucleotides_tpu.ops import spec
-
-from . import _build, eager, seqops, validate
+from . import _build, eager, seqops, spec, validate
 
 ENCODE_2BIT_VARIANTS = ("mul", "shift", "interleave", "mxu")
 DECODE_2BIT_VARIANTS = ("shuffle", "select", "swar")
@@ -543,8 +548,179 @@ def match_b5_bits_stream(words: torch.Tensor, qc, n_starts: int) -> torch.Tensor
 
 match_b5_bits_stream.launches = 0
 
+# --- kernels #10, #11 and #13: k-mer codes and their histogram -------------------
+
+def _same_device(first: torch.Tensor, *rest: torch.Tensor) -> bool:
+    """:func:`_on_cuda` for several inputs, which must share one device."""
+    on_cuda = _on_cuda(first)
+    for t in rest:
+        if t.device != first.device:
+            raise ValueError(f"inputs on {first.device} and {t.device}")
+        _on_cuda(t)
+    return on_cuda
+
+
+def _check_kmer_inputs(k: int, lo: int, hi: int, words: torch.Tensor, *succ: torch.Tensor) -> None:
+    if not lo <= k <= hi:
+        raise ValueError(f"k must be in [{lo}, {hi}], got {k}")
+    _check_2d(words, torch.uint32, "u32[R, W] words")
+    for t in succ:
+        if t.dtype != torch.uint32 or t.shape != words.shape:
+            raise TypeError(f"successor words {t.dtype}{tuple(t.shape)} do not match u32{tuple(words.shape)}")
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical ``x >> s`` (0 < s < 32) of the u32 bits in an int32 tensor
+    (torch's ``>>`` on int32 sign-extends)."""
+    return (x >> s) & ((1 << (32 - s)) - 1)
+
+
+def _funnel(a: torch.Tensor, b: torch.Tensor, s: int) -> torch.Tensor:
+    """Low 32 bits of (b:a) >> s, 0 < s < 32, on int32 tensors."""
+    return _shr(a, s) | (b << (32 - s))
+
+
+def kmer_codes_planar_plain(words: torch.Tensor, nxt: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain version of :func:`kmer_codes_planar`, on int32 lanes (no int64
+    temporaries), one shift plane at a time."""
+    R, W = words.shape
+    a, b = words.view(torch.int32), nxt.view(torch.int32)
+    mask = (1 << (2 * k)) - 1
+    out = torch.empty((R, spec.NT_PER_U32_2BIT, W), dtype=torch.int32, device=words.device)
+    out[:, 0] = a & mask
+    for s in range(1, spec.NT_PER_U32_2BIT):
+        out[:, s] = _funnel(a, b, 2 * s) & mask
+    return out.view(R, spec.NT_PER_U32_2BIT * W)
+
+
+def kmer_codes_planar(words: torch.Tensor, nxt: torch.Tensor, k: int) -> torch.Tensor:
+    """Planar k-mer codes, 1 <= k <= 15: words and their successor words
+    u32[R, W] -> i32[R, 16 W].  Column ``W s + w`` of row r holds the code
+    of the k-mer at nt ``16 w + s`` of the row: the 2k bits at bit 2s of
+    ``(words[r, w], nxt[r, w])``, first nt in the low bits.  Any W.
+
+    Replaces ``cute_nucleotides_tpu/ops/kmer.py:kmer_codes_planar``, whose
+    (rows, 512)-lane panels were TPU blocks.  One thread per input word
+    writes its 16 codes, one coalesced store per shift.  Bound by memory
+    (8 B read, 64 B written per 16 nt).  Time on the H100: PERF.md.
+    """
+    _check_kmer_inputs(k, 1, 15, words, nxt)
+    if not _same_device(words, nxt):
+        return kmer_codes_planar_plain(words, nxt, k)
+    R, W = words.shape
+    out = torch.empty((R, spec.NT_PER_U32_2BIT * W), dtype=torch.int32, device=words.device)
+    if words.numel():
+        lib = _build.load()
+        with torch.cuda.device(words.device):
+            _launch(lib.cn_kmer_codes, words.data_ptr(), nxt.data_ptr(), out.data_ptr(), R, W, k,
+                    _stream(words))
+        kmer_codes_planar.launches += 1
+    return out
+
+
+kmer_codes_planar.launches = 0
+
+
+def kmer_codes_planar_pair_plain(
+    words: torch.Tensor, nxt: torch.Tensor, nxt2: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`kmer_codes_planar_pair`, on int32 lanes."""
+    R, W = words.shape
+    a, b, c = (t.view(torch.int32) for t in (words, nxt, nxt2))
+    mask_hi = (1 << (2 * k - 32)) - 1  # 0 at k = 16
+    lo = torch.empty((R, spec.NT_PER_U32_2BIT, W), dtype=torch.int32, device=words.device)
+    hi = torch.empty_like(lo)
+    lo[:, 0], hi[:, 0] = a, b & mask_hi
+    for s in range(1, spec.NT_PER_U32_2BIT):
+        lo[:, s] = _funnel(a, b, 2 * s)
+        hi[:, s] = _funnel(b, c, 2 * s) & mask_hi
+    shape = (R, spec.NT_PER_U32_2BIT * W)
+    return lo.view(shape).view(torch.uint32), hi.view(shape).view(torch.uint32)
+
+
+def kmer_codes_planar_pair(
+    words: torch.Tensor, nxt: torch.Tensor, nxt2: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Planar k-mer codes, 16 <= k <= 31: words and their one- and two-ahead
+    successors u32[R, W] -> (lo, hi) u32[R, 16 W]; ``lo | hi << 32`` is the
+    2k-bit code, laid out as in :func:`kmer_codes_planar` (hi keeps 2k - 32
+    bits, none at k = 16).
+
+    Replaces ``cute_nucleotides_tpu/ops/kmer.py:kmer_codes_planar_pair``.
+    One thread per input word writes its 16 (lo, hi) pairs, one coalesced
+    store per shift and plane.  Bound by memory (12 B read, 128 B written
+    per 16 nt).  Time on the H100: PERF.md.
+    """
+    _check_kmer_inputs(k, 16, 31, words, nxt, nxt2)
+    if not _same_device(words, nxt, nxt2):
+        return kmer_codes_planar_pair_plain(words, nxt, nxt2, k)
+    R, W = words.shape
+    lo = torch.empty((R, spec.NT_PER_U32_2BIT * W), dtype=torch.uint32, device=words.device)
+    hi = torch.empty_like(lo)
+    if words.numel():
+        lib = _build.load()
+        with torch.cuda.device(words.device):
+            _launch(lib.cn_kmer_codes_pair, words.data_ptr(), nxt.data_ptr(), nxt2.data_ptr(), lo.data_ptr(),
+                    hi.data_ptr(), R, W, k, _stream(words))
+        kmer_codes_planar_pair.launches += 1
+    return lo, hi
+
+
+kmer_codes_planar_pair.launches = 0
+
+#: code values the histogram counts: [0, 65536), the k <= 8 codes
+HIST_BINS = 1 << 16
+
+
+def count_codes_plain(codes: torch.Tensor, bins: int, step: int = 1 << 24) -> torch.Tensor:
+    """i32[bins] count of each value of ``codes`` in [0, bins) (others are
+    not counted), by ``index_add_`` on chunks of ``step`` codes, so that the
+    selected copies stay small."""
+    flat = codes.reshape(-1)
+    counts = torch.zeros(bins, dtype=torch.int32, device=codes.device)
+    for i in range(0, flat.numel(), step):
+        c = flat[i : i + step]
+        c = c[(c >= 0) & (c < bins)]
+        counts.index_add_(0, c, torch.ones_like(c))
+    return counts
+
+
+def hist_codes_plain(codes: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`hist_codes`."""
+    return count_codes_plain(codes, HIST_BINS).view(256, 256)
+
+
+def hist_codes(codes: torch.Tensor) -> torch.Tensor:
+    """Histogram of k-mer codes: i32[R, C] (any order) -> counts i32[256,
+    256]; ``counts[j1, j2]`` is the number of codes ``256 j1 + j2``.  Codes
+    outside [0, 65536) are not counted, as the reference's one-hots drop
+    them.
+
+    Replaces ``cute_nucleotides_tpu/ops/kmer.py:_hist_mxu``, whose int8
+    one-hot matmuls on the TPU's matrix unit stood in for a scatter-add.
+    Here one block per SM keeps the 65,536 bins as u16 counter pairs in 128
+    KiB of shared memory (a counter that reaches 32768 moves that to the
+    global bin), and code 0, where callers mask every out-of-range position,
+    is counted by warp ballots instead of contended atomics.  Bound by
+    reading the codes (4 B per code).  Time on the H100: PERF.md.
+    """
+    _check_2d(codes, torch.int32, "codes i32[R, C]")
+    if not _on_cuda(codes):
+        return hist_codes_plain(codes)
+    counts = torch.zeros(HIST_BINS, dtype=torch.int32, device=codes.device)
+    if codes.numel():
+        lib = _build.load()
+        with torch.cuda.device(codes.device):
+            _launch(lib.cn_hist_codes, codes.data_ptr(), codes.numel(), counts.data_ptr(), _stream(codes))
+        hist_codes.launches += 1
+    return counts.view(256, 256)
+
+
+hist_codes.launches = 0
+
 WRAPPERS = (encode_2bit_nt4, decode_2bit_nt4, encode_2bit_nt4_checked, encode_2bit_nt4_mxu,
-            encode_b5_stream, decode_b5_stream, match_bits_stream, match_b5_bits_stream)
+            encode_b5_stream, decode_b5_stream, match_bits_stream, match_b5_bits_stream,
+            kmer_codes_planar, kmer_codes_planar_pair, hist_codes)
 
 
 def reset_launch_counts() -> None:

@@ -28,9 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cute_nucleotides_tpu.ops import spec
-
-from . import eager, kernels
+from . import eager, kernels, spec
 
 __all__ = [
     "compile_query",

@@ -1,6 +1,6 @@
-"""The CUDA kernels of both codecs and of the search on the card: each
-against its plain version, the cuda tier against the torch tier and the
-oracle, launch counts and refusals.
+"""The CUDA kernels of both codecs, the search and the k-mer path on the
+card: each against its plain version, the cuda tier against the torch tier
+and the oracle, launch counts and refusals.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX, so it also runs where JAX is not installed; the tests' conftest
@@ -13,9 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from cute_nucleotides_tpu.ops import native
 from cute_nucleotides_tpu_torch import api, interop, models
-from cute_nucleotides_tpu_torch.ops import kernels as K, search
+from cute_nucleotides_tpu_torch.ops import kernels as K, native, search
 
 pytestmark = pytest.mark.cuda
 
@@ -107,7 +106,7 @@ def test_launch_counts_and_alignment(cuda_device):
     K.encode_2bit_nt4_mxu(t)
     K.encode_2bit_nt4_mxu(t, checked=True)
     K.decode_2bit_nt4(K.encode_2bit_nt4(t))
-    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0]
     misaligned = torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:36]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_2bit_nt4(misaligned.view(torch.uint32).view(2, 4))
@@ -193,7 +192,7 @@ def test_b5_launch_counts_and_alignment(cuda_device):
     K.encode_b5_stream(x, checked=True)
     for checked, digits in B5_MODES:
         K.decode_b5_stream(w, checked, digits)
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_b5_stream(torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:31])
     with pytest.raises(ValueError, match="checked digit"):
@@ -281,6 +280,77 @@ def test_search_launch_counts(cuda_device):
     search.match_positions_b5(w5, s.size, b"GAT?ACA")
     search.match_positions_b5(w5[:1000], 13500, b"GAT?ACA")  # under 1024 u32: the mask tier
     search.match_count_b5(w5, s.size, b"A" * 1025)  # over 1024 nt: the mask tier
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.match_bits_stream(w2[1:], *search.compile_query(b"ACG")[:2], 10)
+
+
+KMER_W = (1, 511, 512, 513)
+
+
+@pytest.mark.parametrize("W", KMER_W)
+def test_kmer_codes_kernels_match_plain(cuda_device, W):
+    rng = np.random.default_rng(W)
+    w, n, n2 = (interop.to_tensor(rng.integers(0, 2**32, (37, W), dtype=np.uint32), cuda_device) for _ in range(3))
+    for k in range(1, 16):
+        assert _same(K.kmer_codes_planar(w, n, k), K.kmer_codes_planar_plain(w, n, k)), k
+    for k in range(16, 32):
+        lo, hi = K.kmer_codes_planar_pair(w, n, n2, k)
+        plo, phi = K.kmer_codes_planar_pair_plain(w, n, n2, k)
+        assert _same(lo, plo) and _same(hi, phi), k
+
+
+@pytest.mark.parametrize("case", ("zeros", "max", "one code", "random", "out of range"))
+def test_hist_codes_kernel_matches_plain(cuda_device, case):
+    rng = np.random.default_rng(7)
+    n = (1 << 23) + 3  # over 32768 of one code per block on 132 SMs (the carry), and a ragged tail
+    codes = {"zeros": np.zeros(n), "max": np.full(n, 65535), "one code": np.full(n, 12345),
+             "random": rng.integers(0, 65536, n),
+             "out of range": rng.integers(-70000, 140000, n)}[case].astype(np.int32)
+    if case == "random":
+        codes[: n // 3] = 0  # a masked block, as the callers leave it
+    t = interop.to_tensor(codes.reshape(1, n), cuda_device)
+    got = K.hist_codes(t)
+    assert _same(got, K.hist_codes_plain(t))
+    inside = codes[(codes >= 0) & (codes < 65536)]
+    assert np.array_equal(interop.to_numpy(got).reshape(-1), np.bincount(inside, minlength=65536))
+
+
+def test_kmer_cuda_matches_torch_tier(cuda_device):
+    from cute_nucleotides_tpu_torch.ops import kmer
+
+    rng = np.random.default_rng(11)
+    flat = rng.integers(0, 2**32, 700, dtype=np.uint32)
+    cpu, gpu = interop.to_tensor(flat), interop.to_tensor(flat, cuda_device)
+    length = 700 * 16 - 5
+    K.reset_launch_counts()
+    for k in (2, 8):
+        for canonical in (False, True):
+            assert _same(kmer.kmer_histogram(gpu, length, k, canonical=canonical),
+                         kmer.kmer_histogram(cpu, length, k, canonical=canonical))
+    for k in (5, 15, 16, 21, 31):
+        got = kmer.kmer_counts(gpu, length, k, canonical=True)
+        want = kmer.kmer_counts(cpu, length, k, canonical=True)
+        assert all(_same(a, b) for a, b in zip(got, want)), k
+    batch = rng.integers(0, 2**32, (9, 37), dtype=np.uint32)
+    lengths = rng.integers(0, 37 * 16 + 1, 9).astype(np.int32)
+    for k in (3, 8, 11):
+        assert _same(kmer.kmer_histogram_batch(interop.to_tensor(batch, cuda_device), lengths, k, canonical=True),
+                     kmer.kmer_histogram_batch(interop.to_tensor(batch), lengths, k, canonical=True))
+    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2]
+
+
+def test_stats_cuda_matches_torch_tier(cuda_device, tmp_path, capsys):
+    from cute_nucleotides_tpu_torch import cli
+
+    rng = np.random.default_rng(12)
+    fa = tmp_path / "reads.fa"
+    with open(fa, "wb") as f:
+        for i, n in enumerate((0, 5, 150, 3000, 100_003)):
+            f.write(b">r%d\n%s\n" % (i, rng.choice(ALPHABET, n).tobytes()))
+    for argv in (["-k", "8", "--canonical"], ["-k", "10"], ["-k", "15"], ["-k", "21", "--canonical", "--top", "10"]):
+        out = {}
+        for tier in ("cuda", "torch"):
+            assert cli.main(["stats", str(fa), *argv, "--tier", tier]) == 0
+            out[tier] = capsys.readouterr().out
+        assert out["cuda"] == out["torch"], argv

@@ -1,0 +1,187 @@
+"""The port's own copies of the reference's host layers against the
+originals: ``ops/spec.py``, ``ops/oracle.py``, the C++ oracle
+(``native/codec.cpp`` and ``ops/native.py``), ``utils/io.py`` and the
+``.nup`` container (``nup.py``).  The port imports none of the reference,
+so these tests keep the copies honest: the same constants, the same words,
+the same bytes on disk, the same records and the same errors."""
+
+import gzip
+import io
+import os
+
+import numpy as np
+import pytest
+
+from cute_nucleotides_tpu import cli as ref_cli
+from cute_nucleotides_tpu.native import __file__ as ref_native_init
+from cute_nucleotides_tpu.ops import native as ref_native, oracle as ref_oracle, spec as ref_spec
+from cute_nucleotides_tpu.utils import io as ref_io
+from cute_nucleotides_tpu_torch import native as port_native_build, nup
+from cute_nucleotides_tpu_torch.ops import native, oracle, spec
+from cute_nucleotides_tpu_torch.utils import io as port_io
+
+LENGTHS = (0, 1, 26, 27, 28, 31, 32, 33, 1000, 4099)
+
+
+def _seq(n: int, alphabet: bytes = b"ACGTUNacgtunX\x00\xff") -> np.ndarray:
+    return np.random.default_rng(n).choice(np.frombuffer(alphabet, np.uint8), n)
+
+
+def test_spec_constants_equal_reference():
+    names = [n for n in dir(ref_spec) if n.isupper()]
+    assert len(names) >= 20 and names == [n for n in dir(spec) if n.isupper()]
+    for name in names:
+        a, b = getattr(spec, name), getattr(ref_spec, name)
+        assert (np.array_equal(a, b) and a.dtype == b.dtype) if isinstance(b, np.ndarray) else a == b, name
+    w = np.arange(12, dtype=np.uint64) * np.uint64(0x0123456789ABCDEF)
+    assert np.array_equal(spec.u64_to_u32_pairs(w), ref_spec.u64_to_u32_pairs(w))
+    assert spec.num_words_b5(55) == ref_spec.num_words_b5(55) and spec.cdiv(-7, 3) == ref_spec.cdiv(-7, 3)
+
+
+def test_codec_cpp_is_the_reference_source():
+    port_src = os.path.join(os.path.dirname(port_native_build.__file__), "codec.cpp")
+    ref_src = os.path.join(os.path.dirname(ref_native_init), "codec.cpp")
+    with open(port_src, "rb") as a, open(ref_src, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_native_builds_into_the_build_directory():
+    assert native.available() and ref_native.available()
+    lib = port_native_build.load()
+    assert os.path.dirname(lib._name) == port_native_build.BUILD_DIR
+    assert not [f for f in os.listdir(os.path.dirname(port_native_build.__file__)) if f.endswith(".so")]
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_native_and_oracle_equal_reference(n):
+    s = _seq(n)
+    w2, w5 = ref_native.n_to_bits(s), ref_native.n_to_bits2(s)
+    assert np.array_equal(native.n_to_bits(s), w2) and np.array_equal(oracle.n_to_bits_lut(s), w2)
+    assert np.array_equal(native.n_to_bits2(s), w5) and np.array_equal(oracle.n_to_bits2_lut(s), w5)
+    assert np.array_equal(native.bits_to_n(w2, n), ref_native.bits_to_n(w2, n))
+    assert np.array_equal(oracle.bits_to_n_lut(w2, n), ref_oracle.bits_to_n_lut(w2, n))
+    assert np.array_equal(native.bits_to_n2(w5, n), ref_native.bits_to_n2(w5, n))
+    assert np.array_equal(oracle.bits_to_n2_lut(w5, n), ref_oracle.bits_to_n2_lut(w5, n))
+    for allow_n in (False, True):
+        assert native.find_invalid(s, allow_n=allow_n) == ref_native.find_invalid(s, allow_n=allow_n)
+        clean = _seq(n, b"ACGTUacgtu")
+        assert native.find_invalid(clean, allow_n=allow_n) == ref_native.find_invalid(clean, allow_n=allow_n) == -1
+
+
+def test_native_capacity_errors_equal_reference():
+    for port_fn, ref_fn in ((native.bits_to_n, ref_native.bits_to_n), (native.bits_to_n2, ref_native.bits_to_n2)):
+        with pytest.raises(ValueError) as want:
+            ref_fn(np.zeros(2, np.uint64), 100)
+        with pytest.raises(ValueError) as got:
+            port_fn(np.zeros(2, np.uint64), 100)
+        assert str(got.value) == str(want.value)
+
+
+def test_fill_rows_equals_reference():
+    buf = _seq(500)
+    starts, lens = np.array([0, 10, 200, 499]), np.array([5, 0, 300, 1])
+    a, b = np.zeros((6, 64), np.uint8), np.ones((6, 64), np.uint8)
+    native.fill_rows(buf, starts, lens, a)
+    ref_native.fill_rows(buf, starts, lens, b)
+    assert np.array_equal(a, b)
+    with pytest.raises(ValueError, match="out of buffer bounds"):
+        native.fill_rows(buf, np.array([490]), np.array([20]), a)
+
+
+def _entries(codec: str):
+    rng = np.random.default_rng(2)
+    names = [b"r0", b"", b"chr1 some description", b"r0"]
+    lengths = [0, 1, 100, 64]
+    per = 32 if codec == "2bit" else 27
+    words = [rng.integers(0, 2**63, -(-n // per), dtype=np.uint64) for n in lengths]
+    return names, words, lengths
+
+
+@pytest.mark.parametrize("codec", ("2bit", "base5"))
+def test_nup_files_identical_to_reference(tmp_path, codec):
+    names, words, lengths = _entries(codec)
+    mine, theirs = tmp_path / "a.nup", tmp_path / "b.nup"
+    nup.write_nup(str(mine), names, words, lengths, codec)
+    ref_cli.write_nup(str(theirs), names, words, lengths, codec)
+    assert mine.read_bytes() == theirs.read_bytes()
+    got, want = nup.read_nup(str(theirs)), ref_cli.read_nup(str(mine))
+    assert got[0] == want[0] == codec
+    assert [(n, ln, w.tolist()) for n, ln, w in got[1]] == [(n, ln, w.tolist()) for n, ln, w in want[1]]
+    with nup.NupReader(str(mine)) as r, ref_cli.NupReader(str(mine)) as q:
+        assert r.names == q.names and r.lengths == q.lengths and r.codec == q.codec
+
+
+def test_nup_errors_equal_reference(tmp_path):
+    names, words, lengths = _entries("2bit")
+    path = tmp_path / "t.nup"
+    nup.write_nup(str(path), names, words, lengths, "2bit")
+    truncated = tmp_path / "trunc.nup"
+    truncated.write_bytes(path.read_bytes()[:-9])
+    bad = tmp_path / "bad.nup"
+    bad.write_bytes(b"NOPE" + path.read_bytes()[4:])
+    codec_byte = tmp_path / "codec.nup"
+    codec_byte.write_bytes(path.read_bytes()[:8] + b"\x07" + path.read_bytes()[9:])
+    for p in (truncated, bad, codec_byte):
+        with pytest.raises(ValueError) as want:
+            ref_cli.read_nup(str(p))
+        with pytest.raises(ValueError) as got:
+            nup.read_nup(str(p))
+        assert str(got.value) == str(want.value)
+
+
+def test_write_fasta_identical_to_reference():
+    a, b = io.BytesIO(), io.BytesIO()
+    for name, data in ((b"x", b""), (b"y", b"A" * 80), (b"z", b"ACGT" * 41)):
+        nup.write_fasta(a, name, data)
+        ref_cli._write_fasta(b, name, data)
+    assert a.getvalue() == b.getvalue()
+
+
+def _reads_files(tmp_path) -> dict:
+    rng = np.random.default_rng(5)
+    seqs = [rng.choice(np.frombuffer(b"ACGTN", np.uint8), n).tobytes() for n in (0, 7, 80, 81, 333)]
+    fasta = b"".join(b">s%d desc\n%s\n\n" % (i, b"\n".join(s[j : j + 80] for j in range(0, len(s), 80)))
+                     for i, s in enumerate(seqs))
+    fastq = b"".join(b"@q%d\n%s\n+\n%s\n" % (i, s, b"@" * len(s)) for i, s in enumerate(seqs))
+    files = {"a.fa": fasta, "a.fasta": fasta, "a.fna": fasta, "a.fq": fastq,
+             "tail.fastq": fastq.rstrip(b"\n"), "bad.fq": b"@q0\nACGT\n-\nIIII\n"}
+    paths = {}
+    for name, data in files.items():
+        paths[name] = tmp_path / name
+        paths[name].write_bytes(data)
+    for name in ("a.fa", "a.fq"):
+        paths[name + ".gz"] = tmp_path / (name + ".gz")
+        paths[name + ".gz"].write_bytes(gzip.compress(files[name]))
+    return paths
+
+
+def test_open_reads_equals_reference(tmp_path):
+    paths = _reads_files(tmp_path)
+    for name, path in paths.items():
+        if name == "bad.fq":
+            continue
+        got = [(r.name, r.seq) for r in port_io.open_reads(path)]
+        assert got == [(r.name, r.seq) for r in ref_io.open_reads(path)], name
+        assert len(got) == 5
+    for path in (paths["bad.fq"], tmp_path / "reads.txt"):
+        with pytest.raises(ValueError) as want:
+            list(ref_io.open_reads(path))
+        with pytest.raises(ValueError) as got:
+            list(port_io.open_reads(path))
+        assert str(got.value) == str(want.value)
+
+
+def test_batch_stream_and_word_batches_equal_reference(tmp_path):
+    records = list(ref_io.open_reads(_reads_files(tmp_path)["a.fq"]))
+    for kwargs in ({"batch_size": 2, "max_len": 333}, {"batch_size": 4, "max_len": 333, "block": 27},
+                   {"batch_size": 8, "max_len": 400}):
+        got, want = list(port_io.BatchStream(records, **kwargs)), list(ref_io.BatchStream(records, **kwargs))
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            assert g.count == w.count
+            for f in ("reads", "lengths"):
+                assert np.array_equal(getattr(g, f), getattr(w, f))
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        list(port_io.BatchStream(records, batch_size=2, max_len=64))
+    entries = [(b"a", 5, np.arange(1, dtype=np.uint64)), (b"b", 70, np.arange(3, dtype=np.uint64)), (b"c", 0, np.zeros(0, np.uint64))]
+    assert np.array_equal(port_io.pack_words_batch(entries, 4), ref_io.pack_words_batch(entries, 4))

@@ -28,10 +28,51 @@ def test_port_sources_never_import_jax():
 
 
 def test_chip_smoke_imports_only_the_port():
-    """The on-card gate reaches the reference's host code only through the
-    port (its oracle is the api's "oracle" tier)."""
+    """The on-card gate imports the port, never the reference (its host
+    oracle is the port's own, through the api's "oracle" tier)."""
     pattern = re.compile(r"^\s*(import|from)\s+cute_nucleotides_tpu\b", re.M)
     assert pattern.findall((REPO / "chip_smoke.py").read_text()) == []
+
+
+IMPORTS_REFERENCE = re.compile(r"^\s*(import|from)\s+cute_nucleotides_tpu(\.|\s|$)", re.M)
+
+
+def test_port_sources_never_import_the_reference():
+    """No module of the port, and not chip_smoke.py, imports anything of the
+    JAX package, not even its numpy-only layers: the port keeps its own
+    copies (spec, oracle, the C++ oracle, utils/io, the .nup container)."""
+    sources = [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]
+    assert len(sources) >= 20
+    assert [str(p) for p in sources if IMPORTS_REFERENCE.search(p.read_text())] == []
+
+
+def test_port_paths_leave_the_reference_unloaded(tmp_path):
+    """api, compat, the CLI (encode, decode, grep, stats) and kmer, driven in
+    one process: afterwards no cute_nucleotides_tpu module is loaded."""
+    code = f"""
+import sys
+from cute_nucleotides_tpu_torch import api, cli, compat, interop
+from cute_nucleotides_tpu_torch.ops import kmer
+d = {str(tmp_path)!r}
+seq = b"ACGTGATTACAGGGGTGTAATCCC" * 40
+assert compat.n_to_bits_pext(seq).tolist() == api.n_to_bits(seq, tier="oracle").tolist()
+with open(d + "/r.fa", "wb") as f:
+    f.write(b">r1\\n" + seq + b"\\n>r2\\nACGT\\n")
+assert cli.main(["encode", d + "/r.fa", d + "/r.nup"]) == 0
+assert cli.main(["decode", d + "/r.nup", d + "/back.fa"]) == 0
+assert cli.main(["grep", d + "/r.nup", "GATTACA", "--both", "--count"]) == 0
+for argv in (["-k", "8", "--canonical"], ["-k", "21"]):
+    assert cli.main(["stats", d + "/r.nup", *argv]) == 0
+    assert cli.main(["stats", d + "/r.fa", *argv]) == 0
+w = interop.u64_to_tensor(api.n_to_bits(seq))
+assert int(kmer.kmer_histogram(w, len(seq), 5).sum()) == len(seq) - 4
+assert int(kmer.kmer_counts(w, len(seq), 25, canonical=True)[2].sum()) == len(seq) - 24
+loaded = sorted(m for m in sys.modules if m == "cute_nucleotides_tpu" or m.startswith("cute_nucleotides_tpu."))
+print("REFERENCE", loaded)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "REFERENCE []" in proc.stdout
 
 
 def test_port_runs_without_loading_jax():
@@ -119,7 +160,7 @@ def test_search_wrappers_run_plain_only_for_cpu_tensors():
     code = """
 import torch
 from cute_nucleotides_tpu_torch import api, interop
-from cute_nucleotides_tpu_torch.ops import kernels, search
+from cute_nucleotides_tpu_torch.ops import kernels, kmer, search
 hay = b"ACGTNGATTACAN" * 2200
 w2 = interop.u64_to_tensor(api.n_to_bits(hay))
 w5 = interop.u64_to_tensor(api.n_to_bits2(hay))
@@ -130,11 +171,23 @@ assert torch.equal(kernels.match_bits_stream(w2, q, care, len(hay) - 6),
                    kernels.match_bits_stream_plain(w2, q, care, len(hay) - 6))
 assert torch.equal(kernels.match_b5_bits_stream(w5, qc, len(hay) - 6),
                    kernels.match_b5_bits_stream_plain(w5, qc, len(hay) - 6))
-assert kernels.match_bits_stream.launches == kernels.match_b5_bits_stream.launches == 0
+panels = w2[:1024].view(2, 512)
+codes = kernels.kmer_codes_planar(panels, panels, 8)
+assert torch.equal(codes, kernels.kmer_codes_planar_plain(panels, panels, 8))
+assert all(torch.equal(a, b) for a, b in zip(kernels.kmer_codes_planar_pair(panels, panels, panels, 21),
+                                             kernels.kmer_codes_planar_pair_plain(panels, panels, panels, 21)))
+assert torch.equal(kernels.hist_codes(codes), kernels.hist_codes_plain(codes))
+assert all(fn.launches == 0 for fn in kernels.WRAPPERS)
+meta = panels.to("meta")
 for call in (lambda: kernels.match_bits_stream(w2.to("meta"), q, care, 10),
              lambda: kernels.match_b5_bits_stream(w5.to("meta"), qc, 10),
              lambda: search.match_count(w2.to("meta"), len(hay), b"GATTACA"),
-             lambda: search.match_positions_b5(w5.to("meta"), len(hay), b"GAT?ACA")):
+             lambda: search.match_positions_b5(w5.to("meta"), len(hay), b"GAT?ACA"),
+             lambda: kernels.kmer_codes_planar(meta, meta, 8),
+             lambda: kernels.kmer_codes_planar_pair(meta, meta, meta, 21),
+             lambda: kernels.hist_codes(codes.to("meta")),
+             lambda: kmer.kmer_histogram(w2.to("meta"), len(hay), 8),
+             lambda: kmer.kmer_counts(w2.to("meta"), len(hay), 21)):
     try:
         call()
     except ValueError as e:
@@ -145,7 +198,7 @@ for call in (lambda: kernels.match_bits_stream(w2.to("meta"), q, care, 10),
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.count("refused") == 4
+    assert proc.stdout.count("refused") == 9
 
 
 def test_chip_smoke_holds_search_plain_versions_only_as_references():
