@@ -19,9 +19,9 @@ calls:
      and for ``--codec base5`` (decode with ``--verify-stream``, and a
      corrupted copy refused);
   6. launch counts of phases 3-5, read per path (each codec's path, the
-     search path and the k-mer path run with the counts set to 0 just
-     before them), then each kernel's time beside its plain version's (CUDA
-     events).
+     search path, the k-mer path and the sketch path run with the counts
+     set to 0 just before them), then each kernel's time beside its plain
+     version's (CUDA events).
 
 The search path: phase 2 holds both search kernels against their plain
 versions at the word seams, with wildcards, planted hits, a poly-A query
@@ -45,18 +45,35 @@ FASTA (``-k 8 --canonical --top 10``), a 20,000-read ``.nup`` (``-k 8``)
 and a 4-Mnt record (``-k 21 --canonical --top 10``), each stdout against a
 numpy count of the bytes.
 
+The sketch path (MinHash sketches, minimizers, the ``sketch`` command):
+phase 2 holds #12 against its plain version at every k in 16..31, canonical
+and forward, W in {1, 511, 512, 513, 3000} as one stream and as 37-word
+read rows, ``n_valid`` at word and row seams, with a planted k-mer whose
+hash is 0xFFFFFFFF, and #14 at k in {1, 7, 15}, w in {2, 10, 64, 2049 - k}
+on 16389-, 32768- and 100,003-nt random and poly-A streams; phase 4 runs
+``bottom_k_sketch(k=21, s=1000)``, ``frac_sketch(k=21, scale=1000)``,
+``minimizers(k=15, w=10)``, ``minimizer_bits`` and ``kmer_hashes_planar``
+on the chr1-length stream against their plain-built twins; phase 5 runs
+``sketch`` on the 200,000 reads against a copy with 1% substitutions and
+some N (bottom-s, then ``--scale 200``), each stdout against a numpy sketch
+of the bytes, and on the chr1-length FASTA with ``--batch 1`` against
+``bottom_k_sketch`` of its words.
+
 Phases 4 and 5 run their calls under ``torch.profiler`` (CUDA activity) and
 print the device time of the port's kernels, of copies and of other device
-work beside each call's wall time.  The script imports only the port, torch
-and numpy; the host oracle it checks against is the port's own
+work beside each call's wall time; the chr1 sketch calls are profiled in a
+fresh process (``python3 chip_smoke.py --profile-sketch-chr1``), since a
+long process loses their device events.  The script imports only the port,
+torch and numpy; the host oracle it checks against is the port's own
 (``ops/native.py``, through the api's ``oracle`` tier).
 
 The line before the last lists every kernel with its launches on its path,
 its largest difference from its plain version, its time (CUDA events) beside
 the plain version's and, for the histogram, ``torch.bincount``'s, and its
 bound: the least time the card could take, the larger of the bytes it must
-move at 3.35 TB/s and the integer operations its data needs at the card's
-INT32 rate.
+move at 3.35 TB/s and the integer instructions its data needs at the
+card's issue rate.  Phase 1 prints the SASS instruction mix of the sketch
+kernels (``cuobjdump``), the check on those counts.
 
 All data comes from seeds.  Exits non-zero, without the final line, on any
 failure or without CUDA.  Run from the repository root:
@@ -70,6 +87,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -109,21 +127,31 @@ REPLACES = {
     "kmer_codes_planar": "cute_nucleotides_tpu/ops/kmer.py:225",
     "kmer_codes_planar_pair": "cute_nucleotides_tpu/ops/kmer.py:295",
     "hist_codes": "cute_nucleotides_tpu/ops/kmer.py:502",
+    "kmer_hashes_planar_pair": "cute_nucleotides_tpu/ops/kmer.py:438",
+    "minimizer_bits_stream": f"{_PK}:1714",
 }
 B5_KERNELS = ("encode_b5_stream", "decode_b5_stream", "match_b5_bits_stream")
 SEARCH_KERNELS = ("match_bits_stream", "match_b5_bits_stream")
 KMER_KERNELS = ("kmer_codes_planar", "kmer_codes_planar_pair", "hist_codes")
+SKETCH_KERNELS = ("kmer_hashes_planar_pair", "minimizer_bits_stream")
 _CSRC = "cute_nucleotides_tpu_torch/csrc"
-SOURCES = {k: f"{_CSRC}/kmer.cu" if k in KMER_KERNELS else f"{_CSRC}/search.cu" if k in SEARCH_KERNELS
-           else f"{_CSRC}/codec_b5.cu" if k in B5_KERNELS else f"{_CSRC}/codec2bit.cu" for k in REPLACES}
+SOURCES = {k: f"{_CSRC}/sketch.cu" if k in SKETCH_KERNELS else f"{_CSRC}/kmer.cu" if k in KMER_KERNELS
+           else f"{_CSRC}/search.cu" if k in SEARCH_KERNELS else f"{_CSRC}/codec_b5.cu" if k in B5_KERNELS
+           else f"{_CSRC}/codec2bit.cu" for k in REPLACES}
 KMER_W = (1, 511, 512, 513)  # word lanes per row in phase 2; 37 rows, a multiple of no block
 STATS_READS, STATS_REC_NT = 20_000, 4_000_000
-#: the card's peaks (NVIDIA's H100 SXM datasheet): HBM
-#: bytes/s, and INT32 operations/s, a quarter of the 67 TFLOP/s FP32 rate
-#: (which counts an FMA as two operations on 128 FP32 lanes per SM; an SM
-#: has 64 INT32 lanes)
+MZ_NT = (16384 + 5, 32768, 100_003)  # stream lengths of the minimizer kernel's phase-2 cases, nt
+SKETCH_K, SKETCH_S, SKETCH_SCALE, SKETCH_CAP = 21, 1000, 1000, 1 << 19
+SENTINEL = 0xFFFFFFFF
+#: the card's peaks (NVIDIA's H100 SXM datasheet): HBM bytes/s, and
+#: integer instructions (one per lane) per second at the issue limit: an SM
+#: issues one warp instruction per clock on each of its four schedulers, 128
+#: lanes, the rate behind the 67 TFLOP/s FP32 figure (an FMA counted as two
+#: operations).  Integer work spreads over the INT32 pipe (64 lanes) and the
+#: FMA pipe (multiplies, and the shifts, adds and moves ptxas puts there as
+#: IMAD), so no mix of it issues faster.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+INT_INSTR_PER_S = 67e12 / 2
 
 
 class SmokeFailure(Exception):
@@ -190,9 +218,40 @@ def phase_build():
     from cute_nucleotides_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load()
+    lib = _build.load()
     say(f"phase 1 build: nvcc {' '.join(_build.NVCC_FLAGS)} {os.path.relpath(_build.CSRC_DIR)}/*.cu; "
         f"build and load {time.perf_counter() - t0:.1f} s")
+    _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel"))
+
+
+def _sass_mix(nvcc: str, path: str, kernels) -> None:
+    """Print the SASS instruction count of each instance of ``kernels`` in the
+    library at ``path`` (``cuobjdump -sass`` beside ``nvcc``, NOPs left out),
+    with its opcodes by frequency; a missing cuobjdump is reported, not
+    fatal."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    try:
+        dump = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True, timeout=120)
+    except OSError as e:
+        say(f"phase 1 SASS: {cuobjdump} did not run ({e})")
+        return
+    if dump.returncode != 0:
+        say(f"phase 1 SASS: cuobjdump exit {dump.returncode}: {dump.stderr.strip()[:300]}")
+        return
+    fn, mixes = None, {}
+    for line in dump.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            hit = next((k for k in kernels if k in name), None)
+            fn = f"{hit}<{'true' if 'ILb1' in name else 'false'}>" if hit else None
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if fn and m and m.group(1) != "NOP":
+            mixes.setdefault(fn, {}).setdefault(m.group(1), 0)
+            mixes[fn][m.group(1)] += 1
+    for fn, mix in sorted(mixes.items()):
+        top = sorted(mix.items(), key=lambda kv: -kv[1])
+        say(f"phase 1 SASS {fn}: {sum(mix.values())} instructions: {dict(top)}")
 
 
 # --- phase 2: each kernel vs its plain version ---------------------------------
@@ -493,6 +552,99 @@ def phase_kernels_kmer(errors: Errors, rng) -> None:
         f"({errors.count} comparisons in phase 2; max abs err {errors.max})")
 
 
+def _fmix32(h: int) -> int:
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) % 2**32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) % 2**32
+    return h ^ (h >> 16)
+
+
+def _sentinel_code(k: int) -> int:
+    """A canonical 2k-bit code (16 <= k <= 31) whose pair hash
+    fmix32(lo ^ fmix32(hi)) is 0xFFFFFFFF: fmix32 is invertible, so lo
+    follows from hi."""
+    h = SENTINEL ^ (SENTINEL >> 16)  # fmix32 inverted, step by step
+    h = (h * pow(0xC2B2AE35, -1, 2**32)) % 2**32
+    h ^= (h >> 13) ^ (h >> 26)
+    h = (h * pow(0x85EBCA6B, -1, 2**32)) % 2**32
+    unmixed = h ^ (h >> 16)
+    for hi in range(1 << min(2 * k - 32, 16)):
+        code = (unmixed ^ _fmix32(hi)) | hi << 32
+        rc = sum((((code >> (2 * j)) & 3) ^ 2) << (2 * (k - 1 - j)) for j in range(k))
+        if code <= rc:
+            return code
+    raise SmokeFailure(f"no canonical k-mer hashes to 0xFFFFFFFF at k={k}")
+
+
+def _plant_code(words: np.ndarray, pos: int, code: int, k: int) -> None:
+    """Write a 2k-bit code at nt ``pos`` of a flat u32 stream, in place."""
+    q, s = divmod(pos, 16)
+    v = sum(int(words[q + j]) << (32 * j) for j in range(3))
+    v = (v & ~(((1 << (2 * k)) - 1) << (2 * s))) | code << (2 * s)
+    for j in range(3):
+        words[q + j] = (v >> (32 * j)) & 0xFFFFFFFF
+
+
+def phase_kernels_sketch(errors: Errors, rng) -> None:
+    """#12 at every k in 16..31, canonical and forward, W in KMER_W (one
+    stream, and rows of 37 words as a read batch), n_valid at the end, at a
+    word seam and at a row seam, with a planted k-mer whose hash is
+    0xFFFFFFFF; #14 at k in {1, 7, 15} and w in {2, 10, 64, 2049 - k},
+    canonical and forward, on MZ_NT-long random and poly-A streams; each
+    bit for bit against its plain version."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    dev = "cuda"
+    k12, k14 = SKETCH_KERNELS
+    planted = 0
+    for W in KMER_W + (3000,):
+        flat = rng.integers(0, 2**32, W + 2, dtype=np.uint32)
+        pos = 16 * (W // 2) + 5 if W > 2 else None
+        if pos is not None:
+            _plant_code(flat, pos, _sentinel_code(SKETCH_K), SKETCH_K)
+        w = torch.from_numpy(flat[:W].copy()).to(dev)
+        seams = sorted({16 * W - 31 + 1, 16 * W, 16 * (W // 2), 16 * 512 + 3})
+        for k in range(16, 32):
+            for canonical in (False, True):
+                for seg in (0, 37):
+                    for n_valid in seams:
+                        got = K.kmer_hashes_planar_pair(w, k, n_valid, canonical=canonical, seg=seg)
+                        want = K.kmer_hashes_planar_pair_plain(w, k, n_valid, canonical=canonical, seg=seg)
+                        errors.compare(k12, got, want, f"kmer hashes k={k} W={W} canonical={canonical} "
+                                       f"seg={seg} n_valid={n_valid}")
+        if pos is not None:  # the planted k-mer's slot holds 0xFFFFFFFF as a hash, not as padding
+            h = K.kmer_hashes_planar_pair(w, SKETCH_K, 16 * W, canonical=True).view(torch.int32).view(-1)
+            r, c = divmod(pos // 16, 512)
+            check(int(h[r * 16 * 512 + 512 * (pos % 16) + c]) == -1, f"planted 0xFFFFFFFF k-mer, W={W}")
+            planted += 1
+    cases = 0
+    for nt in MZ_NT:
+        words = rng.integers(0, 2**32, -(-nt // 16), dtype=np.uint32)
+        for label, stream in (("random", words), ("poly-A", np.zeros_like(words))):
+            w = torch.from_numpy(stream).to(dev)
+            for k in (1, 7, 15):
+                for win in (2, 10, 64, 2048 - k + 1):
+                    for canonical in (False, True):
+                        n = nt - k + 1
+                        got = K.minimizer_bits_stream(w, n, k, win, canonical=canonical)
+                        want = K.minimizer_bits_stream_plain(w, n, k, win, canonical=canonical)
+                        errors.compare(k14, got, want, f"minimizers {label} {nt} nt k={k} w={win} "
+                                       f"canonical={canonical}")
+                        cases += 1
+            if label == "poly-A":  # every hash ties: every position is a minimizer
+                n = nt - 15 + 1
+                bits = K.minimizer_bits_stream(w, n, 15, 10).view(torch.int32)
+                check(int(bits[:-1].eq(0xFFFF).sum()) == bits.numel() - 1, f"poly-A minimizers {nt} nt")
+    torch.cuda.synchronize()
+    say(f"phase 2 sketch kernels: #12 at k 16..31 on W in {KMER_W + (3000,)} (one stream and 37-word rows, "
+        f"n_valid at the end and at word and row seams, a planted 0xFFFFFFFF k-mer in {planted} streams); #14 "
+        f"in {cases} cases on {MZ_NT}-nt random and poly-A streams: bit-identical to the plain versions "
+        f"({errors.count} comparisons in phase 2; max abs err {errors.max})")
+
+
 # --- phase 3: the resident 1-Gnt batch -----------------------------------------
 
 def _make_batch(seed: int, nt: int = BATCH_NT, alphabet: bytes = ALPHABET):
@@ -758,37 +910,52 @@ def _profiled(fn):
     (memcpy) and of other device work, summed over the profiler's raw
     device events (``key_averages()`` would build a Python object per event,
     minutes for the 20,000-read ``stats``), with the three largest device
-    event names by total under "top"."""
+    event names by total under "top".  The port's kernel events are counted
+    against the launches its wrappers counted during the call: a profile
+    that saw fewer (the profiler loses events in a long process, PERF.md)
+    is marked under "lost", and :func:`_breakdown` then gives no device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    launched = -sum(f.launches for f in K.WRAPPERS)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    launched += sum(f.launches for f in K.WRAPPERS)
     device = {"kernels": 0.0, "copies": 0.0, "other": 0.0}
     by_name: dict[str, float] = {}
+    seen = 0
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() != DeviceType.CUDA:
             continue
         key, ms = ev.name(), ev.duration_ns() / 1e6
-        if any(tag in key for tag in ("_2bit_", "_b5_", "kmer_codes", "hist_codes")):
+        if any(tag in key for tag in ("_2bit_", "_b5_", "kmer_codes", "hist_codes", "kmer_hashes", "minimizer_kernel")):
             kind = "kernels"
+            seen += 1
         else:
             kind = "copies" if key.startswith("Memcpy") else "other"
         device[kind] += ms
         by_name[key] = by_name.get(key, 0.0) + ms
     device["top"] = sorted(((ms, key[:48]) for key, ms in by_name.items()), reverse=True)[:3]
+    device["lost"] = (seen, launched) if seen < launched else None
     return out, wall, device
 
 
 def _breakdown(wall: float, device: dict) -> str:
     busy = (device["kernels"] + device["copies"] + device["other"]) / 1e3
+    if device["lost"]:
+        seen, launched = device["lost"]
+        return (f"{wall:.4f} s wall; device time not measured (the profiler saw {seen} of the {launched} kernel "
+                f"launches)")
     if busy == 0:
-        return f"{wall:.3f} s wall; device time not measured (the profiler saw no device events)"
-    return (f"{wall:.3f} s wall; device: kernels {device['kernels']:.4f} ms, copies "
+        return f"{wall:.4f} s wall; device time not measured (the profiler saw no device events)"
+    return (f"{wall:.4f} s wall; device: kernels {device['kernels']:.4f} ms, copies "
             f"{device['copies']:.3f} ms, other {device['other']:.3f} ms; device idle "
             f"{100 * (1 - busy / wall):.1f}% of the wall")
 
@@ -1044,9 +1211,9 @@ def phase_grep(rng, workdir: str, reads2: list, reads5: list) -> None:
 
 @contextlib.contextmanager
 def _plain_kmer_kernels():
-    """Inside, ``ops.kmer`` runs the plain versions of #10, #11 and #13: the
-    same function built from the plain versions, which the path's output is
-    held to.  The wrappers are back on exit."""
+    """Inside, ``ops.kmer`` (and ``ops.sketch`` through it) runs the plain
+    versions of #10-#14: the same function built from the plain versions,
+    which the path's output is held to.  The wrappers are back on exit."""
     import types
 
     from cute_nucleotides_tpu_torch.ops import kernels as K, kmer
@@ -1054,7 +1221,8 @@ def _plain_kmer_kernels():
     saved = kmer.kernels
     kmer.kernels = types.SimpleNamespace(
         kmer_codes_planar=K.kmer_codes_planar_plain, kmer_codes_planar_pair=K.kmer_codes_planar_pair_plain,
-        hist_codes=K.hist_codes_plain)
+        hist_codes=K.hist_codes_plain, kmer_hashes_planar_pair=K.kmer_hashes_planar_pair_plain,
+        minimizer_bits_stream=K.minimizer_bits_stream_plain)
     try:
         yield
     finally:
@@ -1182,15 +1350,22 @@ def _write_fasta_record(path: str, name: bytes, seq: np.ndarray) -> None:
             f.write(seq[full:].tobytes() + b"\n")
 
 
-def phase_stats(rng, workdir: str, reads2: list) -> None:
-    """``stats`` through the CLI, under torch.profiler, each stdout against
-    :func:`_stats_expected`: a chr1-length FASTA record (-k 8 --canonical
-    --top 10), the first 20,000 phase-5 reads as a .nup (-k 8), and a 4-Mnt
-    record with a planted 30-nt repeat (-k 21 --canonical --top 10)."""
-    from cute_nucleotides_tpu_torch import api, cli
-
+def _chr1_fasta(rng, workdir: str) -> np.ndarray:
+    """A random chr1-length record over ACGTacgt, written to chr1.fa in
+    ``workdir`` (the FASTA that ``stats`` and ``sketch`` read)."""
     chr1 = np.frombuffer(b"ACGTacgt", np.uint8)[rng.integers(0, 8, CHR1_NT, dtype=np.uint8)]
     _write_fasta_record(os.path.join(workdir, "chr1.fa"), b"chr1", chr1)
+    return chr1
+
+
+def phase_stats(rng, workdir: str, reads2: list, chr1: np.ndarray) -> None:
+    """``stats`` through the CLI, under torch.profiler, each stdout against
+    :func:`_stats_expected`: the chr1-length FASTA record ``chr1`` (-k 8
+    --canonical --top 10), the first 20,000 phase-5 reads as a .nup (-k 8),
+    and a 4-Mnt record with a planted 30-nt repeat (-k 21 --canonical --top
+    10)."""
+    from cute_nucleotides_tpu_torch import api, cli
+
     prefix = reads2[:STATS_READS]
     cli.write_nup(os.path.join(workdir, "stats_reads.nup"), [n for n, _ in prefix],
                   [api.n_to_bits(s, tier="oracle") for _, s in prefix], [len(s) for _, s in prefix], "2bit")
@@ -1214,6 +1389,253 @@ def phase_stats(rng, workdir: str, reads2: list) -> None:
         say(f"  stats {name}: {_breakdown(wall, dev)}; top device events (ms) {dev['top']}")
 
 
+# --- the sketch path: phases 4 and 5 ----------------------------------------------
+
+PROFILE_SKETCH_CHR1 = "--profile-sketch-chr1"
+
+
+def _sketch_chr1_runs(w) -> tuple:
+    """(label, kernel, call) of the phase-4 sketch calls on the chr1-length
+    stream ``w``."""
+    from cute_nucleotides_tpu_torch.ops import kmer, sketch
+
+    k12, k14 = SKETCH_KERNELS
+    k, s, scale, cap = SKETCH_K, SKETCH_S, SKETCH_SCALE, SKETCH_CAP
+    return (("bottom_k_sketch k=21 s=1000", k12, lambda: sketch.bottom_k_sketch(w, CHR1_NT, k, s)),
+            ("frac_sketch k=21 scale=1000", k12, lambda: sketch.frac_sketch(w, CHR1_NT, k, scale=scale, cap=cap)),
+            ("minimizers k=15 w=10", k14, lambda: kmer.minimizers(w, CHR1_NT, 15, 10)),
+            ("minimizer_bits k=15 w=10", k14, lambda: kmer.minimizer_bits(w, CHR1_NT, 15, 10)),
+            ("kmer_hashes_planar k=21", k12, lambda: kmer.kmer_hashes_planar(w, CHR1_NT, k)))
+
+
+def profile_sketch_chr1() -> int:
+    """The phase-4 sketch calls under torch.profiler in this (fresh) process,
+    each once to warm up (a kernel's first launch loads its module) and once
+    profiled; prints one breakdown line per call."""
+    import torch
+
+    try:
+        w = _chr1_words()
+        for label, _, fn in _sketch_chr1_runs(w):
+            fn()
+            torch.cuda.synchronize()
+            _, wall, dev = _profiled(fn)
+            say(f"  {label}, chr1 length (fresh process): {_breakdown(wall, dev)}; "
+                f"top device events (ms) {dev['top']}")
+            torch.cuda.empty_cache()
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+def phase_sketch_chr1(errors: Errors, w) -> None:
+    """``sketch.bottom_k_sketch(k=21, s=1000)``, ``sketch.frac_sketch(k=21,
+    scale=1000, cap=2^19)``, ``kmer.minimizers(k=15, w=10)``,
+    ``kmer.minimizer_bits(k=15, w=10)`` and ``kmer.kmer_hashes_planar(k=21)``
+    on the chr1-length stream, each against its plain-built twin; then the
+    sketches' and minimizers' own invariants.  The same calls are profiled
+    in a child process (:func:`profile_sketch_chr1`): this process has run
+    large profiles by now, after which the profiler loses short calls'
+    device events."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kmer
+
+    k, s, scale, cap = SKETCH_K, SKETCH_S, SKETCH_SCALE, SKETCH_CAP
+    out = {}
+    for label, kname, fn in _sketch_chr1_runs(w):
+        got = fn()
+        with _plain_kmer_kernels():
+            want = fn()
+        parts, wparts = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for i, (a, b) in enumerate(zip(parts, wparts)):
+            errors.compare(kname, a, b, f"chr1 {label} output {i} vs its plain-built twin")
+        out[label] = got
+        del want, wparts
+        torch.cuda.empty_cache()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), PROFILE_SKETCH_CHR1],
+                           capture_output=True, text=True, timeout=600)
+    for line in child.stdout.splitlines():
+        say(line)
+    check(child.returncode == 0, f"the chr1 sketch profile exited {child.returncode}: {child.stderr[-2000:]}")
+    bottom = _i64(out["bottom_k_sketch k=21 s=1000"])
+    frac, n_kept = out["frac_sketch k=21 scale=1000"]
+    frac, n_kept = _i64(frac), int(n_kept)
+    check(bottom.shape == (s,) and bool((bottom[1:] > bottom[:-1]).all()) and int(bottom[-1]) < SENTINEL,
+          "bottom-s sketch: not 1000 distinct ascending hashes")
+    check(0 < n_kept < cap and int((frac < SENTINEL).sum()) == n_kept and int(frac[n_kept - 1]) < 2**32 // scale,
+          f"frac sketch: {n_kept} kept, buffer {int((frac < SENTINEL).sum())}")
+    check(torch.equal(frac[:s], bottom), "the 1000 least of the frac sketch != the bottom-s sketch")
+    n = CHR1_NT - 15 + 1
+    mask, h = out["minimizers k=15 w=10"]
+    bits = out["minimizer_bits k=15 w=10"]
+    check(mask.shape == (n,) and h.shape == (n,) and bits.shape == (-(-n // 16),), "minimizer shapes")
+    check(torch.equal(kmer._unpack_bits(bits, n), mask), "minimizer_bits != the packed minimizers mask")
+    density = float(mask.sum()) / n
+    check(0.17 < density < 0.19, f"minimizer density {density:.4f}, expected about 2 / (w + 1) = 0.1818")
+    hp = out["kmer_hashes_planar k=21"]
+    # every valid k-mer's slot, but for the 0.06 k-mers expected to hash to 0xFFFFFFFF
+    valid = int((hp.view(torch.int32) != -1).sum())
+    check(CHR1_NT - k + 1 - 3 <= valid <= CHR1_NT - k + 1, f"planar hashes: {valid} valid slots")
+    say(f"phase 4 sketch chr1: bottom_k_sketch, frac_sketch ({n_kept} distinct hashes kept; its {s} least == the "
+        f"bottom-s sketch), minimizers and minimizer_bits (density {density:.4f}) and kmer_hashes_planar on "
+        f"{CHR1_NT} nt == their plain-built twins")
+
+
+def _fmix32_np(h: np.ndarray) -> np.ndarray:
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def _kmer_hashes_np(seqs: np.ndarray, k: int) -> np.ndarray:
+    """The canonical k-mer hashes (16 <= k <= 31) of the rows of ASCII
+    u8[R, L] whose k-mers touch no byte outside ACGTUacgtu, flattened."""
+    codes = _kmers_np(_nt_codes(seqs), k, True)
+    bad = ~np.isin(seqs, np.frombuffer(ALPHABET, np.uint8))
+    cs = np.concatenate([np.zeros((seqs.shape[0], 1), np.int32), np.cumsum(bad, axis=1, dtype=np.int32)], axis=1)
+    c = codes[cs[:, k:] == cs[:, :-k]]
+    return _fmix32_np((c & 0xFFFFFFFF).astype(np.uint32) ^ _fmix32_np((c >> 32).astype(np.uint32)))
+
+
+def _first_distinct(h: np.ndarray, s: int) -> np.ndarray:
+    """The s least distinct values of h, padded with SENTINEL.  The 8 s least
+    elements (np.partition) hold every value below the (8 s)-th; when s of
+    those are distinct they are the answer, else the whole of h is sorted."""
+    m = 8 * s
+    if h.size > m:
+        part = np.partition(h, m)
+        u = np.unique(part[:m][part[:m] < part[m]])
+        if u.size >= s:
+            return u[:s]
+    u = np.unique(h)[:s]
+    return np.concatenate([u, np.full(s - u.size, SENTINEL, np.uint32)])
+
+
+def _ratio_np(num: np.ndarray, den: np.ndarray) -> float:
+    return float(np.float32(num.sum()) / np.float32(max(int(den.sum()), 1)))
+
+
+def _sketch_expected(datasets, k: int, s: int, scale: int) -> tuple[str, str]:
+    """The reference CLI's ``sketch`` stdout and stderr for (path, records,
+    nt, hashes) datasets, computed with numpy: Mash's Jaccard over the
+    bottom-s of the union, containment, the Mash distance."""
+    import math
+
+    sketches, rows, err = [], [], ""
+    for path, records, nt, h in datasets:
+        sk = _first_distinct(h[h < min(2**32 // scale, SENTINEL)] if scale else h, s)
+        row = {"path": path, "records": records, "nt": nt, "hashes": int((sk != SENTINEL).sum())}
+        if scale:
+            row["saturated"] = row["hashes"] >= s
+            if row["saturated"]:
+                err += (f"warning: {path}: FracMinHash buffer saturated at {s} hashes — containment/Jaccard "
+                        f"will be underestimated; raise -s or --scale\n")
+        sketches.append(sk)
+        rows.append(row)
+    out = {"k": k, "scheme": {"name": "fracminhash", "scale": scale, "cap": s} if scale else {"name": "bottom-s", "s": s},
+           "canonical": True, "datasets": rows}
+    pairs = []
+    for i in range(len(datasets)):
+        for j in range(i + 1, len(datasets)):
+            sa, sb = sketches[i], sketches[j]
+            u = _first_distinct(np.concatenate([sa, sb]), s)
+            valid = u != SENTINEL
+            jac = _ratio_np(np.isin(u, sa) & np.isin(u, sb) & valid, valid)
+            dist = 1.0 if jac <= 0 else min(-math.log(2.0 * jac / (1.0 + jac)) / k, 1.0)
+            cont = [_ratio_np(np.isin(x, y) & (x != SENTINEL), x != SENTINEL) for x, y in ((sa, sb), (sb, sa))]
+            pairs.append({"a": datasets[i][0], "b": datasets[j][0], "jaccard": round(jac, 6),
+                          "mash_distance": round(dist, 6), "containment_a_in_b": round(cont[0], 6),
+                          "containment_b_in_a": round(cont[1], 6)})
+    if pairs:
+        out["pairs"] = pairs
+    return json.dumps(out) + "\n", err
+
+
+def _mutated(rng, seqs: np.ndarray) -> np.ndarray:
+    """The reads with 1% substitutions (another base of ACGT) and an N in
+    every 50th read."""
+    out = seqs.copy()
+    hit = rng.random(out.shape) < 0.01
+    codes = np.frombuffer(b"ACGT", np.uint8)
+    out[hit] = codes[(np.searchsorted(codes, _upper_t_np(out[hit].copy())) + rng.integers(1, 4, int(hit.sum()))) % 4]
+    out[::50, 75] = ord("N")
+    return out
+
+
+@contextlib.contextmanager
+def _recording(module, name: str, into: list):
+    """Inside, each result of ``module.name`` is also appended to ``into``."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        into.append(fn(*args, **kwargs))
+        return into[-1]
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_sketch_cli(rng, workdir: str, reads2: list, chr1: np.ndarray) -> None:
+    """``sketch`` through the CLI, under torch.profiler: the phase-5 reads
+    against a copy with 1% substitutions and some N (``-k 21 -s 1000``, then
+    ``--scale 200 -s 65536``), each stdout and stderr against a numpy
+    sketch of the bytes; and the chr1-length FASTA (``chr1``) with
+    ``--batch 1``, its dataset sketch against ``sketch.bottom_k_sketch`` of
+    the same sequence's words."""
+    import torch
+
+    from cute_nucleotides_tpu_torch import api, cli, interop
+    from cute_nucleotides_tpu_torch.ops import sketch
+
+    t0 = time.perf_counter()
+    reads = np.frombuffer(b"".join(seq for _, seq in reads2), np.uint8).reshape(len(reads2), -1)
+    mut = _mutated(rng, reads)
+    fq, mfq = os.path.join(workdir, "reads.fq"), os.path.join(workdir, "mutated.fq")
+    qual = b"I" * CLI_READ_NT
+    with open(mfq, "wb") as f:
+        f.write(b"".join(b"@%s\n%s\n+\n%s\n" % (name, mut[i].tobytes(), qual) for i, (name, _) in enumerate(reads2)))
+    hashes = [_kmer_hashes_np(x, SKETCH_K) for x in (reads, mut)]
+    datasets = [(p, len(reads2), reads.size, h) for p, h in zip((fq, mfq), hashes)]
+    modes = [(["-s", str(SKETCH_S)], SKETCH_S, 0), (["--scale", "200", "-s", "65536"], 65536, 200)]
+    expected = [_sketch_expected(datasets, SKETCH_K, s, scale) for _, s, scale in modes]
+    say(f"phase 5 sketch: {len(reads2)} x {CLI_READ_NT} nt reads and a mutated copy ({int((mut != reads).sum())} "
+        f"bytes changed), numpy sketches {time.perf_counter() - t0:.1f} s")
+    for (opts, _, _), (want, want_err) in zip(modes, expected):
+        t0 = time.perf_counter()
+        argv = ["sketch", fq, mfq, "-k", str(SKETCH_K), *opts]
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, text, wall, dev = _run_cli(argv)
+        check(rc == 0, f"{' '.join(argv[3:])} exit {rc}")
+        check(text == want, f"sketch {' '.join(opts)}: {text[:400]!r} != numpy {want[:400]!r}")
+        check(err.getvalue() == want_err, f"sketch {' '.join(opts)} stderr {err.getvalue()!r} != {want_err!r}")
+        say(f"phase 5 sketch reads.fq mutated.fq -k {SKETCH_K} {' '.join(opts)}: stdout and stderr == numpy "
+            f"({time.perf_counter() - t0:.1f} s with the checks): {json.dumps(json.loads(text)['pairs'])}")
+        say(f"  sketch {' '.join(opts)}: {_breakdown(wall, dev)}; top device events (ms) {dev['top']}")
+    t0 = time.perf_counter()
+    fa = os.path.join(workdir, "chr1.fa")
+    seen: list = []
+    with _recording(sketch, "bottom_k_sketch_batch", seen):
+        rc, text, wall, dev = _run_cli(["sketch", fa, "-k", str(SKETCH_K), "-s", str(SKETCH_S), "--batch", "1"])
+    check(rc == 0, f"sketch chr1.fa --batch 1 exit {rc}")
+    row = json.loads(text)["datasets"][0]
+    check(row == {"path": fa, "records": 1, "nt": CHR1_NT, "hashes": SKETCH_S}, f"sketch chr1.fa: {row}")
+    words = interop.u64_to_tensor(api.n_to_bits(chr1, tier="oracle"), "cuda")
+    want = sketch.bottom_k_sketch(words, CHR1_NT, SKETCH_K, SKETCH_S)
+    check(len(seen) == 1 and torch.equal(_i64(seen[0]), _i64(want)),
+          "sketch chr1.fa --batch 1: its sketch != bottom_k_sketch of the sequence's words")
+    say(f"phase 5 sketch chr1.fa --batch 1: {text.strip()}; its sketch == bottom_k_sketch of the same words "
+        f"({time.perf_counter() - t0:.1f} s with the checks)")
+    say(f"  sketch chr1.fa --batch 1: {_breakdown(wall, dev)}; top device events (ms) {dev['top']}")
+
+
 # --- timing -------------------------------------------------------------------
 
 def _time_ms(fn, iters: int) -> float:
@@ -1230,10 +1652,18 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _clocks() -> str:
+    """The card's SM clock (now and its maximum), power draw and temperature,
+    as nvidia-smi reads them: integer-bound kernels scale with the clock."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip() if smi.returncode == 0 else f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
 def _bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes at
-    the HBM rate and the integer operations at the INT32 rate."""
-    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT32_OPS_PER_S
+    the HBM rate and the integer instructions at the issue rate."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT_INSTR_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1300,6 +1730,14 @@ def phase_timing(x, words, x5, words5, chr1_words, card: str) -> dict:
                    "[8192 random codes]": rand_codes}
     cases["hist_codes"] = [(label, lambda c=c: K.hist_codes(c), lambda c=c: K.hist_codes_plain(c))
                            for label, c in hist_inputs.items()]
+    # the sketch kernels on the chr1-length stream, as the sketch path calls them
+    n12, n14 = CHR1_NT - SKETCH_K + 1, CHR1_NT - 15 + 1
+    cases["kmer_hashes_planar_pair"] = [(f"[k={SKETCH_K} canonical]",
+                                         lambda: K.kmer_hashes_planar_pair(chr1_words, SKETCH_K, n12),
+                                         lambda: K.kmer_hashes_planar_pair_plain(chr1_words, SKETCH_K, n12))]
+    cases["minimizer_bits_stream"] = [("[k=15 w=10 canonical]",
+                                       lambda: K.minimizer_bits_stream(chr1_words, n14, 15, 10),
+                                       lambda: K.minimizer_bits_stream_plain(chr1_words, n14, 15, 10))]
     library = {"hist_codes": lambda: torch.bincount(codes.view(-1), minlength=K.HIST_BINS)}
     # bounds: bytes each input read once and each output written once; the
     # search kernels' integer work at the least this data needs (2-bit: 3
@@ -1307,7 +1745,7 @@ def phase_timing(x, words, x5, words5, chr1_words, card: str) -> dict:
     # query word; base-5: 6 per triplet split and 2 per start slot and
     # first anchor tap)
     W2, N5, R1 = w2.numel(), w5.numel() // 2, panels[0].numel()
-    R3 = panels3[0].numel()
+    R3, W3 = panels3[0].numel(), chr1_words.numel()
     bounds = {
         "encode_2bit_nt4": _bound(n2 + 4 * W2),
         "decode_2bit_nt4": _bound(4 * W2 + n2),
@@ -1319,7 +1757,24 @@ def phase_timing(x, words, x5, words5, chr1_words, card: str) -> dict:
         "match_b5_bits_stream": _bound(12 * N5, (6 * 9 + 2 * 27) * N5),
         "kmer_codes_planar": _bound(8 * R1 + 64 * R1),
         "kmer_codes_planar_pair": _bound(12 * R3 + 128 * R3),
+        # the sketch kernels' integer instructions at the least the function
+        # needs (a three-input logic op, a funnel shift or a multiply is one;
+        # a fmix32 is 8: three shift-xor pairs and two multiplies).  #12: read
+        # the stream, write 4 B per planar slot; per valid position 28: the
+        # forward code (2 funnel shifts and the hi mask), the reverse
+        # complement cut from the word's (the same 3), the 64-bit unsigned
+        # compare and select (4), two fmix32 (16), the xor (1), the store
+        # (1); per word 21: 3 loads, the reverse complement of its 48 nt (3
+        # times xor, __brev and the 3-op field swap) and its shift (3)
+        "kmer_hashes_planar_pair": _bound(4 * W3 + 4 * 16 * R3, 28 * n12 + 21 * W3),
+        # #14: read the stream, write 4 B per 16 positions; per position 21:
+        # the forward and reverse codes (funnel shift and mask each: 4), min
+        # (1), fmix32 (8), van Herk windowed min (prefix, suffix, combine: 3)
+        # and max (3), the compare (1) and the ballot (1); per word 5: the
+        # load and its reverse complement
+        "minimizer_bits_stream": _bound(4 * W3 + 4 * (-(-n14 // 16)), 21 * n14 + 5 * W3),
     }
+    say(f"  clocks before timing: {_clocks()}")
     say(f"timing on {card}: 2-bit u8[{BATCH_ROWS}, {BATCH_NT}] ({gib:.3f} Gnt), base-5 "
         f"u8[{BATCH_ROWS}, {B5_NT}] ({gib5:.3f} Gnt); k-mer codes u32{tuple(panels[0].shape)} (k=8) and "
         f"u32{tuple(panels3[0].shape)} (k=21), histogram i32{tuple(codes.shape)}")
@@ -1340,13 +1795,15 @@ def phase_timing(x, words, x5, words5, chr1_words, card: str) -> dict:
             k_ms, p_ms = min(k1, k2), min(p1, p2)
             lib_ms = _time_ms(library[name], 5) if name in library and name not in times else None
             torch.cuda.empty_cache()
-            rate = (f"{g / (k_ms / 1e3):.1f} GiB/s of nt" if name not in KMER_KERNELS
-                    else f"{HBM_BYTES_PER_S * bound_ms / k_ms / 1e12:.2f} TB/s moved")
+            rate = (f"{g / (k_ms / 1e3):.1f} GiB/s of nt" if name not in KMER_KERNELS + SKETCH_KERNELS
+                    else f"{HBM_BYTES_PER_S * bound_ms / k_ms / 1e12:.2f} TB/s moved" if bound_by == "bytes"
+                    else "its instructions bound it")
             say(f"  {name}{suffix}: kernel {k_ms:.4f} ms ({rate}); plain {p_ms:.3f} ms; runs "
                 f"{k1:.4f}/{k2:.4f} vs {p1:.3f}/{p2:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
                 f"{100 * bound_ms / k_ms:.0f}% of it"
                 + (f"; torch.bincount {lib_ms:.4f} ms" if lib_ms is not None else ""))
             times.setdefault(name, (k_ms, p_ms, bound_ms, bound_by, lib_ms))  # the default variant is first
+    say(f"  clocks after timing: {_clocks()}")
     return times
 
 
@@ -1367,8 +1824,9 @@ def main() -> int:
         phase_kernels_b5(errors, rng)
         phase_kernels_search(errors, rng)
         phase_kernels_kmer(errors, rng)
+        phase_kernels_sketch(errors, rng)
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        # each path (2-bit, base-5, search, k-mer) runs with the counts set to 0
+        # each path (2-bit, base-5, search, k-mer, sketch) runs with the counts set to 0
         # just before it and read just after; each kernel must have launched
         # on its own path
         launches = {}
@@ -1394,15 +1852,24 @@ def main() -> int:
             torch.cuda.synchronize()
             launches["search"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
             say(f"phase 6 launches by the search path (phases 3 and 5): {launches['search']}")
+            chr1 = _chr1_fasta(rng, workdir)
             K.reset_launch_counts()
             phase_kmer_batch(errors, words)
             chr1_words = phase_kmer_chr1(errors)
-            phase_stats(rng, workdir, reads2)
+            phase_stats(rng, workdir, reads2, chr1)
             torch.cuda.synchronize()
             launches["k-mer"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
             say(f"phase 6 launches by the k-mer path (phases 3-5): {launches['k-mer']}")
-        path_of = {k: "k-mer" if k in KMER_KERNELS else "search" if k in SEARCH_KERNELS
-                   else "base-5" if k in B5_KERNELS else "2-bit" for k in REPLACES}
+            K.reset_launch_counts()
+            phase_sketch_chr1(errors, chr1_words)
+            phase_sketch_cli(rng, workdir, reads2, chr1)
+            torch.cuda.synchronize()
+            launches["sketch"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+            say(f"phase 6 launches by the sketch path (phases 4 and 5): {launches['sketch']}")
+            del chr1
+        path_of = {k: "sketch" if k in SKETCH_KERNELS else "k-mer" if k in KMER_KERNELS
+                   else "search" if k in SEARCH_KERNELS else "base-5" if k in B5_KERNELS else "2-bit"
+                   for k in REPLACES}
         own = {k: launches[path_of[k]][k] for k in REPLACES}
         check(all(n > 0 for n in own.values()), f"a kernel of its path never launched: {own}")
         torch.cuda.empty_cache()
@@ -1423,4 +1890,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(profile_sketch_chr1() if sys.argv[1:] == [PROFILE_SKETCH_CHR1] else main())

@@ -1,9 +1,10 @@
-"""Command-line interface of the port: encode / decode / parity / grep / stats.
+"""Command-line interface of the port: encode / decode / parity / grep /
+stats / sketch.
 
-Counterpart of ``encode``, ``decode``, ``parity``, ``grep`` and ``stats``
-in ``cute_nucleotides_tpu/cli.py``; it reads and writes the same ``.nup``
-container (:mod:`.nup`), so files are byte-identical between the two
-packages, and ``grep`` and ``stats`` print the same lines::
+Counterpart of ``encode``, ``decode``, ``parity``, ``grep``, ``stats`` and
+``sketch`` in ``cute_nucleotides_tpu/cli.py``; it reads and writes the same
+``.nup`` container (:mod:`.nup`), so files are byte-identical between the
+two packages, and ``grep``, ``stats`` and ``sketch`` print the same lines::
 
     python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --batch 8192 --validate
     python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --codec base5 --batch 8192 --validate
@@ -11,12 +12,14 @@ packages, and ``grep`` and ``stats`` print the same lines::
     python -m cute_nucleotides_tpu_torch parity --tiers torch,auto
     python -m cute_nucleotides_tpu_torch grep out.nup GATTACA --both
     python -m cute_nucleotides_tpu_torch stats chr1.fa -k 21 --canonical --top 10
+    python -m cute_nucleotides_tpu_torch sketch a.fq b.fq -k 21 -s 1000
 
 ``--batch N`` is the production path: batches of N reads as resident
 tensors through :class:`.models.TwoBitCodec` or :class:`.models.Base5Codec`.
 Without it each record goes through :mod:`.api` on its own.  The codec of
-``decode`` and ``grep`` is the one the ``.nup`` names; ``grep`` and
-``stats`` work on the card when there is one (the ``auto`` tier's device).
+``decode`` and ``grep`` is the one the ``.nup`` names; ``grep``, ``stats``
+and ``sketch`` work on the card when there is one (the ``auto`` tier's
+device).
 
 A malformed or missing file ends in one ``error:`` line and exit 1, and a
 closed output pipe (``grep ... | head``) in exit 141, as in the reference.
@@ -421,6 +424,134 @@ def cmd_stats(args) -> int:
     return 0
 
 
+def _dataset_sketch(path: str, args):
+    """One dataset-level sketch of every read in ``path`` (FASTA/FASTQ or a
+    2-bit .nup): -> (sorted u32[s] sketch, records, total_nt).  Reads sketch
+    in padded batches of ``--batch`` records; the batch sketches union-merge
+    (:func:`ops.sketch.merge`), which is exact because merging is
+    associative."""
+    import torch
+
+    from . import interop
+    from .models import TwoBitCodec, resolve_device
+    from .ops import sketch as sketch_lib
+    from .ops import spec, validate
+    from .utils import io as io_lib
+
+    def sketch_batch(words, lengths, invalid=None):
+        if args.scale:
+            sk, _ = sketch_lib.frac_sketch_batch(words, lengths, args.k, scale=args.scale, cap=args.s,
+                                                 canonical=not args.no_canonical, invalid=invalid)
+            return sk
+        return sketch_lib.bottom_k_sketch_batch(words, lengths, args.k, args.s,
+                                                canonical=not args.no_canonical, invalid=invalid)
+
+    acc = None
+    records = 0
+    total_nt = 0
+    device = resolve_device(args.tier)
+    if path.endswith(".nup"):
+        codec, entries = read_nup(path)
+        if codec != "2bit":
+            raise ValueError(f"{path}: sketch requires a 2-bit stream")
+        rows = [(length, spec.u64_to_u32_pairs(np.ascontiguousarray(words)).reshape(-1))
+                for _, length, words in entries]
+        for i in range(0, len(rows), args.batch):
+            chunk = rows[i : i + args.batch]
+            # rows as wide as the chunk's longest record
+            W = max(w.shape[0] for _, w in chunk)
+            words = np.zeros((len(chunk), W), np.uint32)
+            lengths = np.zeros(len(chunk), np.int32)
+            for j, (n, w) in enumerate(chunk):
+                words[j, : w.shape[0]] = w
+                lengths[j] = n
+                records += 1
+                total_nt += n
+            sk = sketch_batch(interop.to_tensor(words, device), lengths)
+            acc = sk if acc is None else sketch_lib.merge(acc, sk)
+    else:
+        recs = list(io_lib.open_reads(path))
+        if recs:
+            codec = TwoBitCodec(tier=args.tier)
+            max_len = max(len(r.seq) for r in recs)
+            stream = io_lib.BatchStream(recs, batch_size=args.batch, max_len=max_len, block=codec.block)
+            for b in stream:
+                reads = torch.from_numpy(b.reads).to(codec.device)
+                words = codec.encode(reads)
+                # the Mash/sourmash rule: k-mers touching N (or any byte the
+                # 2-bit code cannot hold) are dropped, not hashed as G
+                sk = sketch_batch(words, b.lengths, invalid=~validate.valid_mask(reads))
+                acc = sk if acc is None else sketch_lib.merge(acc, sk)
+                records += b.count
+                total_nt += int(b.lengths.sum())
+    if acc is None:
+        acc = interop.to_tensor(np.full(args.s, sketch_lib.SENTINEL, np.uint32), device)
+    return acc, records, total_nt
+
+
+def cmd_sketch(args) -> int:
+    """MinHash-sketch datasets and estimate pairwise similarity (Mash-style).
+
+    Each input (FASTA/FASTQ/.nup) reduces to one sorted-hash summary built
+    from packed words (:mod:`ops.sketch`); with two or more inputs it prints
+    the pairwise Jaccard / containment / Mash-distance table computed from
+    the summaries alone.  ``--tier`` encodes FASTA/FASTQ input and picks the
+    device (``auto``: the card when there is one).
+    """
+    import torch
+
+    from .ops import sketch as sketch_lib
+
+    if args.k > 31:
+        print("error: k must be <= 31", file=sys.stderr)
+        return 2
+    datasets = []
+    for path in args.inputs:
+        try:
+            sk, records, nt = _dataset_sketch(path, args)
+        except (ValueError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        datasets.append((path, sk, records, nt))
+    out = {
+        "k": args.k,
+        "scheme": ({"name": "fracminhash", "scale": args.scale, "cap": args.s}
+                   if args.scale else {"name": "bottom-s", "s": args.s}),
+        "canonical": not args.no_canonical,
+    }
+    ds_rows = []
+    for path, sk, records, nt in datasets:
+        row = {"path": path, "records": records, "nt": nt,
+               "hashes": int((sk.view(torch.int32) != -1).sum())}
+        if args.scale:
+            # a full buffer means the retained sample was truncated and the
+            # scheme's unbiased containment no longer holds
+            row["saturated"] = row["hashes"] >= args.s
+            if row["saturated"]:
+                print(f"warning: {path}: FracMinHash buffer saturated at {args.s} hashes — "
+                      f"containment/Jaccard will be underestimated; raise -s or --scale", file=sys.stderr)
+        ds_rows.append(row)
+    out["datasets"] = ds_rows
+    pairs = []
+    for i in range(len(datasets)):
+        for j in range(i + 1, len(datasets)):
+            pa, sa, _, _ = datasets[i]
+            pb, sb, _, _ = datasets[j]
+            jac = float(sketch_lib.jaccard(sa, sb))
+            pairs.append({
+                "a": pa,
+                "b": pb,
+                "jaccard": round(jac, 6),
+                "mash_distance": round(sketch_lib.mash_distance(jac, args.k), 6),
+                "containment_a_in_b": round(float(sketch_lib.containment(sa, sb)), 6),
+                "containment_b_in_a": round(float(sketch_lib.containment(sb, sa)), 6),
+            })
+    if pairs:
+        out["pairs"] = pairs
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="cute-nucleotides-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -482,6 +613,30 @@ def main(argv=None) -> int:
     ps.add_argument("--canonical", action="store_true")
     ps.add_argument("--tier", default="auto", choices=TIERS)
     ps.set_defaults(fn=cmd_stats)
+
+    pk = sub.add_parser(
+        "sketch",
+        help="MinHash-sketch datasets and estimate pairwise similarity "
+        "(Jaccard / containment / Mash distance) from packed k-mers",
+    )
+    pk.add_argument(
+        "inputs", nargs="+", metavar="READS",
+        help="FASTA/FASTQ files (k-mers touching N are skipped, the Mash rule) or "
+        "2-bit .nup containers (which cannot hold N — encode them with --validate)",
+    )
+    pk.add_argument("-k", type=int, default=21, help="k-mer size (<= 31)")
+    pk.add_argument("-s", type=int, default=1000,
+                    help="sketch size (bottom-s) or buffer capacity (--scale mode)")
+    pk.add_argument(
+        "--scale", type=int, default=0, metavar="N",
+        help="FracMinHash mode: keep hashes below 2^32/N (sourmash's scheme; "
+        "better containment across dataset sizes)",
+    )
+    pk.add_argument("--no-canonical", action="store_true", help="hash forward-strand k-mers only")
+    pk.add_argument("--batch", type=int, default=256, help="reads per device batch")
+    pk.add_argument("--tier", default="auto", choices=("auto", "torch", "cuda"),
+                    help="codec-model tier for encoding ASCII inputs, and the device")
+    pk.set_defaults(fn=cmd_sketch)
 
     args = p.parse_args(argv)
     try:

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "cn_kmer_codes": [_vp, _vp, _vp, _i64, _i64, _int, _vp],
     "cn_kmer_codes_pair": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _int, _vp],
     "cn_hist_codes": [_vp, _i64, _vp, _vp],
+    "cn_kmer_hashes_pair": [_vp, _i64, _i64, _i64, _i64, _i64, _int, _int, _vp, _vp],
+    "cn_minimizer_bits": [_vp, _i64, _i64, _int, _int, _int, _vp, _vp],
 }
 
 

@@ -1,6 +1,7 @@
 """The ``cuda`` tier: wrappers of the hand-written Hopper kernels in
-``csrc/codec2bit.cu``, ``csrc/codec_b5.cu``, ``csrc/search.cu`` and
-``csrc/kmer.cu``, each beside its plain PyTorch version.
+``csrc/codec2bit.cu``, ``csrc/codec_b5.cu``, ``csrc/search.cu``,
+``csrc/kmer.cu`` and ``csrc/sketch.cu``, each beside its plain PyTorch
+version.
 
 A wrapper runs its plain version only for a tensor on the CPU; for a CUDA
 tensor it launches its kernel (building the library on first use) or raises.
@@ -26,14 +27,20 @@ successor words and write planar codes i32[R, 16 W] (or u32 (lo, hi)
 planes for k >= 16); the histogram kernel counts codes < 65536 into
 i32[256, 256].
 
+The sketch kernels take a flat 2-bit stream: the planar k-mer hashes for
+16 <= k <= 31 (u32[rows, 16 W], 0xFFFFFFFF past the valid positions) and
+the packed (w, k)-minimizer bits for k <= 15 (u32[ceil(n/16)]).
+
 Every codec kernel is bound by device memory: the 2-bit encoders read 4
 bytes and write 1 per 4 nt, the decoder the reverse (5 bytes moved per 4
 nt); the base-5 kernels move 27 bytes and one 8-byte word per 27 nt (35
 bytes).  The search kernels move less (8 or 12 bytes per word) and are
 bound by integer work at short queries.  The k-mer code kernels are bound
 by their writes (64 B per 16 nt, twice that for pairs), the histogram by
-reading the codes.  Times on the H100 beside the plain versions' are in
-PERF.md.
+reading the codes, the hash kernel by its writes (4 B per position).  The
+minimizer kernel reads and writes little and is bound by its integer work
+(a hash and four segment scans per position).  Times on the H100 beside
+the plain versions' are in PERF.md.
 """
 
 from __future__ import annotations
@@ -718,9 +725,150 @@ def hist_codes(codes: torch.Tensor) -> torch.Tensor:
 
 hist_codes.launches = 0
 
+# --- kernels #12 and #14: k-mer hashes and minimizers -----------------------------
+
+#: words per row of the planar layout (the reference's ``kmer._PLANAR_W``)
+PLANAR_W = 512
+
+def _check_words(words: torch.Tensor, k: int, lo: int, hi: int) -> int:
+    if not lo <= k <= hi:
+        raise ValueError(f"k must be in [{lo}, {hi}], got {k}")
+    return _check_stream(words, torch.uint32, 1, "packed u32[W]")
+
+
+def kmer_hashes_planar_pair_plain(
+    words: torch.Tensor, k: int, n_valid: int, *, canonical: bool = True, seg: int = 0
+) -> torch.Tensor:
+    """Plain version of :func:`kmer_hashes_planar_pair`: the successor
+    panels, the planar pair codes (:func:`kmer_codes_planar_pair_plain`), the
+    eager canonical fold and fmix32 of ``ops.kmer``, and the tail mask."""
+    from . import kmer  # kmer imports this module
+
+    Wt = _check_words(words, k, 16, 31)
+    rows = spec.cdiv(Wt, PLANAR_W)
+    total = rows * PLANAR_W
+    seg = seg or Wt
+    ext = torch.zeros(total + 2, dtype=torch.int32, device=words.device)
+    ext[:Wt] = words.view(torch.int32)
+    j = torch.arange(total, device=words.device) % seg
+    panels = [ext[:total]] + [ext[d : total + d].masked_fill(j + d >= seg, 0) for d in (1, 2)]
+    lo, hi = kmer_codes_planar_pair_plain(*(p.view(rows, PLANAR_W).view(torch.uint32) for p in panels), k)
+    del panels, j
+    if canonical:
+        lo, hi = kmer.canonical_codes_pair(lo, hi, k)
+    h = kmer._mix32(lo.view(torch.int32) ^ kmer._mix32(hi))
+    kmer._mask_tail(h, n_valid, -1)
+    return h.view(torch.uint32)
+
+
+def kmer_hashes_planar_pair(
+    words: torch.Tensor, k: int, n_valid: int, *, canonical: bool = True, seg: int = 0
+) -> torch.Tensor:
+    """Planar k-mer hashes for 16 <= k <= 31: a flat packed stream u32[W] ->
+    u32[rows, 16 PLANAR_W], rows = ceil(W / PLANAR_W).  Column ``PLANAR_W s
+    + c`` of row r holds fmix32(lo ^ fmix32(hi)) of the (canonical, with
+    ``canonical``) 2k-bit code at position ``16 (PLANAR_W r + c) + s``, or
+    0xFFFFFFFF where that position is >= ``n_valid``.  The successor words of
+    a word are the next two of its segment (``seg`` words; 0 means the whole
+    stream), and 0 past it, so a batch u32[B, Wr] hashes as B streams with
+    ``seg = Wr``.
+
+    Replaces ``cute_nucleotides_tpu/ops/kmer.py:kmer_hashes_planar`` (its
+    inline pallas_call of ``_hashes_planar_pair_kernel``), whose one- and
+    two-ahead successor panels were copies made for the TPU's blocks.  One
+    thread per stream word reads its word and the next two straight from the
+    stream, takes the reverse complement of those 48 nt once, cuts each
+    k-mer's forward and reverse codes out with funnel shifts, folds them
+    with a native unsigned 64-bit compare and writes its 16 hashes, one
+    coalesced store per shift.  About 28 integer instructions and 4 bytes
+    written per position.  Time on the H100: PERF.md.
+    """
+    Wt = _check_words(words, k, 16, 31)
+    if seg < 0:
+        raise ValueError(f"seg must be >= 0, got {seg}")
+    if not _on_cuda(words):
+        return kmer_hashes_planar_pair_plain(words, k, n_valid, canonical=canonical, seg=seg)
+    rows = spec.cdiv(Wt, PLANAR_W)
+    out = torch.empty((rows, spec.NT_PER_U32_2BIT * PLANAR_W), dtype=torch.uint32, device=words.device)
+    if Wt:
+        lib = _build.load()
+        with torch.cuda.device(words.device):
+            _launch(lib.cn_kmer_hashes_pair, words.data_ptr(), Wt, seg or Wt, PLANAR_W, rows, n_valid, k,
+                    int(canonical), out.data_ptr(), _stream(words))
+        kmer_hashes_planar_pair.launches += 1
+    return out
+
+
+kmer_hashes_planar_pair.launches = 0
+
+#: lead/trail overlap words of the reference's minimizer panels
+#: (pallas_kernels.MZ_OV): windows and k-mer taps span at most 16 * MZ_OV nt
+MZ_OV = 128
+
+
+def _check_minimizer_args(k: int, w: int) -> None:
+    if not 1 <= k <= 15:
+        raise ValueError("kernel minimizers cover k in [1, 15]")
+    if not 1 <= w - 1 <= 16 * MZ_OV - k:
+        raise ValueError(f"window w out of kernel range (got {w})")
+
+
+def minimizer_bits_stream_plain(words: torch.Tensor, n: int, k: int, w: int, *, canonical: bool = True) -> torch.Tensor:
+    """Plain version of :func:`minimizer_bits_stream`: the gather hashes of
+    ``ops.kmer`` (the stream read as 0 past its end), the windowed torch
+    passes and the packed mask."""
+    from . import kmer  # kmer imports this module
+
+    W = _check_stream(words, torch.uint32, 1, "packed u32[W]")
+    _check_minimizer_args(k, w)
+    length = n + k - 1
+    cap = spec.cdiv(length, spec.NT_PER_U32_2BIT)
+    if cap > W:
+        words = torch.cat([words.view(torch.int32), words.new_zeros(cap - W, dtype=torch.int32)]).view(torch.uint32)
+    h = kmer.kmer_hashes(words, length, k, canonical=canonical)
+    return kmer.pack_bits(kmer._windowed_mask(h, w))
+
+
+def minimizer_bits_stream(words: torch.Tensor, n: int, k: int, w: int, *, canonical: bool = True) -> torch.Tensor:
+    """(w, k)-minimizer bits of the first n k-mers of a flat packed stream
+    u32[W] (read as 0 past its end): -> u32[ceil(n/16)]; bit ``p % 16`` of
+    word ``p // 16`` is 1 iff the hash of position p (fmix32 of its canonical
+    code, with ``canonical``) is the least of some window of w hashes whose
+    start lies in [0, n - w].  Bits 16..31 of every word are 0.  k <= 15,
+    1 <= w - 1 <= 2048 - k.
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:
+    minimizer_bits_panels``, whose sixteen s-planes of 1280-lane panels
+    stood in for a lane shift the TPU lacks.  Here a block owns 4096
+    positions: it loads its 256 words and a halo of w - 1 nt (rounded up to
+    whole words) on each side, hashes into shared memory, takes the forward
+    windowed min and the backward windowed max with van Herk/Gil-Werman
+    segment scans (warp shuffles; the cost per position does not grow with
+    w), and packs each warp's 32 flags with one ``__ballot_sync`` into two
+    output words.  Bound by integer work (the hashes and four segment
+    scans); 4 bytes read per 16 positions.  Time on the H100: PERF.md.
+    """
+    W = _check_stream(words, torch.uint32, 1, "packed u32[W]")
+    _check_minimizer_args(k, w)
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    if not _on_cuda(words):
+        return minimizer_bits_stream_plain(words, n, k, w, canonical=canonical)
+    out = torch.empty(spec.cdiv(n, spec.NT_PER_U32_2BIT), dtype=torch.uint32, device=words.device)
+    lib = _build.load()
+    with torch.cuda.device(words.device):
+        _launch(lib.cn_minimizer_bits, words.data_ptr(), W, n, k, w, int(canonical), out.data_ptr(),
+                _stream(words))
+    minimizer_bits_stream.launches += 1
+    return out
+
+
+minimizer_bits_stream.launches = 0
+
 WRAPPERS = (encode_2bit_nt4, decode_2bit_nt4, encode_2bit_nt4_checked, encode_2bit_nt4_mxu,
             encode_b5_stream, decode_b5_stream, match_bits_stream, match_b5_bits_stream,
-            kmer_codes_planar, kmer_codes_planar_pair, hist_codes)
+            kmer_codes_planar, kmer_codes_planar_pair, hist_codes, kmer_hashes_planar_pair,
+            minimizer_bits_stream)
 
 
 def reset_launch_counts() -> None:

@@ -15,6 +15,13 @@ k-mer up to k = 15 is an int32 code, up to k = 31 a u32 pair ``(lo, hi)``.
   :func:`kmer_histogram_batch` (a padded read batch, per-read lengths) and
   :func:`kmer_counts` (any k <= 31: planar codes sorted with
   ``torch.sort``, one count per run).
+* Hashes (Murmur3 fmix32 of the canonical code): :func:`kmer_hashes` in
+  position order (gather tier) and :func:`kmer_hashes_planar` in planar
+  order, which runs #10 and the eager fold and mix for k <= 15 and the
+  fused kernel #12 for 16 <= k <= 31.
+* Minimizers: :func:`minimizers` and :func:`minimizer_bits`; streams of
+  1024 words or more with k <= 15 and w - 1 <= 2048 - k take kernel #14,
+  the rest the windowed torch form (:func:`_windowed`).
 
 The glue keeps the reference's rows of 512 words, so ``kmer_counts``
 returns the reference's padded length ``rows * 8192``.  It never builds a
@@ -43,10 +50,14 @@ __all__ = [
     "kmer_histogram",
     "kmer_histogram_batch",
     "kmer_counts",
+    "kmer_hashes",
+    "kmer_hashes_planar",
+    "minimizers",
+    "minimizer_bits",
 ]
 
 #: word lanes per panel row (the reference's ``_PLANAR_W``)
-PLANAR_W = 512
+PLANAR_W = kernels.PLANAR_W
 _NT = spec.NT_PER_U32_2BIT
 _INT32_MIN = -(1 << 31)
 _INT32_MAX = (1 << 31) - 1
@@ -211,6 +222,20 @@ def _panels(words: torch.Tensor, ahead: int) -> list[torch.Tensor]:
     return [t.view(rows, PLANAR_W).view(torch.uint32) for t in out]
 
 
+def _row_panels(words: torch.Tensor) -> list[torch.Tensor]:
+    """A batch u32[B, Wr] as rows of PLANAR_W words and its successor words,
+    u32[rows, PLANAR_W] each: the successor of a row's last word is 0, so no
+    k-mer spans two reads (each row reads as its own stream)."""
+    B, Wr = words.shape
+    rows = spec.cdiv(B * Wr, PLANAR_W)
+    flat = torch.zeros(rows * PLANAR_W, dtype=torch.int32, device=words.device)
+    nxt = torch.zeros_like(flat)
+    w32 = words.view(torch.int32)
+    flat[: B * Wr].view(B, Wr).copy_(w32)
+    nxt[: B * Wr].view(B, Wr)[:, :-1] = w32[:, 1:]
+    return [t.view(rows, PLANAR_W).view(torch.uint32) for t in (flat, nxt)]
+
+
 def _mask_tail(codes: torch.Tensor, n_valid: int, fill: int) -> None:
     """Set the planar codes i32[rows, 16 W] of positions >= n_valid to
     ``fill``, in place.  Position ``16 (r W + w) + s`` lies at [r, W s + w],
@@ -294,14 +319,7 @@ def kmer_histogram_batch(words: torch.Tensor, lengths, k: int, *, canonical: boo
     lengths = torch.as_tensor(lengths, dtype=torch.int64, device=dev).reshape(-1).expand(B)
     lengths = lengths.clamp(max=Wr * _NT)
     rows = spec.cdiv(B * Wr, PLANAR_W)
-    flat = torch.zeros(rows * PLANAR_W, dtype=torch.int32, device=dev)
-    nxt = torch.zeros_like(flat)
-    w32 = words.view(torch.int32)
-    flat[: B * Wr].view(B, Wr).copy_(w32)
-    nxt[: B * Wr].view(B, Wr)[:, :-1] = w32[:, 1:]
-    codes = kernels.kmer_codes_planar(flat.view(rows, PLANAR_W).view(torch.uint32),
-                                      nxt.view(rows, PLANAR_W).view(torch.uint32), k)
-    del flat, nxt
+    codes = kernels.kmer_codes_planar(*_row_panels(words), k)
     if canonical:
         codes = canonical_codes(codes, k)
     # word q = b Wr + j of the batch holds positions 16 j + s of read b; its
@@ -378,3 +396,235 @@ def kmer_counts(
         sent = h == -1  # a real hi has at most 30 bits
         is_new = (l[1:] != l[:-1]) | (h[1:] != h[:-1])
     return lo_s, hi_s, _run_counts(is_new, sent)
+
+
+# --- hashes ------------------------------------------------------------------------
+# Murmur3 fmix32, the invertible avalanche the reference applies to the
+# canonical code (minimap2's sketch idea), so that a read and its reverse
+# complement select the same hashes.
+
+_SENTINEL = -1  # 0xFFFFFFFF as an int32: invalid positions of the planar hashes
+_MIX_STEP = 1 << 24  # elements per int64 chunk of _mix32
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2**32 of int64 lanes in [0, 2**32): two 16-bit halves of c,
+    so that no product leaves int64."""
+    return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & eager.U32
+
+
+def _mix64(h: torch.Tensor) -> torch.Tensor:
+    """fmix32 of int64 lanes holding u32 values."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _mix32(h: torch.Tensor) -> torch.Tensor:
+    """Murmur3 fmix32 of the u32 bits of an int32 (or uint32) tensor -> int32,
+    on int64 chunks of ``_MIX_STEP`` lanes (no full-size int64 temporary)."""
+    x = _as_i32(h).contiguous()
+    flat = x.view(-1)
+    out = torch.empty_like(flat)
+    for i in range(0, flat.numel(), _MIX_STEP):
+        out[i : i + _MIX_STEP] = _mix64(eager.u32_to_i64(flat[i : i + _MIX_STEP].view(torch.uint32))).to(torch.int32)
+    return out.view(x.shape)
+
+
+def kmer_hashes(words: torch.Tensor, length: int, k: int, *, canonical: bool = True) -> torch.Tensor:
+    """Position-ordered avalanche hashes of every k-mer: -> u32[length-k+1].
+
+    k <= 15 hashes the code; 16 <= k <= 31 mixes the u32 pair (``mix(lo ^
+    mix(hi))``).  ``canonical=True`` folds each k-mer with its reverse
+    complement first.  Gather tier (eager torch).
+    """
+    if k <= 15:
+        codes = kmer_codes(words, length, k)
+        if canonical:
+            codes = canonical_codes(codes, k)
+        return _mix32(codes).view(torch.uint32)
+    lo, hi = kmer_codes_pair(words, length, k)
+    if canonical:
+        lo, hi = canonical_codes_pair(lo, hi, k)
+    return _mix32(_as_i32(lo) ^ _mix32(hi)).view(torch.uint32)
+
+
+def kmer_hashes_planar(words: torch.Tensor, length: int, k: int, *, canonical: bool = True) -> torch.Tensor:
+    """Planar-order canonical k-mer hashes of a packed stream: -> u32[16 *
+    ceil(W / 512) * 512], any k <= 31.
+
+    The multiset of :func:`kmer_hashes` in the planar layout of rows of 512
+    words (column ``512 s + w`` of row r holds position ``16 (512 r + w) +
+    s``), with positions past ``length - k`` and the padding of the last row
+    at ``0xFFFFFFFF`` (the sketch SENTINEL).  As in the reference, the one
+    k-mer code per orientation whose hash is 0xFFFFFFFF is indistinguishable
+    from padding here; every sketch drops it.  k <= 15 runs kernel #10 and
+    the eager fold and mix; 16 <= k <= 31 the fused kernel #12.
+    """
+    if not 1 <= k <= 31:
+        raise ValueError("k must be in [1, 31]")
+    n_valid = length - k + 1
+    if n_valid <= 0:
+        raise ValueError(f"length {length} too short for k={k}")
+    if length > words.numel() * _NT:
+        raise ValueError("length exceeds stream capacity")
+    return batch_hashes_planar(words.reshape(1, -1), k, canonical, n_valid).view(torch.uint32).view(-1)
+
+
+def _to_planar(keep: torch.Tensor, n_words: int) -> torch.Tensor:
+    """bool[16 n_words] in position order (position 16 i + s of word i) ->
+    bool[rows, 16 PLANAR_W] in the planar order of rows of PLANAR_W words,
+    False in the padding of the last row."""
+    rows = spec.cdiv(n_words, PLANAR_W)
+    full = torch.zeros(rows * PLANAR_W * _NT, dtype=torch.bool, device=keep.device)
+    full[: keep.numel()] = keep.reshape(-1)
+    return full.view(rows, PLANAR_W, _NT).transpose(1, 2).reshape(rows, _NT * PLANAR_W)
+
+
+def batch_hashes_planar(words: torch.Tensor, k: int, canonical: bool, n_valid: int | None = None) -> torch.Tensor:
+    """Planar hashes i32[rows, 16 PLANAR_W] (u32 bits) of every position of a
+    batch u32[B, Wr] read as B streams: the successor words of a row are its
+    own, zero past its end.  Positions >= ``n_valid`` (in the flat order of
+    the batch) are 0xFFFFFFFF; None masks none.  Kernel #12 for 16 <= k <=
+    31, #10 and the eager fold and mix for k <= 15."""
+    B, Wr = words.shape
+    if k > 31:
+        raise ValueError("kmer_codes_pair covers k in [16, 31]; use kmer_codes below")
+    if k >= 16:
+        n = B * Wr * _NT if n_valid is None else n_valid
+        h = kernels.kmer_hashes_planar_pair(words.reshape(-1), k, n, canonical=canonical, seg=Wr)
+        return h.view(torch.int32)
+    if not 1 <= k <= 15:
+        raise ValueError("k must be in [1, 15]")
+    codes = kernels.kmer_codes_planar(*_row_panels(words), k)
+    if canonical:
+        codes = canonical_codes(codes, k)
+    h = _mix32(codes)
+    del codes
+    if n_valid is not None:
+        _mask_tail(h, n_valid, _SENTINEL)
+    return h
+
+
+# --- minimizers --------------------------------------------------------------------
+# Of each window of w consecutive k-mers keep those with the smallest hash
+# (minimap2's sketch).  Hashes are compared as int32 keys with the sign bit
+# flipped, which orders them as u32.
+
+#: the kernel route takes w - 1 <= 16 * MZ_OV - k
+MZ_OV = kernels.MZ_OV
+
+#: words below which the reference keeps the windowed passes (one kernel row)
+_MZ_THRESHOLD = 1024
+
+
+def _key(h: torch.Tensor) -> torch.Tensor:
+    """u32 hashes -> int32 keys in the same order (sign bit flipped)."""
+    return _as_i32(h) ^ _INT32_MIN
+
+
+def _shifted(a: torch.Tensor, s: int, left: bool, pad: int) -> torch.Tensor:
+    """Shifted copy of a 1-D tensor: index ``i`` reads ``a[i - s]``
+    (``left``) or ``a[i + s]``, with ``pad`` outside."""
+    if s >= a.shape[0]:
+        return torch.full_like(a, pad)
+    p = a.new_full((s,), pad)
+    return torch.cat([p, a[:-s]]) if left else torch.cat([a[s:], p])
+
+
+def _windowed(a: torch.Tensor, r: int, op, pad: int, left: bool) -> torch.Tensor:
+    """``op`` (torch.minimum / maximum) over the window of ``r + 1`` elements
+    ending (``left``) or starting at each index: a log-depth doubling tree,
+    the clipped edges padded with the identity ``pad``."""
+    if r == 0:
+        return a
+    t, m = a, 1
+    while 2 * m - 1 <= r:
+        t = op(t, _shifted(t, m, left, pad))
+        m *= 2
+    off = r - (m - 1)
+    if off:  # overlap-combine covers the non-power-of-two remainder
+        t = op(t, _shifted(t, off, left, pad))
+    return t
+
+
+def _windowed_mask(h: torch.Tensor, w: int) -> torch.Tensor:
+    """bool[n]: position p holds the least hash of some window of w hashes
+    among the windows starting in [0, n - w] (the reference's two passes:
+    the forward windowed min, window starts past n - w zeroed, then the
+    backward windowed max)."""
+    key, n, r = _key(h), h.numel(), w - 1
+    wm = _windowed(key, r, torch.minimum, _INT32_MAX, left=False)
+    wm.masked_fill_(torch.arange(n, device=h.device) > n - w, _INT32_MIN)  # the key of u32 0
+    best = _windowed(wm, r, torch.maximum, _INT32_MIN, left=True)
+    return key == best
+
+
+def _route_minimizer_kernel(n_words: int, n: int, k: int, w: int) -> bool:
+    return n_words >= _MZ_THRESHOLD and 1 <= k <= 15 and 1 <= w - 1 <= 16 * MZ_OV - k and n > w
+
+
+#: the reference's name for the kernel route of :func:`minimizer_bits`
+_minimizer_bits_impl = kernels.minimizer_bits_stream
+
+
+def _unpack_bits(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """bool[n] of packed bits u32[ceil(n/16)] (bit p % 16 of word p // 16)."""
+    shifts = torch.arange(_NT, dtype=torch.int32, device=bits.device)
+    return ((bits.view(torch.int32)[:, None] >> shifts) & 1).view(-1)[:n].bool()
+
+
+def minimizers(
+    words: torch.Tensor, length: int, k: int, w: int, *, canonical: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(w, k)-minimizer mask over a packed stream: -> (mask bool[n], hash
+    u32[n]), n = length - k + 1.
+
+    Position p is a minimizer iff its k-mer attains the least hash of at
+    least one window of w consecutive k-mers containing it; ties select
+    every tied position.  A stream with n <= w is one window (``h ==
+    min(h)``).  Kernel #14 computes the mask where the reference routes to
+    its kernel (:func:`_route_minimizer_kernel`); the hashes come from
+    :func:`kmer_hashes`.
+    """
+    if w < 1:
+        raise ValueError("window w must be >= 1")
+    h = kmer_hashes(words, length, k, canonical=canonical)
+    n = h.numel()
+    if n <= w:
+        key = _key(h)
+        return key == key.min(), h
+    if _route_minimizer_kernel(words.numel(), n, k, w):
+        return _unpack_bits(kernels.minimizer_bits_stream(words.reshape(-1), n, k, w, canonical=canonical), n), h
+    return _windowed_mask(h, w), h
+
+
+def minimizer_bits(
+    words: torch.Tensor, length: int, k: int, w: int, *, canonical: bool = True
+) -> torch.Tensor:
+    """Packed (w, k)-minimizer mask: -> u32[ceil(n/16)], n = length - k + 1;
+    bit ``p % 16`` of word ``p // 16`` flags position p, as
+    :func:`minimizers` selects it.  Kernel #14 where the reference routes to
+    its kernel, else the packed mask of :func:`minimizers`."""
+    if w < 1:
+        raise ValueError("window w must be >= 1")
+    n = length - k + 1
+    if n <= 0:
+        raise ValueError(f"length {length} too short for k={k}")
+    flat = words.reshape(-1)
+    if _route_minimizer_kernel(flat.numel(), n, k, w):
+        return kernels.minimizer_bits_stream(flat, n, k, w, canonical=canonical)
+    mask, _ = minimizers(flat, length, k, w, canonical=canonical)
+    return pack_bits(mask)
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """bool[n] -> u32[ceil(n/16)]: bit p % 16 of word p // 16 is mask[p]."""
+    n = mask.numel()
+    full = torch.zeros(spec.cdiv(n, _NT) * _NT, dtype=torch.int32, device=mask.device)
+    full[:n] = mask.reshape(-1)
+    weights = torch.ones(_NT, dtype=torch.int32, device=mask.device) << torch.arange(
+        _NT, dtype=torch.int32, device=mask.device)
+    return (full.view(-1, _NT) * weights).sum(1, dtype=torch.int32).view(torch.uint32)

@@ -1,5 +1,5 @@
-"""The CUDA kernels of both codecs, the search and the k-mer path on the
-card: each against its plain version, the cuda tier against the torch tier
+"""The CUDA kernels of both codecs, the search, the k-mer path and the
+sketch path on the card: each against its plain version, the cuda tier against the torch tier
 and the oracle, launch counts and refusals.
 
 Every test here needs a CUDA card and skips without one.  The file imports
@@ -106,7 +106,7 @@ def test_launch_counts_and_alignment(cuda_device):
     K.encode_2bit_nt4_mxu(t)
     K.encode_2bit_nt4_mxu(t, checked=True)
     K.decode_2bit_nt4(K.encode_2bit_nt4(t))
-    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     misaligned = torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:36]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_2bit_nt4(misaligned.view(torch.uint32).view(2, 4))
@@ -192,7 +192,7 @@ def test_b5_launch_counts_and_alignment(cuda_device):
     K.encode_b5_stream(x, checked=True)
     for checked, digits in B5_MODES:
         K.decode_b5_stream(w, checked, digits)
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_b5_stream(torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:31])
     with pytest.raises(ValueError, match="checked digit"):
@@ -280,7 +280,7 @@ def test_search_launch_counts(cuda_device):
     search.match_positions_b5(w5, s.size, b"GAT?ACA")
     search.match_positions_b5(w5[:1000], 13500, b"GAT?ACA")  # under 1024 u32: the mask tier
     search.match_count_b5(w5, s.size, b"A" * 1025)  # over 1024 nt: the mask tier
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.match_bits_stream(w2[1:], *search.compile_query(b"ACG")[:2], 10)
 
@@ -337,7 +337,7 @@ def test_kmer_cuda_matches_torch_tier(cuda_device):
     for k in (3, 8, 11):
         assert _same(kmer.kmer_histogram_batch(interop.to_tensor(batch, cuda_device), lengths, k, canonical=True),
                      kmer.kmer_histogram_batch(interop.to_tensor(batch), lengths, k, canonical=True))
-    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2]
+    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2, 0, 0]
 
 
 def test_stats_cuda_matches_torch_tier(cuda_device, tmp_path, capsys):
@@ -353,4 +353,117 @@ def test_stats_cuda_matches_torch_tier(cuda_device, tmp_path, capsys):
         for tier in ("cuda", "torch"):
             assert cli.main(["stats", str(fa), *argv, "--tier", tier]) == 0
             out[tier] = capsys.readouterr().out
+        assert out["cuda"] == out["torch"], argv
+
+
+def _plant_sentinel(words: np.ndarray, pos: int, k: int) -> None:
+    """Write at nt ``pos`` a canonical k-mer (16 < k <= 31) whose pair hash
+    fmix32(lo ^ fmix32(hi)) is 0xFFFFFFFF: fmix32 is invertible, so lo
+    follows from hi."""
+    def mix(h):
+        h ^= h >> 16
+        h = (h * 0x85EBCA6B) % 2**32
+        h ^= h >> 13
+        h = (h * 0xC2B2AE35) % 2**32
+        return h ^ (h >> 16)
+
+    h = 0xFFFFFFFF ^ 0xFFFF  # the inverse of fmix32, applied to 0xFFFFFFFF
+    h = (h * pow(0xC2B2AE35, -1, 2**32)) % 2**32
+    h ^= (h >> 13) ^ (h >> 26)
+    h = (h * pow(0x85EBCA6B, -1, 2**32)) % 2**32
+    unmixed = h ^ (h >> 16)
+    for hi in range(1, 1 << 16):
+        code = (unmixed ^ mix(hi)) | hi << 32
+        rc = sum((((code >> (2 * j)) & 3) ^ 2) << (2 * (k - 1 - j)) for j in range(k))
+        if code < 4**k and code <= rc:
+            break
+    assert mix((code & 0xFFFFFFFF) ^ mix(code >> 32)) == 0xFFFFFFFF
+    q, s = divmod(pos, 16)
+    v = sum(int(words[q + j]) << (32 * j) for j in range(3))
+    v = (v & ~(((1 << (2 * k)) - 1) << (2 * s))) | code << (2 * s)
+    for j in range(3):
+        words[q + j] = (v >> (32 * j)) & 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("W", KMER_W + (3000,))
+def test_kmer_hashes_kernel_matches_plain(cuda_device, W):
+    """#12 at every k in 16..31, canonical and forward, as one stream, as
+    rows of 7 words (seg) and with n_valid inside the stream."""
+    flat = np.random.default_rng(W).integers(0, 2**32, W + 2, dtype=np.uint32)
+    if W >= 512:
+        _plant_sentinel(flat, 16 * 500 + 3, 21)
+    w = interop.to_tensor(flat[:W], cuda_device)
+    for k in range(16, 32):
+        for canonical in (False, True):
+            for seg, n_valid in ((0, 16 * W - k + 1), (7, 16 * W), (0, 8 * W + 5)):
+                got = K.kmer_hashes_planar_pair(w, k, n_valid, canonical=canonical, seg=seg)
+                want = K.kmer_hashes_planar_pair_plain(w, k, n_valid, canonical=canonical, seg=seg)
+                assert _same(got, want), (k, canonical, seg, n_valid)
+
+
+@pytest.mark.parametrize("nt", (16384 + 5, 32768, 100_003))
+def test_minimizer_kernel_matches_plain(cuda_device, nt):
+    rng = np.random.default_rng(nt)
+    words = rng.integers(0, 2**32, -(-nt // 16), dtype=np.uint32)
+    poly_a = np.zeros_like(words)  # every hash ties
+    for label, stream in (("random", words), ("poly-A", poly_a)):
+        w = interop.to_tensor(stream, cuda_device)
+        for k in (1, 7, 15):
+            for win in (2, 10, 64, 2048 - k + 1):
+                for canonical in (False, True):
+                    n = nt - k + 1
+                    got = K.minimizer_bits_stream(w, n, k, win, canonical=canonical)
+                    want = K.minimizer_bits_stream_plain(w, n, k, win, canonical=canonical)
+                    assert _same(got, want), (label, k, win, canonical)
+
+
+def test_sketch_cuda_matches_torch_tier(cuda_device):
+    from cute_nucleotides_tpu_torch.ops import kmer, sketch
+
+    rng = np.random.default_rng(13)
+    length = 16 * 3000 + 7
+    flat = rng.integers(0, 2**32, -(-length // 16), dtype=np.uint32)
+    cpu, gpu = interop.to_tensor(flat), interop.to_tensor(flat, cuda_device)
+    K.reset_launch_counts()
+    for k in (9, 21, 31):
+        assert _same(kmer.kmer_hashes_planar(gpu, length, k), kmer.kmer_hashes_planar(cpu, length, k))
+        assert _same(sketch.bottom_k_sketch(gpu, length, k, 1000), sketch.bottom_k_sketch(cpu, length, k, 1000))
+        got = sketch.frac_sketch(gpu, length, k, scale=8, cap=1 << 14)
+        want = sketch.frac_sketch(cpu, length, k, scale=8, cap=1 << 14)
+        assert _same(got[0], want[0]) and int(got[1]) == int(want[1])
+    for k, w in ((15, 10), (7, 64), (1, 5)):
+        got, want = kmer.minimizers(gpu, length, k, w), kmer.minimizers(cpu, length, k, w)
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
+        assert _same(kmer.minimizer_bits(gpu, length, k, w), kmer.minimizer_bits(cpu, length, k, w))
+    batch = rng.integers(0, 2**32, (9, 37), dtype=np.uint32)
+    lengths = rng.integers(0, 37 * 16 + 1, 9).astype(np.int32)
+    invalid = rng.random((9, 37 * 16)) < 0.01
+    for k in (5, 16, 21):
+        got = sketch.bottom_k_sketch_batch(interop.to_tensor(batch, cuda_device), lengths, k, 300,
+                                           invalid=interop.to_tensor(invalid, cuda_device))
+        assert _same(got, sketch.bottom_k_sketch_batch(interop.to_tensor(batch), lengths, k, 300, invalid=invalid))
+    counts = dict(zip((fn.__name__ for fn in K.WRAPPERS), (fn.launches for fn in K.WRAPPERS)))
+    # #12: hashes, bottom-s and frac at k = 21 and 31, two batch sketches; #14: two minimizers calls for each
+    # of (15, 10) and (7, 64) and (1, 5)
+    assert counts["kmer_hashes_planar_pair"] == 3 * 2 + 2 and counts["minimizer_bits_stream"] == 6
+    assert counts["kmer_codes_planar"] == 3 + 1
+
+
+def test_sketch_cli_cuda_matches_torch_tier(cuda_device, tmp_path, capsys):
+    from cute_nucleotides_tpu_torch import cli
+
+    rng = np.random.default_rng(14)
+    paths = []
+    for name in ("a", "b"):
+        fq = tmp_path / f"{name}.fq"
+        with open(fq, "wb") as f:
+            for i in range(300):
+                s = rng.choice(np.frombuffer(b"ACGTNacgt", np.uint8), int(rng.integers(0, 400))).tobytes()
+                f.write(b"@r%d\n%s\n+\n%s\n" % (i, s, b"I" * len(s)))
+        paths.append(str(fq))
+    for argv in (["-k", "21"], ["-k", "15", "--scale", "4", "-s", "4096"], ["-k", "31", "--no-canonical", "--batch", "7"]):
+        out = {}
+        for tier in ("cuda", "torch"):
+            assert cli.main(["sketch", *paths, *argv, "--tier", tier]) == 0
+            out[tier] = capsys.readouterr()
         assert out["cuda"] == out["torch"], argv

@@ -47,12 +47,13 @@ def test_port_sources_never_import_the_reference():
 
 
 def test_port_paths_leave_the_reference_unloaded(tmp_path):
-    """api, compat, the CLI (encode, decode, grep, stats) and kmer, driven in
-    one process: afterwards no cute_nucleotides_tpu module is loaded."""
+    """api, compat, the CLI (encode, decode, grep, stats, sketch), kmer
+    (counts, minimizers) and sketch, driven in one process: afterwards no
+    cute_nucleotides_tpu module is loaded."""
     code = f"""
 import sys
 from cute_nucleotides_tpu_torch import api, cli, compat, interop
-from cute_nucleotides_tpu_torch.ops import kmer
+from cute_nucleotides_tpu_torch.ops import kmer, sketch
 d = {str(tmp_path)!r}
 seq = b"ACGTGATTACAGGGGTGTAATCCC" * 40
 assert compat.n_to_bits_pext(seq).tolist() == api.n_to_bits(seq, tier="oracle").tolist()
@@ -67,6 +68,12 @@ for argv in (["-k", "8", "--canonical"], ["-k", "21"]):
 w = interop.u64_to_tensor(api.n_to_bits(seq))
 assert int(kmer.kmer_histogram(w, len(seq), 5).sum()) == len(seq) - 4
 assert int(kmer.kmer_counts(w, len(seq), 25, canonical=True)[2].sum()) == len(seq) - 24
+assert cli.main(["sketch", d + "/r.fa", d + "/r.nup", "-k", "21", "-s", "64"]) == 0
+assert cli.main(["sketch", d + "/r.fa", "-k", "9", "--scale", "2", "-s", "64"]) == 0
+assert sketch.jaccard(sketch.bottom_k_sketch(w, len(seq), 21, 64), sketch.bottom_k_sketch(w, len(seq), 21, 64)) == 1
+long = interop.u64_to_tensor(api.n_to_bits(seq * 20))  # 1200 u32: the kernel route of minimizers
+mask, h = kmer.minimizers(long, 20 * len(seq), 15, 10)
+assert kmer.minimizer_bits(long, 20 * len(seq), 15, 10).numel() == -(-mask.numel() // 16)
 loaded = sorted(m for m in sys.modules if m == "cute_nucleotides_tpu" or m.startswith("cute_nucleotides_tpu."))
 print("REFERENCE", loaded)
 """
@@ -103,6 +110,10 @@ hay5 = b"ACGTNGATTACAN" * 2200  # 1059 u32: the kernel tier's plain version
 w5 = interop.u64_to_tensor(api.n_to_bits2(hay5))
 assert w5.shape[0] >= 1024 and search._use_b5_kernel(w5, b"TACAN")
 assert search.match_positions_b5(w5, len(hay5), b"TACAN").tolist() == list(range(8, len(hay5), 13))
+from cute_nucleotides_tpu_torch.ops import kmer, sketch
+w2 = interop.u64_to_tensor(api.n_to_bits(hay5))
+assert int(sketch.frac_sketch(w2, len(hay5), 21, scale=1, cap=64)[1]) == 13
+assert kmer.minimizers(w2, len(hay5), 15, 10)[0].any()
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX", loaded)
 assert not loaded, loaded
@@ -177,6 +188,8 @@ assert torch.equal(codes, kernels.kmer_codes_planar_plain(panels, panels, 8))
 assert all(torch.equal(a, b) for a, b in zip(kernels.kmer_codes_planar_pair(panels, panels, panels, 21),
                                              kernels.kmer_codes_planar_pair_plain(panels, panels, panels, 21)))
 assert torch.equal(kernels.hist_codes(codes), kernels.hist_codes_plain(codes))
+assert torch.equal(kernels.kmer_hashes_planar_pair(w2, 21, 9000), kernels.kmer_hashes_planar_pair_plain(w2, 21, 9000))
+assert torch.equal(kernels.minimizer_bits_stream(w2, 9000, 15, 10), kernels.minimizer_bits_stream_plain(w2, 9000, 15, 10))
 assert all(fn.launches == 0 for fn in kernels.WRAPPERS)
 meta = panels.to("meta")
 for call in (lambda: kernels.match_bits_stream(w2.to("meta"), q, care, 10),
@@ -187,7 +200,10 @@ for call in (lambda: kernels.match_bits_stream(w2.to("meta"), q, care, 10),
              lambda: kernels.kmer_codes_planar_pair(meta, meta, meta, 21),
              lambda: kernels.hist_codes(codes.to("meta")),
              lambda: kmer.kmer_histogram(w2.to("meta"), len(hay), 8),
-             lambda: kmer.kmer_counts(w2.to("meta"), len(hay), 21)):
+             lambda: kmer.kmer_counts(w2.to("meta"), len(hay), 21),
+             lambda: kernels.kmer_hashes_planar_pair(w2.to("meta"), 21, 100),
+             lambda: kernels.minimizer_bits_stream(w2.to("meta"), 100, 15, 10),
+             lambda: kmer.minimizer_bits(w2.to("meta"), len(hay), 15, 10)):
     try:
         call()
     except ValueError as e:
@@ -198,7 +214,7 @@ for call in (lambda: kernels.match_bits_stream(w2.to("meta"), q, care, 10),
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.count("refused") == 9
+    assert proc.stdout.count("refused") == 12
 
 
 def test_chip_smoke_holds_search_plain_versions_only_as_references():
