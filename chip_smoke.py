@@ -59,6 +59,25 @@ some N (bottom-s, then ``--scale 200``), each stdout against a numpy sketch
 of the bytes, and on the chr1-length FASTA with ``--batch 1`` against
 ``bottom_k_sketch`` of its words.
 
+The seqops path (kernel #7 and the ``region``, ``translate`` and ``dedup``
+commands): phase 2 holds #7 against its plain version at 1, 2, 127, 128,
+129 and 1001 random words and on every triplet value in every slot with and
+without bit 63; phase 3 runs ``seqops.gc_content_packed_b5`` on the base-5
+batch's words flattened (kernel #7's route) and phase 4 on a chr1-length
+base-5 stream, each against a count of C and G bytes made on the card;
+phase 5 runs ``region`` (FASTA and ``--packed``) on a chr1-length record of
+each codec with windows at word seams and one over 1 Mnt, ``translate
+--frames all`` on a 4-Mnt record of each codec and ``dedup`` on the
+200,000 reads of each codec with one record in ten planted as a duplicate,
+each output against numpy on the bytes.
+
+The sort path (kernel #18): phase 2 holds it against its plain version and
+``prefer="lax"`` at 4096, 4133, 16383, 2^20 + 1 and 2^23 pairs (random,
+all equal, descending, ties on hi, keys straddling the sign bit, k-mer keys
+with sentinels); phase 4 runs ``sort.sort_pairs(hi, lo, prefer="bitonic")``
+on the chr1-length stream's k = 21 canonical k-mer pairs (the keys
+``kmer_counts`` sorts) against ``prefer="lax"``.
+
 Phases 4 and 5 run their calls under ``torch.profiler`` (CUDA activity) and
 print the device time of the port's kernels, of copies and of other device
 work beside each call's wall time; the chr1 sketch calls are profiled in a
@@ -86,6 +105,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -129,15 +149,25 @@ REPLACES = {
     "hist_codes": "cute_nucleotides_tpu/ops/kmer.py:502",
     "kmer_hashes_planar_pair": "cute_nucleotides_tpu/ops/kmer.py:438",
     "minimizer_bits_stream": f"{_PK}:1714",
+    "gc_b5_stream": f"{_PK}:1496",
+    "sort_pairs_bitonic": "cute_nucleotides_tpu/ops/sort.py:158",
 }
 B5_KERNELS = ("encode_b5_stream", "decode_b5_stream", "match_b5_bits_stream")
 SEARCH_KERNELS = ("match_bits_stream", "match_b5_bits_stream")
 KMER_KERNELS = ("kmer_codes_planar", "kmer_codes_planar_pair", "hist_codes")
 SKETCH_KERNELS = ("kmer_hashes_planar_pair", "minimizer_bits_stream")
+SEQOPS_KERNELS = ("gc_b5_stream",)
+SORT_KERNELS = ("sort_pairs_bitonic",)
+#: (kernels, source file, path) in the order a kernel's first group wins
+_GROUPS = ((SORT_KERNELS, "sort.cu", "sort"), (SEQOPS_KERNELS, "seqops.cu", "seqops"),
+           (SKETCH_KERNELS, "sketch.cu", "sketch"), (KMER_KERNELS, "kmer.cu", "k-mer"),
+           (SEARCH_KERNELS, "search.cu", "search"), (B5_KERNELS, "codec_b5.cu", "base-5"))
 _CSRC = "cute_nucleotides_tpu_torch/csrc"
-SOURCES = {k: f"{_CSRC}/sketch.cu" if k in SKETCH_KERNELS else f"{_CSRC}/kmer.cu" if k in KMER_KERNELS
-           else f"{_CSRC}/search.cu" if k in SEARCH_KERNELS else f"{_CSRC}/codec_b5.cu" if k in B5_KERNELS
-           else f"{_CSRC}/codec2bit.cu" for k in REPLACES}
+SOURCES = {k: f"{_CSRC}/" + next((src for ks, src, _ in _GROUPS if k in ks), "codec2bit.cu") for k in REPLACES}
+PATH_OF = {k: next((path for ks, _, path in _GROUPS if k in ks), "2-bit") for k in REPLACES}
+GC_B5_WORDS = B5_WORDS + (1001,)  # phase-2 word counts of #7, one odd
+SORT_N = (4096, 4133, 16383, (1 << 20) + 1, 1 << 23)  # phase-2 pair counts of #18
+DEDUP_EVERY = 10  # one read in ten is planted as a duplicate of an earlier one
 KMER_W = (1, 511, 512, 513)  # word lanes per row in phase 2; 37 rows, a multiple of no block
 STATS_READS, STATS_REC_NT = 20_000, 4_000_000
 MZ_NT = (16384 + 5, 32768, 100_003)  # stream lengths of the minimizer kernel's phase-2 cases, nt
@@ -221,7 +251,7 @@ def phase_build():
     lib = _build.load()
     say(f"phase 1 build: nvcc {' '.join(_build.NVCC_FLAGS)} {os.path.relpath(_build.CSRC_DIR)}/*.cu; "
         f"build and load {time.perf_counter() - t0:.1f} s")
-    _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel"))
+    _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel", "gc_b5_kernel"))
 
 
 def _sass_mix(nvcc: str, path: str, kernels) -> None:
@@ -645,6 +675,72 @@ def phase_kernels_sketch(errors: Errors, rng) -> None:
         f"({errors.count} comparisons in phase 2; max abs err {errors.max})")
 
 
+def _every_triplet_words() -> np.ndarray:
+    """u64 words holding every triplet value 0..127 in every slot, with and
+    without bit 63."""
+    t = np.arange(128, dtype=np.uint64)
+    return np.concatenate([(t << np.uint64(7 * j)) | (np.uint64(b) << np.uint64(63)) for j in range(9) for b in (0, 1)])
+
+
+def _sort_cases(rng, n: int) -> dict:
+    """(hi, lo) u32[n] key planes of the shapes #18 must order: random, all
+    equal, descending, ties on hi, values straddling the int32 sign bit,
+    and k-mer keys (a 10-bit hi, heavy lo duplication, the last fifth the
+    (0xFFFFFFFF, 0xFFFFFFFF) sentinel)."""
+    asc = np.arange(n, dtype=np.uint32)
+    kmer_hi = rng.integers(0, 1 << 10, n, dtype=np.uint64).astype(np.uint32)
+    kmer_lo = rng.integers(0, 5000, n, dtype=np.uint64).astype(np.uint32)
+    kmer_hi[-(n // 5):] = kmer_lo[-(n // 5):] = SENTINEL
+    straddle = (rng.integers(2**31 - 4, 2**31 + 4, n, dtype=np.uint64).astype(np.uint32),
+                rng.integers(2**31 - 4, 2**31 + 4, n, dtype=np.uint64).astype(np.uint32))
+    return {"random": (rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
+                       rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)),
+            "k-mer keys": (kmer_hi, kmer_lo), "descending": (asc[::-1].copy(), asc.copy()),
+            "all equal": (np.full(n, 7, np.uint32), np.full(n, 3, np.uint32)),
+            "ties on hi": (np.zeros(n, np.uint32), asc[::-1].copy()), "sign bit": straddle}
+
+
+def phase_kernels_seqops(errors: Errors, rng) -> None:
+    """#7 on GC_B5_WORDS random words (any triplet value, bit 63 on about
+    half) and on every triplet value in every slot with and without bit 63;
+    #18 at SORT_N pairs on the _sort_cases shapes (the three most telling
+    above 2^16), against its plain version and prefer="lax"; each bit for
+    bit."""
+    import torch
+
+    from cute_nucleotides_tpu_torch import interop
+    from cute_nucleotides_tpu_torch.ops import kernels as K, sort
+
+    dev = "cuda"
+    (k7,), (k18,) = SEQOPS_KERNELS, SORT_KERNELS
+    streams = {f"{n} random words": rng.integers(0, 2**63, n, dtype=np.uint64)
+               | (rng.integers(0, 2, n, dtype=np.uint64) << np.uint64(63)) for n in GC_B5_WORDS}
+    streams["every triplet in every slot +- bit 63"] = _every_triplet_words()
+    for label, w64 in streams.items():
+        w = interop.u64_to_tensor(w64, dev)
+        errors.compare(k7, K.gc_b5_stream(w), K.gc_b5_stream_plain(w), f"gc_b5 {label}")
+    # the reference's formula on corrupt triplets: t = 125, 126, 127 count 1, 2, 1
+    w = interop.u64_to_tensor(np.array([125, 126 << 7, (127 << 14) | (1 << 63)], np.uint64), dev)
+    check(int(K.gc_b5_stream(w)) == 4, f"gc_b5 of triplets 125, 126, 127: {int(K.gc_b5_stream(w))} != 4")
+    cases = 0
+    for n in SORT_N:
+        for label, (hi, lo) in _sort_cases(rng, n).items():
+            if n > 1 << 16 and label not in ("random", "k-mer keys", "descending"):
+                continue
+            th, tl = torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+            got = K.sort_pairs_bitonic(th, tl)
+            for ref, by in ((K.sort_pairs_bitonic_plain(th, tl), "plain version"), (sort.sort_pairs(th, tl), "lax")):
+                for plane, a, b in zip(("hi", "lo"), got, ref):
+                    errors.compare(k18, a, b, f"bitonic {label} n={n} {plane} vs {by}")
+            cases += 1
+            del th, tl, got, ref
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    say(f"phase 2 seqops and sort kernels: #7 on {GC_B5_WORDS} random words and every triplet in every slot +- "
+        f"bit 63; #18 in {cases} cases at {SORT_N} pairs against its plain version and prefer='lax': "
+        f"bit-identical ({errors.count} comparisons in phase 2; max abs err {errors.max})")
+
+
 # --- phase 3: the resident 1-Gnt batch -----------------------------------------
 
 def _make_batch(seed: int, nt: int = BATCH_NT, alphabet: bytes = ALPHABET):
@@ -935,7 +1031,8 @@ def _profiled(fn):
         if ev.device_type() != DeviceType.CUDA:
             continue
         key, ms = ev.name(), ev.duration_ns() / 1e6
-        if any(tag in key for tag in ("_2bit_", "_b5_", "kmer_codes", "hist_codes", "kmer_hashes", "minimizer_kernel")):
+        if any(tag in key for tag in ("_2bit_", "_b5_", "kmer_codes", "hist_codes", "kmer_hashes",
+                                      "minimizer_kernel", "bitonic_")):
             kind = "kernels"
             seen += 1
         else:
@@ -943,6 +1040,7 @@ def _profiled(fn):
         device[kind] += ms
         by_name[key] = by_name.get(key, 0.0) + ms
     device["top"] = sorted(((ms, key[:48]) for key, ms in by_name.items()), reverse=True)[:3]
+    device["seen"] = seen
     device["lost"] = (seen, launched) if seen < launched else None
     return out, wall, device
 
@@ -1523,8 +1621,6 @@ def _sketch_expected(datasets, k: int, s: int, scale: int) -> tuple[str, str]:
     """The reference CLI's ``sketch`` stdout and stderr for (path, records,
     nt, hashes) datasets, computed with numpy: Mash's Jaccard over the
     bottom-s of the union, containment, the Mash distance."""
-    import math
-
     sketches, rows, err = [], [], ""
     for path, records, nt, h in datasets:
         sk = _first_distinct(h[h < min(2**32 // scale, SENTINEL)] if scale else h, s)
@@ -1636,6 +1732,214 @@ def phase_sketch_cli(rng, workdir: str, reads2: list, chr1: np.ndarray) -> None:
     say(f"  sketch chr1.fa --batch 1: {_breakdown(wall, dev)}; top device events (ms) {dev['top']}")
 
 
+# --- the seqops path: phases 3-5 ----------------------------------------------------
+
+def _gc_bytes(x) -> int:
+    """C and G bytes (either case) of a u8 tensor, counted on its device."""
+    u = x & 0xDF
+    return int(((u == ord("C")) | (u == ord("G"))).sum())
+
+
+def phase_gc_b5(x5, words5) -> None:
+    """``seqops.gc_content_packed_b5`` (kernel #7's route) on the phase-3
+    base-5 batch's words flattened, then on a chr1-length base-5 stream
+    encoded on the card, each under torch.profiler and against a count of
+    the C and G bytes on the card."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kernels as K, seqops
+
+    flat = words5.view(-1)
+    got, wall, dev = _profiled(lambda: seqops.gc_content_packed_b5(flat))
+    want = _gc_bytes(x5)
+    check(int(got) == want, f"gc_content_packed_b5 of the base-5 batch {int(got)} != {want} C and G bytes")
+    say(f"phase 3 seqops: gc_content_packed_b5 of the base-5 batch's {flat.numel() // 2} words == {want} C and G "
+        f"bytes of u8{tuple(x5.shape)}")
+    say(f"  gc_content_packed_b5, base-5 batch: {_breakdown(wall, dev)}")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 27)
+    nw = -(-CHR1_NT // 27)
+    x = torch.full((27 * nw,), ord("A"), dtype=torch.uint8, device="cuda")
+    lut = torch.tensor(list(b"ACGTNacgtn"), dtype=torch.uint8, device="cuda")
+    x[:CHR1_NT] = lut[torch.randint(0, len(lut), (CHR1_NT,), generator=g, device="cuda")]
+    w = K.encode_b5_stream(x)
+    got, wall, dev = _profiled(lambda: seqops.gc_content_packed_b5(w))
+    want = _gc_bytes(x)
+    check(int(got) == want, f"gc_content_packed_b5 of the chr1-length stream {int(got)} != {want}")
+    say(f"phase 4 seqops: gc_content_packed_b5 of a chr1-length base-5 stream ({nw} words) == {want} C and G bytes")
+    say(f"  gc_content_packed_b5, chr1 length: {_breakdown(wall, dev)}")
+    del x, w
+    torch.cuda.empty_cache()
+
+
+def phase_region(rng, workdir: str) -> None:
+    """``region`` on a chr1-length record of each codec: windows at the
+    first bytes, across word seams, over 1 Mnt, at the record's end and
+    empty, as FASTA (against the bytes) and ``--packed`` (each window's
+    words against the host oracle's encoding of its bytes)."""
+    from cute_nucleotides_tpu_torch import api, cli
+
+    for label, codec, alpha, encode, per in (("2-bit", "2bit", b"ACGTacgt", api.n_to_bits, 32),
+                                             ("base-5", "base5", b"ACGTNacgtn", api.n_to_bits2, 27)):
+        t0 = time.perf_counter()
+        a = np.frombuffer(alpha, np.uint8)
+        seq = a[rng.integers(0, len(a), CHR1_NT, dtype=np.uint8)]
+        nup, fa, packed = (os.path.join(workdir, f"region_{codec}{ext}") for ext in (".nup", ".fa", "_win.nup"))
+        cli.write_nup(nup, [b"chr1"], [encode(seq)], [CHR1_NT], codec)
+        mid = CHR1_NT // 2
+        windows = [(0, 100), (per - 1, 3 * per + 2), (7 * per, 9 * per), (mid - 3, mid + (1 << 20) + 5),
+                   (CHR1_NT - 1000, CHR1_NT), (5, 5)]
+        regions = [f"chr1:{s}-{e}" for s, e in windows]
+        rc, _, wall, dev = _run_cli(["region", nup, *regions, "-o", fa])
+        check(rc == 0, f"{label} region exit {rc}")
+        up = _upper_t_np(seq.copy())
+        with open(fa, "rb") as f:
+            check(f.read() == _fasta((r.encode(), up[s:e].tobytes()) for r, (s, e) in zip(regions, windows)),
+                  f"{label} region FASTA != the windows of the bytes")
+        rc, _, pwall, pdev = _run_cli(["region", nup, *regions, "--packed", "-o", packed])
+        check(rc == 0, f"{label} region --packed exit {rc}")
+        got_codec, entries = cli.read_nup(packed)
+        check(got_codec == codec and [(n, ln) for n, ln, _ in entries] == [(r.encode(), e - s) for r, (s, e) in
+                                                                           zip(regions, windows)],
+              f"{label} region --packed records")
+        for (s, e), (_, _, words) in zip(windows, entries):
+            check(np.array_equal(words, encode(seq[s:e], tier="oracle")), f"{label} region --packed {s}-{e} words")
+        say(f"phase 5 region {label}: {len(windows)} windows of a {CHR1_NT}-nt record (word seams, "
+            f"{windows[3][1] - windows[3][0]} nt, the end, empty) == the bytes; --packed == the oracle's words "
+            f"({time.perf_counter() - t0:.1f} s with the checks)")
+        say(f"  region, {label}: {_breakdown(wall, dev)}")
+        say(f"  region --packed, {label}: {_breakdown(pwall, pdev)}")
+
+
+_AMINO = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"  # NCBI table 1, TCAG order
+
+
+def _translate_np(seq: np.ndarray, frame: int) -> bytes:
+    """The EMBOSS-numbered frame (1..3, -1..-3) of ASCII bytes translated by
+    the standard code; a codon with N is X."""
+    index = np.full(256, 4, np.uint8)  # N and anything else
+    for i, c in enumerate(b"TCAG"):
+        index[c] = index[c | 0x20] = i
+    if frame < 0:
+        seq = _upper_t_np(seq.copy())[::-1].copy()
+        seq = np.frombuffer(seq.tobytes().translate(bytes.maketrans(b"ACGTN", b"TGCAN")), np.uint8)
+    off = abs(frame) - 1
+    n_cod = (seq.size - off) // 3
+    d = index[seq[off : off + 3 * n_cod]].reshape(-1, 3).astype(np.int64)
+    aa = np.frombuffer(_AMINO.encode(), np.uint8)[np.minimum(16 * d[:, 0] + 4 * d[:, 1] + d[:, 2], 63)]
+    return np.where((d == 4).any(1), ord("X"), aa).astype(np.uint8).tobytes()
+
+
+def phase_translate(rng, workdir: str) -> None:
+    """``translate --frames all`` on a 4-Mnt record of each codec, the
+    output against a numpy translation of the bytes."""
+    from cute_nucleotides_tpu_torch import api, cli
+
+    for label, codec, alpha, encode in (("2-bit", "2bit", b"ACGTacgt", api.n_to_bits),
+                                        ("base-5", "base5", b"ACGTNacgtn", api.n_to_bits2)):
+        t0 = time.perf_counter()
+        a = np.frombuffer(alpha, np.uint8)
+        rec = a[rng.integers(0, len(a), STATS_REC_NT, dtype=np.uint8)]
+        nup, out = os.path.join(workdir, f"tr_{codec}.nup"), os.path.join(workdir, f"tr_{codec}.fa")
+        cli.write_nup(nup, [b"rec"], [encode(rec)], [STATS_REC_NT], codec)
+        rc, _, wall, dev = _run_cli(["translate", nup, out, "--frames", "all"])
+        check(rc == 0, f"{label} translate exit {rc}")
+        want = _fasta((b"rec|frame=%+d" % f, _translate_np(rec, f)) for f in (1, 2, 3, -1, -2, -3))
+        with open(out, "rb") as f:
+            check(f.read() == want, f"{label} translate --frames all != numpy's translation of the bytes")
+        say(f"phase 5 translate {label}: --frames all on a {STATS_REC_NT}-nt record == numpy "
+            f"({time.perf_counter() - t0:.1f} s with the checks)")
+        say(f"  translate --frames all, {label}: {_breakdown(wall, dev)}")
+
+
+def phase_dedup(rng, workdir: str, reads2: list, reads5: list) -> None:
+    """``dedup`` on the 200,000 reads of each codec with one read in
+    DEDUP_EVERY replaced by an earlier read (every other one lower-cased,
+    which the codec folds), encoded by ``encode --batch``: the JSON summary
+    and the kept records against a dict of first occurrences of the
+    normalised bytes."""
+    from cute_nucleotides_tpu_torch import cli
+
+    for label, codec, reads in (("2-bit", "2bit", reads2), ("base-5", "base5", reads5)):
+        t0 = time.perf_counter()
+        recs = list(reads)
+        planted = np.sort(rng.choice(np.arange(1, len(recs)), len(recs) // DEDUP_EVERY, replace=False))
+        for k, i in enumerate(planted.tolist()):
+            s = recs[int(rng.integers(0, i))][1]
+            recs[i] = (recs[i][0], s.lower() if k % 2 else s)
+        fq, nup, out = (os.path.join(workdir, f"dedup_{codec}{ext}") for ext in (".fq", ".nup", "_out.nup"))
+        qual = b"I" * CLI_READ_NT
+        with open(fq, "wb") as f:
+            f.write(b"".join(b"@%s\n%s\n+\n%s\n" % (name, s, qual) for name, s in recs))
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["encode", fq, nup, "--codec", codec, "--batch", str(CLI_BATCH)])
+        check(rc == 0, f"{label} encode --batch exit {rc}")
+        rc, text, wall, dev = _run_cli(["dedup", nup, out])
+        check(rc == 0, f"{label} dedup exit {rc}")
+        seen, keep = set(), []
+        for i, (_, s) in enumerate(recs):
+            key = _upper_t_np(np.frombuffer(s, np.uint8).copy()).tobytes()
+            if key not in seen:
+                seen.add(key)
+                keep.append(i)
+        want = {"records": len(recs), "kept": len(keep), "removed": len(recs) - len(keep)}
+        check(json.loads(text) == want, f"{label} dedup summary {text.strip()} != {want}")
+        _, entries = cli.read_nup(nup)
+        _, kept = cli.read_nup(out)
+        check(len(kept) == len(keep) and all(a[0] == entries[i][0] and a[1] == entries[i][1]
+                                             and np.array_equal(a[2], entries[i][2]) for a, i in zip(kept, keep)),
+              f"{label} dedup kept records != the first occurrences")
+        say(f"phase 5 dedup {label}: {len(recs)} reads, {len(planted)} planted duplicates: {text.strip()} == a dict "
+            f"of first occurrences ({time.perf_counter() - t0:.1f} s with the checks)")
+        say(f"  dedup, {label}: {_breakdown(wall, dev)}")
+
+
+# --- the sort path: phase 4 --------------------------------------------------------
+
+def _chr1_kmer_pairs(chr1_words):
+    """The (hi, lo) u32 planes ``kmer_counts(k=21, canonical=True)`` sorts
+    for the chr1-length stream: #11's planar codes, the canonical fold, and
+    the positions past the last k-mer set to the all-ones sentinel."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kernels as K, kmer
+
+    lo, hi = K.kmer_codes_planar_pair(*kmer._panels(chr1_words, 2), SKETCH_K)
+    lo, hi = kmer.canonical_codes_pair(lo, hi, SKETCH_K)
+    for plane in (lo, hi):
+        kmer._mask_tail(plane.view(torch.int32), CHR1_NT - SKETCH_K + 1, -1)
+    return hi.reshape(-1), lo.reshape(-1)
+
+
+def phase_sort_chr1(errors: Errors, chr1_words):
+    """``sort.sort_pairs(hi, lo, prefer="bitonic")`` (kernel #18) on the chr1
+    k = 21 canonical k-mer pairs, under torch.profiler, against
+    ``prefer="lax"``; returns the pairs."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import sort
+
+    hi, lo = _chr1_kmer_pairs(chr1_words)
+    n0 = hi.numel()
+    (hs, ls), wall, dev = _profiled(lambda: sort.sort_pairs(hi, lo, prefer="bitonic"))
+    # one wrapper call launches the whole network: 1 + P (P + 3) / 2
+    # kernels, P = log2(n / 8192); a profile that saw fewer lost some
+    p = (1 << (n0 - 1).bit_length()).bit_length() - 1 - 13
+    if dev["seen"] < 1 + p * (p + 3) // 2:
+        dev["lost"] = (dev["seen"], 1 + p * (p + 3) // 2)
+    want = sort.sort_pairs(hi, lo)
+    errors.compare("sort_pairs_bitonic", hs, want[0], "chr1 k=21 pairs: bitonic hi vs lax")
+    errors.compare("sort_pairs_bitonic", ls, want[1], "chr1 k=21 pairs: bitonic lo vs lax")
+    sentinels = int((hs.view(torch.int32)[-(n0 - (CHR1_NT - SKETCH_K + 1)):] == -1).sum())
+    check(sentinels == n0 - (CHR1_NT - SKETCH_K + 1), f"chr1 pairs: {sentinels} sentinels at the end")
+    del hs, ls, want
+    torch.cuda.empty_cache()
+    say(f"phase 4 sort chr1: sort_pairs(prefer='bitonic') of {n0} k=21 canonical pairs (padded to "
+        f"{1 << (n0 - 1).bit_length()}) == prefer='lax'; the {sentinels} sentinels last")
+    say(f"  sort_pairs bitonic, chr1 k=21 pairs: {_breakdown(wall, dev)}")
+    return hi, lo
+
+
 # --- timing -------------------------------------------------------------------
 
 def _time_ms(fn, iters: int) -> float:
@@ -1667,12 +1971,13 @@ def _bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(x, words, x5, words5, chr1_words, card: str) -> dict:
+def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, card: str) -> dict:
     """Each kernel and its plain version at its path's shapes, in turns
     (plain, kernel, kernel, plain), with its bound from those shapes and,
-    for the histogram, torch.bincount of the same codes.  Returns {name:
-    (ms, plain ms, bound ms, bound by, library ms or None)} of the first
-    (default) variant."""
+    for the histogram and the sort, the one PyTorch call that computes the
+    same function (torch.bincount, torch.sort of the int64 key).  Returns
+    {name: (ms, plain ms, bound ms, bound by, library ms or None)} of the
+    first (the path's) variant."""
     import torch
 
     from cute_nucleotides_tpu_torch.ops import kernels as K, kmer, search
@@ -1738,7 +2043,24 @@ def phase_timing(x, words, x5, words5, chr1_words, card: str) -> dict:
     cases["minimizer_bits_stream"] = [("[k=15 w=10 canonical]",
                                        lambda: K.minimizer_bits_stream(chr1_words, n14, 15, 10),
                                        lambda: K.minimizer_bits_stream_plain(chr1_words, n14, 15, 10))]
-    library = {"hist_codes": lambda: torch.bincount(codes.view(-1), minlength=K.HIST_BINS)}
+    # #7 on the base-5 batch's words as one stream (the seqops path's
+    # phase-3 call); #18 on the chr1 k = 21 pairs (the sort path's call),
+    # then on 2^23 random pairs
+    cases["gc_b5_stream"] = [("", lambda: K.gc_b5_stream(w5), lambda: K.gc_b5_stream_plain(w5))]
+    shi, slo = chr1_pairs
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 23)
+    rhi, rlo = (torch.randint(0, 1 << 32, (1 << 23,), dtype=torch.int64, device="cuda", generator=g)
+                .to(torch.int32).view(torch.uint32) for _ in range(2))
+    sort_inputs = {f"[chr1 k=21 pairs, n={shi.numel()}]": (shi, slo), "[2^23 random pairs]": (rhi, rlo)}
+    cases["sort_pairs_bitonic"] = [(label, lambda p=p: K.sort_pairs_bitonic(*p), lambda p=p: K.sort_pairs_bitonic_plain(*p))
+                                   for label, p in sort_inputs.items()]
+    # the library call beside #18: torch.sort of the pairs' int64 keys (the
+    # key prefer="lax" sorts: the sign bit of hi flipped, so that signed
+    # order is the pairs' unsigned order)
+    lib_key = K.pair_keys(shi, slo)
+    library = {"hist_codes": lambda: torch.bincount(codes.view(-1), minlength=K.HIST_BINS),
+               "sort_pairs_bitonic": lambda: torch.sort(lib_key)}
     # bounds: bytes each input read once and each output written once; the
     # search kernels' integer work at the least this data needs (2-bit: 3
     # ops -- funnel shift, masked xor, compare -- per word, start and anchor
@@ -1773,7 +2095,16 @@ def phase_timing(x, words, x5, words5, chr1_words, card: str) -> dict:
         # and max (3), the compare (1) and the ballot (1); per word 5: the
         # load and its reverse complement
         "minimizer_bits_stream": _bound(4 * W3 + 4 * (-(-n14 // 16)), 21 * n14 + 5 * W3),
+        "hist_codes": {label: _bound(4 * c.numel() + 4 * K.HIST_BINS) for label, c in hist_inputs.items()},
+        # #7: read the stream; the lookup form's 3 instructions per triplet
+        # (extract, table load, add)
+        "gc_b5_stream": _bound(8 * N5, 3 * 9 * N5),
+        # #18: read and write each pair once (16 B); any comparison sort
+        # makes at least n log2 n comparisons, one instruction each
+        "sort_pairs_bitonic": {label: _bound(16 * p[0].numel(), p[0].numel() * math.log2(p[0].numel()))
+                               for label, p in sort_inputs.items()},
     }
+    iters = {"sort_pairs_bitonic": (3, 1)}  # (kernel, plain) launches per timed run; 20 and 2 elsewhere
     say(f"  clocks before timing: {_clocks()}")
     say(f"timing on {card}: 2-bit u8[{BATCH_ROWS}, {BATCH_NT}] ({gib:.3f} Gnt), base-5 "
         f"u8[{BATCH_ROWS}, {B5_NT}] ({gib5:.3f} Gnt); k-mer codes u32{tuple(panels[0].shape)} (k=8) and "
@@ -1784,24 +2115,24 @@ def phase_timing(x, words, x5, words5, chr1_words, card: str) -> dict:
             f"read+write)")
     times = {}
     for name, variants in cases.items():
-        g = gib5 if name in B5_KERNELS else gib
+        g = gib5 if name in B5_KERNELS + SEQOPS_KERNELS else gib
+        k_iters, p_iters = iters.get(name, (20, 2))
         for suffix, kernel, plain in variants:
-            bound_ms, bound_by = (_bound(4 * hist_inputs[suffix].numel() + 4 * K.HIST_BINS)
-                                  if name == "hist_codes" else bounds[name])
-            p1 = _time_ms(plain, 2)
-            k1 = _time_ms(kernel, 20)
-            k2 = _time_ms(kernel, 20)
-            p2 = _time_ms(plain, 2)
+            bound_ms, bound_by = bounds[name][suffix] if isinstance(bounds[name], dict) else bounds[name]
+            p1 = _time_ms(plain, p_iters)
+            k1 = _time_ms(kernel, k_iters)
+            k2 = _time_ms(kernel, k_iters)
+            p2 = _time_ms(plain, p_iters)
             k_ms, p_ms = min(k1, k2), min(p1, p2)
             lib_ms = _time_ms(library[name], 5) if name in library and name not in times else None
             torch.cuda.empty_cache()
-            rate = (f"{g / (k_ms / 1e3):.1f} GiB/s of nt" if name not in KMER_KERNELS + SKETCH_KERNELS
+            rate = (f"{g / (k_ms / 1e3):.1f} GiB/s of nt" if name not in KMER_KERNELS + SKETCH_KERNELS + SORT_KERNELS
                     else f"{HBM_BYTES_PER_S * bound_ms / k_ms / 1e12:.2f} TB/s moved" if bound_by == "bytes"
                     else "its instructions bound it")
             say(f"  {name}{suffix}: kernel {k_ms:.4f} ms ({rate}); plain {p_ms:.3f} ms; runs "
                 f"{k1:.4f}/{k2:.4f} vs {p1:.3f}/{p2:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
                 f"{100 * bound_ms / k_ms:.0f}% of it"
-                + (f"; torch.bincount {lib_ms:.4f} ms" if lib_ms is not None else ""))
+                + (f"; library call {lib_ms:.4f} ms" if lib_ms is not None else ""))
             times.setdefault(name, (k_ms, p_ms, bound_ms, bound_by, lib_ms))  # the default variant is first
     say(f"  clocks after timing: {_clocks()}")
     return times
@@ -1825,10 +2156,11 @@ def main() -> int:
         phase_kernels_search(errors, rng)
         phase_kernels_kmer(errors, rng)
         phase_kernels_sketch(errors, rng)
+        phase_kernels_seqops(errors, rng)
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        # each path (2-bit, base-5, search, k-mer, sketch) runs with the counts set to 0
-        # just before it and read just after; each kernel must have launched
-        # on its own path
+        # each path (2-bit, base-5, search, k-mer, sketch, seqops, sort) runs
+        # with the counts set to 0 just before it and read just after; each
+        # kernel must have launched on its own path
         launches = {}
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
             K.reset_launch_counts()
@@ -1867,13 +2199,24 @@ def main() -> int:
             launches["sketch"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
             say(f"phase 6 launches by the sketch path (phases 4 and 5): {launches['sketch']}")
             del chr1
-        path_of = {k: "sketch" if k in SKETCH_KERNELS else "k-mer" if k in KMER_KERNELS
-                   else "search" if k in SEARCH_KERNELS else "base-5" if k in B5_KERNELS else "2-bit"
-                   for k in REPLACES}
-        own = {k: launches[path_of[k]][k] for k in REPLACES}
+            torch.cuda.empty_cache()
+            K.reset_launch_counts()
+            phase_gc_b5(x5, words5)
+            phase_region(rng, workdir)
+            phase_translate(rng, workdir)
+            phase_dedup(rng, workdir, reads2, reads5)
+            torch.cuda.synchronize()
+            launches["seqops"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+            say(f"phase 6 launches by the seqops path (phases 3-5): {launches['seqops']}")
+            K.reset_launch_counts()
+            chr1_pairs = phase_sort_chr1(errors, chr1_words)
+            torch.cuda.synchronize()
+            launches["sort"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+            say(f"phase 6 launches by the sort path (phase 4): {launches['sort']}")
+        own = {k: launches[PATH_OF[k]][k] for k in REPLACES}
         check(all(n > 0 for n in own.values()), f"a kernel of its path never launched: {own}")
         torch.cuda.empty_cache()
-        times = phase_timing(x, words, x5, words5, chr1_words, card)
+        times = phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, card)
         say(json.dumps({"kernels": [
             {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
              "launches": own[k], "max_abs_err": errors.max[k], "ms": times[k][0], "plain_ms": times[k][1],

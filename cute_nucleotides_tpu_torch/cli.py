@@ -1,25 +1,30 @@
-"""Command-line interface of the port: encode / decode / parity / grep /
-stats / sketch.
+"""Command-line interface of the port: encode / decode / parity / region /
+grep / translate / dedup / stats / sketch.
 
-Counterpart of ``encode``, ``decode``, ``parity``, ``grep``, ``stats`` and
-``sketch`` in ``cute_nucleotides_tpu/cli.py``; it reads and writes the same
+Counterpart of those commands of ``cute_nucleotides_tpu/cli.py`` (all of
+its commands but ``approx`` and ``bench``); it reads and writes the same
 ``.nup`` container (:mod:`.nup`), so files are byte-identical between the
-two packages, and ``grep``, ``stats`` and ``sketch`` print the same lines::
+two packages, and ``region``, ``grep``, ``translate``, ``dedup``, ``stats``
+and ``sketch`` print the same bytes::
 
     python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --batch 8192 --validate
     python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --codec base5 --batch 8192 --validate
     python -m cute_nucleotides_tpu_torch decode out.nup out.fa --batch 8192 --verify-stream
     python -m cute_nucleotides_tpu_torch parity --tiers torch,auto
+    python -m cute_nucleotides_tpu_torch region chr.nup chr1:1000-2000 chr2:0-500 -o win.fa
     python -m cute_nucleotides_tpu_torch grep out.nup GATTACA --both
+    python -m cute_nucleotides_tpu_torch translate out.nup prot.fa --frames all
+    python -m cute_nucleotides_tpu_torch dedup out.nup unique.nup
     python -m cute_nucleotides_tpu_torch stats chr1.fa -k 21 --canonical --top 10
     python -m cute_nucleotides_tpu_torch sketch a.fq b.fq -k 21 -s 1000
 
 ``--batch N`` is the production path: batches of N reads as resident
 tensors through :class:`.models.TwoBitCodec` or :class:`.models.Base5Codec`.
 Without it each record goes through :mod:`.api` on its own.  The codec of
-``decode`` and ``grep`` is the one the ``.nup`` names; ``grep``, ``stats``
-and ``sketch`` work on the card when there is one (the ``auto`` tier's
-device).
+``decode``, ``region``, ``grep``, ``translate`` and ``dedup`` is the one the
+``.nup`` names; ``grep``, ``translate``, ``dedup``, ``stats`` and ``sketch``
+work on the card when there is one (the ``auto`` tier's device), and
+``region`` on its ``--tier``'s device.
 
 A malformed or missing file ends in one ``error:`` line and exit 1, and a
 closed output pipe (``grep ... | head``) in exit 141, as in the reference.
@@ -424,6 +429,190 @@ def cmd_stats(args) -> int:
     return 0
 
 
+def _parse_region(spec_str: str) -> tuple[bytes, int, int]:
+    """``NAME:START-END`` (0-based half-open) -> (name, start, end)."""
+    name, _, span = spec_str.rpartition(":")
+    if not name or "-" not in span:
+        raise ValueError(f"region must be NAME:START-END, got {spec_str!r}")
+    s, _, e = span.partition("-")
+    start, end = int(s), int(e)
+    if start < 0 or end < start:
+        raise ValueError(f"bad region bounds in {spec_str!r}")
+    return name.encode(), start, end
+
+
+def cmd_region(args) -> int:
+    """Extract subsequences from a .nup container on the packed domain, the
+    samtools-faidx analogue: each window is cut with
+    :func:`ops.seqops.packed_slice` / ``packed_slice_b5`` (a funnel over the
+    record's words, read with one seek; no whole-record decode), then
+    decoded to FASTA or, with ``--packed``, written still packed to a new
+    .nup.  Either output is written under a temporary name and renamed on
+    success, so a failure leaves an existing file as it was."""
+    from . import api, interop
+    from .models import resolve_device
+    from .nup import NupReader
+    from .ops import seqops, spec
+
+    device = resolve_device("auto" if args.tier == "oracle" else args.tier)
+    reader = NupReader(args.input)
+    codec = reader.codec
+    packed_out: list[tuple[bytes, int, np.ndarray]] = []
+    to_file = args.output != "-"
+    tmp_path = args.output + ".tmp" if to_file else None
+    out = open(tmp_path, "wb") if to_file else sys.stdout.buffer
+    ok = False
+    try:
+        for reg in args.regions:
+            name, start, end = _parse_region(reg)
+            if name not in reader:
+                print(f"error: no record {name.decode(errors='replace')!r} in {args.input}", file=sys.stderr)
+                return 1
+            if reader.names.count(name) > 1:
+                print(f"warning: {reader.names.count(name)} records named {name.decode(errors='replace')!r}; "
+                      "using the first", file=sys.stderr)
+            length, words = reader.get(name)
+            if end > length:
+                print(f"error: region {reg} overruns record length {length}", file=sys.stderr)
+                return 1
+            n = end - start
+            op = seqops.packed_slice if codec == "2bit" else seqops.packed_slice_b5
+            # only the words the window covers go to the device, and one
+            # more (the funnel's last tap); past them the slice masks anyway
+            per_word = spec.NT_PER_WORD_2BIT if codec == "2bit" else spec.NT_PER_WORD_B5
+            first = start // per_word
+            window = words[first : spec.cdiv(end, per_word) + 1]
+            w64 = interop.tensor_to_u64(op(interop.u64_to_tensor(window, device), start - first * per_word, n))
+            tag = name + f":{start}-{end}".encode()
+            if args.packed:
+                packed_out.append((tag, n, w64))
+            else:
+                decode = api.bits_to_n if codec == "2bit" else api.bits_to_n2
+                write_fasta(out, tag, decode(w64, n, tier=args.tier).tobytes())
+        if args.packed:
+            if args.output == "-":
+                print("error: --packed needs an output path", file=sys.stderr)
+                return 1
+            out.close()
+            write_nup(tmp_path, [t for t, _, _ in packed_out], [w for _, _, w in packed_out],
+                      [n for _, n, _ in packed_out], codec)
+        ok = True
+    finally:
+        reader.close()
+        if to_file:
+            if not out.closed:
+                out.close()
+            if ok:
+                os.replace(tmp_path, args.output)
+            elif os.path.exists(tmp_path):
+                os.unlink(tmp_path)
+    return 0
+
+
+def _parse_frames(spec_str: str) -> list[int]:
+    """'all' or a comma list from {1,2,3,-1,-2,-3} (EMBOSS numbering)."""
+    if spec_str == "all":
+        return [1, 2, 3, -1, -2, -3]
+    out = []
+    for tok in spec_str.split(","):
+        f = int(tok)
+        if f not in (1, 2, 3, -1, -2, -3):
+            raise ValueError(f"frame {tok} not in 1,2,3,-1,-2,-3")
+        out.append(f)
+    return out
+
+
+def cmd_translate(args) -> int:
+    """Translate .nup records to protein FASTA on the packed domain: 2-bit
+    codons through the k = 3 funnel (:func:`ops.seqops.translate_packed`),
+    base-5 codons as triplets (``translate_packed_b5``, N codons -> X);
+    minus-strand frames reverse-complement on the packed words first.  Runs
+    on the card when there is one."""
+    from . import interop
+    from .models import resolve_device
+    from .ops import seqops
+
+    try:
+        frames = _parse_frames(args.frames)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    codec, entries = read_nup(args.input)
+    fwd = seqops.translate_packed if codec == "2bit" else seqops.translate_packed_b5
+    rcfn = seqops.revcomp_packed if codec == "2bit" else seqops.revcomp_packed_b5
+    device = resolve_device("auto")
+    to_file = args.output != "-"
+    tmp_path = args.output + ".tmp" if to_file else None
+    out = open(tmp_path, "wb") if to_file else sys.stdout.buffer
+    ok = False
+    try:
+        for name, length, words in entries:
+            w32 = interop.u64_to_tensor(words, device)
+            rc = None
+            for f in frames:
+                off = abs(f) - 1
+                if (length - off) // 3 <= 0:
+                    continue  # no whole codon in this frame
+                if f > 0:
+                    src = w32
+                else:
+                    if rc is None:
+                        rc = rcfn(w32, length)
+                    src = rc
+                write_fasta(out, name + b"|frame=%+d" % f, interop.to_numpy(fwd(src, length, off)).tobytes())
+        ok = True
+    finally:
+        if to_file:
+            if not out.closed:
+                out.close()
+            if ok:
+                os.replace(tmp_path, args.output)
+            elif os.path.exists(tmp_path):
+                os.unlink(tmp_path)
+    return 0
+
+
+#: the longest record dedup takes, in u64 words (the reference's bound on
+#: its multi-key sort)
+_DEDUP_MAX_WORDS = 256
+
+
+def cmd_dedup(args) -> int:
+    """Remove exact-duplicate records (same normalised sequence) from a .nup
+    container, ``seqkit rmdup -s`` on the packed domain: equality of the
+    packed words and length (case/U folding happened at encode), decided on
+    the card when there is one (:func:`ops.seqops.duplicate_mask`); the
+    first occurrence wins.  Prints a one-line JSON summary."""
+    from . import interop
+    from .models import resolve_device
+    from .ops import seqops, spec
+
+    codec, entries = read_nup(args.input)
+    if not entries:
+        write_nup(args.output, [], [], [], codec)
+        print(json.dumps({"records": 0, "kept": 0, "removed": 0}))
+        return 0
+    wmax = max(1, max(len(w) for _, _, w in entries))
+    if wmax > _DEDUP_MAX_WORDS:
+        per_word = spec.NT_PER_WORD_2BIT if codec == "2bit" else spec.NT_PER_WORD_B5
+        print(f"error: dedup is read-batch-scoped (records up to {per_word * _DEDUP_MAX_WORDS} nt for this "
+              f"codec); longest record here is {max(length for _, length, _ in entries)} nt", file=sys.stderr)
+        return 1
+    rows = np.zeros((len(entries), wmax), "<u8")
+    lens = np.zeros(len(entries), np.int32)
+    for i, (_, length, words) in enumerate(entries):
+        rows[i, : words.size] = words
+        lens[i] = length
+    device = resolve_device("auto")
+    dup = interop.to_numpy(seqops.duplicate_mask(interop.to_tensor(rows.view("<u4"), device),
+                                                 interop.to_tensor(lens, device)))
+    keep = [e for e, d in zip(entries, dup) if not d]
+    write_nup(args.output, [n for n, _, _ in keep], [w for _, _, w in keep], [length for _, length, _ in keep],
+              codec)
+    print(json.dumps({"records": len(entries), "kept": len(keep), "removed": int(dup.sum())}))
+    return 0
+
+
 def _dataset_sketch(path: str, args):
     """One dataset-level sketch of every read in ``path`` (FASTA/FASTQ or a
     2-bit .nup): -> (sorted u32[s] sketch, records, total_nt).  Reads sketch
@@ -606,6 +795,18 @@ def main(argv=None) -> int:
                     help="scan N records per device call (fixed-shape batches)")
     pg.set_defaults(fn=cmd_grep)
 
+    pt = sub.add_parser("translate", help="translate .nup records to protein FASTA (packed-domain codons)")
+    pt.add_argument("input")
+    pt.add_argument("output", nargs="?", default="-")
+    pt.add_argument("--frames", default="1",
+                    help="'all' or comma list from 1,2,3,-1,-2,-3 (EMBOSS numbering)")
+    pt.set_defaults(fn=cmd_translate)
+
+    pu = sub.add_parser("dedup", help="remove exact-duplicate records (packed-word equality, first occurrence wins)")
+    pu.add_argument("input", help=".nup container (either codec)")
+    pu.add_argument("output", help="deduplicated .nup")
+    pu.set_defaults(fn=cmd_dedup)
+
     ps = sub.add_parser("stats", help="packed-domain GC content + top k-mers")
     ps.add_argument("input")
     ps.add_argument("-k", type=int, default=8)
@@ -613,6 +814,15 @@ def main(argv=None) -> int:
     ps.add_argument("--canonical", action="store_true")
     ps.add_argument("--tier", default="auto", choices=TIERS)
     ps.set_defaults(fn=cmd_stats)
+
+    pr = sub.add_parser("region", help="extract subsequences (NAME:START-END) on the packed domain")
+    pr.add_argument("input")
+    pr.add_argument("regions", nargs="+", metavar="NAME:START-END")
+    pr.add_argument("-o", "--output", default="-")
+    pr.add_argument("--packed", action="store_true",
+                    help="write a .nup of the still-packed windows instead of FASTA")
+    pr.add_argument("--tier", default="auto", choices=TIERS)
+    pr.set_defaults(fn=cmd_region)
 
     pk = sub.add_parser(
         "sketch",

@@ -41,7 +41,9 @@ def write_nup(path: str, names: list[bytes], seqs_words: list[np.ndarray],
 class NupReader:
     """A .nup container: the header (magic + per-record name/length table)
     is read eagerly, a record's packed words with one ``seek`` when it is
-    reached."""
+    reached, so extracting one region of a many-GB container reads the
+    header and that record only.  Duplicate record names resolve to the
+    first occurrence."""
 
     def __init__(self, path: str):
         self._f = open(path, "rb")
@@ -69,9 +71,18 @@ class NupReader:
                 self._offsets.append(off)
                 self._nwords.append(nw)
                 off += 8 * nw
+            self._by_name: dict[bytes, int] = {}
+            for i, name in enumerate(self.names):
+                self._by_name.setdefault(name, i)
         except Exception:
             self._f.close()
             raise
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def __contains__(self, name: bytes) -> bool:
+        return name in self._by_name
 
     def words(self, i: int) -> np.ndarray:
         """Packed u64 words of record ``i`` (one seek + one read)."""
@@ -85,6 +96,11 @@ class NupReader:
                 f"{8 * self._nwords[i]} bytes, file holds {len(raw)}"
             )
         return np.frombuffer(raw, dtype="<u8")
+
+    def get(self, name: bytes) -> tuple[int, np.ndarray]:
+        """``(length, words)`` of the first record named ``name``."""
+        i = self._by_name[name]
+        return self.lengths[i], self.words(i)
 
     def __iter__(self):
         for i, (name, length) in enumerate(zip(self.names, self.lengths)):

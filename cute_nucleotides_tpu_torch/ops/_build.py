@@ -48,6 +48,8 @@ _SIGNATURES = {
     "cn_hist_codes": [_vp, _i64, _vp, _vp],
     "cn_kmer_hashes_pair": [_vp, _i64, _i64, _i64, _i64, _i64, _int, _int, _vp, _vp],
     "cn_minimizer_bits": [_vp, _i64, _i64, _int, _int, _int, _vp, _vp],
+    "cn_gc_b5": [_vp, _i64, _vp, _vp],
+    "cn_sort_pairs_bitonic": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _vp],
 }
 
 

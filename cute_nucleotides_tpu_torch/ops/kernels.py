@@ -1,7 +1,7 @@
 """The ``cuda`` tier: wrappers of the hand-written Hopper kernels in
 ``csrc/codec2bit.cu``, ``csrc/codec_b5.cu``, ``csrc/search.cu``,
-``csrc/kmer.cu`` and ``csrc/sketch.cu``, each beside its plain PyTorch
-version.
+``csrc/kmer.cu``, ``csrc/sketch.cu``, ``csrc/seqops.cu`` and
+``csrc/sort.cu``, each beside its plain PyTorch version.
 
 A wrapper runs its plain version only for a tensor on the CPU; for a CUDA
 tensor it launches its kernel (building the library on first use) or raises.
@@ -31,6 +31,9 @@ The sketch kernels take a flat 2-bit stream: the planar k-mer hashes for
 16 <= k <= 31 (u32[rows, 16 W], 0xFFFFFFFF past the valid positions) and
 the packed (w, k)-minimizer bits for k <= 15 (u32[ceil(n/16)]).
 
+The base-5 GC kernel takes a flat base-5 stream and returns one int32; the
+pair sort takes two u32[n] key planes and returns them sorted.
+
 Every codec kernel is bound by device memory: the 2-bit encoders read 4
 bytes and write 1 per 4 nt, the decoder the reverse (5 bytes moved per 4
 nt); the base-5 kernels move 27 bytes and one 8-byte word per 27 nt (35
@@ -39,8 +42,9 @@ bound by integer work at short queries.  The k-mer code kernels are bound
 by their writes (64 B per 16 nt, twice that for pairs), the histogram by
 reading the codes, the hash kernel by its writes (4 B per position).  The
 minimizer kernel reads and writes little and is bound by its integer work
-(a hash and four segment scans per position).  Times on the H100 beside
-the plain versions' are in PERF.md.
+(a hash and four segment scans per position).  The GC kernel is bound by
+reading its stream, the sort by its passes over the keys.  Times on the
+H100 beside the plain versions' are in PERF.md.
 """
 
 from __future__ import annotations
@@ -865,10 +869,149 @@ def minimizer_bits_stream(words: torch.Tensor, n: int, k: int, w: int, *, canoni
 
 minimizer_bits_stream.launches = 0
 
+# --- kernel #7: base-5 GC count -----------------------------------------------------
+
+def gc_b5_stream_plain(words: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gc_b5_stream`: the parity formula of every
+    triplet (:func:`.seqops.b5_word_gc`), summed."""
+    _check_stream(words, torch.uint32, 2, "packed u32[2 N]")
+    return seqops.b5_word_gc(seqops._b5_words(words)).sum().to(torch.int32)
+
+
+def gc_b5_stream(words: torch.Tensor) -> torch.Tensor:
+    """GC count of a flat base-5 stream u32[2 N] (N u64 words) -> int32
+    scalar: over the 9 triplets t of every word, ``((t ^ u) & 1) + ((u ^ v)
+    & 1) + (v & 1)`` with u = t // 5, v = t // 25.  Bit 63 lies in no
+    triplet, zero words count 0, and a corrupt triplet counts by the same
+    formula (t = 125 counts 1, where a decode reads 'AAN').
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:gc_b5_row_sums``
+    (driven by ``gc_content_b5_stream_pallas``), whose bf16 gather-fold on
+    the TPU's matrix unit put each triplet on its own lane and whose 256-u32
+    panel rows padded the stream.  Here each thread reads 16 bytes (two
+    words) per step of a grid-stride loop and looks each triplet's count up
+    in a 128-byte table in shared memory (built from the formula; one table
+    word per bank, so no conflicts); warp shuffles and one ``atomicAdd`` per
+    block sum the counts, and an odd last word is masked in the kernel.
+    Bound by memory (8 bytes read per 27 nt).  Time on the H100: PERF.md.
+    """
+    n = _check_stream(words, torch.uint32, 2, "packed u32[2 N]")
+    if not _on_cuda(words):
+        return gc_b5_stream_plain(words)
+    out = torch.zeros(1, dtype=torch.int32, device=words.device)
+    if n:
+        lib = _build.load()
+        with torch.cuda.device(words.device):
+            _launch(lib.cn_gc_b5, words.data_ptr(), n, out.data_ptr(), _stream(words))
+        gc_b5_stream.launches += 1
+    return out.reshape(())
+
+
+gc_b5_stream.launches = 0
+
+# --- kernel #18: bitonic sort of u32 key pairs --------------------------------------
+
+_SIGN = -(1 << 31)  # the sign bit of an int32
+
+
+def _check_pairs(hi: torch.Tensor, lo: torch.Tensor) -> int:
+    if hi.dtype != torch.uint32 or lo.dtype != torch.uint32 or hi.ndim != 1 or hi.shape != lo.shape:
+        raise TypeError(f"expected two u32[n] key planes, got {hi.dtype}{tuple(hi.shape)} and "
+                        f"{lo.dtype}{tuple(lo.shape)}")
+    return hi.shape[0]
+
+
+def pair_keys(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """u32 pairs -> int64 keys ``(hi ^ 0x80000000) << 32 | lo``, flat: the
+    flipped sign bit makes signed order the pairs' unsigned order, so the
+    all-ones pair (``kmer_counts``' sentinel) becomes the int64 maximum and
+    sorts last (unflipped it would be -1 and sort first)."""
+    key = (hi.reshape(-1).view(torch.int32) ^ _SIGN).to(torch.int64) << 32
+    return key.bitwise_or_(lo.reshape(-1).view(torch.int32).to(torch.int64) & eager.U32)
+
+
+def split_keys(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`pair_keys`: int64 keys -> (hi, lo) u32."""
+    return ((key >> 32).to(torch.int32) ^ _SIGN).view(torch.uint32), key.to(torch.int32).view(torch.uint32)
+
+
+def bitonic_size(n0: int) -> int:
+    """The network's size for n0 pairs: n0 rounded up to a power of two, at
+    least 2."""
+    return 1 << max((n0 - 1).bit_length(), 1)
+
+
+def sort_pairs_bitonic_plain(hi: torch.Tensor, lo: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`sort_pairs_bitonic`: the same padded network,
+    every stage a whole-tensor compare-exchange on the int64 keys of
+    :func:`pair_keys` (in the unsigned order that the kernel compares),
+    with the kernel's direction bits."""
+    n0 = _check_pairs(hi, lo)
+    if n0 == 0:
+        return hi.clone(), lo.clone()
+    n = bitonic_size(n0)
+    dev = hi.device
+    key = torch.full((n,), (1 << 63) - 1, dtype=torch.int64, device=dev)  # the pad pair's key
+    key[:n0] = pair_keys(hi, lo)
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j:
+            pairs = key.view(n // (2 * j), 2, j)
+            a, b = pairs[:, 0], pairs[:, 1]
+            # every element of block m lies at 2 j m + r with r < j < k, so
+            # its direction bit is that of 2 j m
+            desc = ((torch.arange(n // (2 * j), device=dev) * (2 * j)) & k).ne(0).view(-1, 1)
+            small, big = torch.minimum(a, b), torch.maximum(a, b)
+            a.copy_(torch.where(desc, big, small))
+            b.copy_(torch.where(desc, small, big))
+            del small, big
+            j //= 2
+        k *= 2
+    return split_keys(key[:n0])
+
+
+def sort_pairs_bitonic(hi: torch.Tensor, lo: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort u32 pairs (hi, lo)[n] ascending, unsigned and lexicographic ->
+    (hi_sorted, lo_sorted) u32[n], by a bitonic network over n rounded up to
+    a power of two (:func:`bitonic_size`), padded with (0xFFFFFFFF,
+    0xFFFFFFFF) pairs and cut back to n.
+
+    Replaces ``cute_nucleotides_tpu/ops/sort.py:_sort_pairs_bitonic`` (its
+    ``_k1_kernel``/``_k2_kernel`` through ``_strip_call``), whose row and
+    transposed layouts, (8, 128) strips and int32 order flip served the
+    TPU's VMEM and its missing lane shuffle and unsigned compare.  Here each
+    pair is one u64 key compared natively: a block sorts each 8192-key tile
+    in shared memory, then each phase beyond the tile runs one global
+    compare-exchange launch per stride of 8192 or more and one shared-memory
+    pass over the smaller strides, the last of which writes hi and lo back.
+    Bound by memory: every global stride reads and writes all keys.  Time on
+    the H100: PERF.md.
+
+    ``.launches`` counts calls of this wrapper: one call launches the
+    network's 1 + log2(n / 8192) (log2(n / 8192) + 3) / 2 kernels.
+    """
+    n0 = _check_pairs(hi, lo)
+    if not _same_device(hi, lo):
+        return sort_pairs_bitonic_plain(hi, lo)
+    hi_s, lo_s = torch.empty_like(hi), torch.empty_like(lo)
+    if n0:
+        n = bitonic_size(n0)
+        keys = torch.empty(n, dtype=torch.int64, device=hi.device)
+        lib = _build.load()
+        with torch.cuda.device(hi.device):
+            _launch(lib.cn_sort_pairs_bitonic, hi.data_ptr(), lo.data_ptr(), keys.data_ptr(), hi_s.data_ptr(),
+                    lo_s.data_ptr(), n0, n, _stream(hi))
+        sort_pairs_bitonic.launches += 1
+    return hi_s, lo_s
+
+
+sort_pairs_bitonic.launches = 0
+
 WRAPPERS = (encode_2bit_nt4, decode_2bit_nt4, encode_2bit_nt4_checked, encode_2bit_nt4_mxu,
             encode_b5_stream, decode_b5_stream, match_bits_stream, match_b5_bits_stream,
             kmer_codes_planar, kmer_codes_planar_pair, hist_codes, kmer_hashes_planar_pair,
-            minimizer_bits_stream)
+            minimizer_bits_stream, gc_b5_stream, sort_pairs_bitonic)
 
 
 def reset_launch_counts() -> None:

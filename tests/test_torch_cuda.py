@@ -106,7 +106,7 @@ def test_launch_counts_and_alignment(cuda_device):
     K.encode_2bit_nt4_mxu(t)
     K.encode_2bit_nt4_mxu(t, checked=True)
     K.decode_2bit_nt4(K.encode_2bit_nt4(t))
-    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     misaligned = torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:36]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_2bit_nt4(misaligned.view(torch.uint32).view(2, 4))
@@ -192,7 +192,7 @@ def test_b5_launch_counts_and_alignment(cuda_device):
     K.encode_b5_stream(x, checked=True)
     for checked, digits in B5_MODES:
         K.decode_b5_stream(w, checked, digits)
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_b5_stream(torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:31])
     with pytest.raises(ValueError, match="checked digit"):
@@ -280,7 +280,7 @@ def test_search_launch_counts(cuda_device):
     search.match_positions_b5(w5, s.size, b"GAT?ACA")
     search.match_positions_b5(w5[:1000], 13500, b"GAT?ACA")  # under 1024 u32: the mask tier
     search.match_count_b5(w5, s.size, b"A" * 1025)  # over 1024 nt: the mask tier
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.match_bits_stream(w2[1:], *search.compile_query(b"ACG")[:2], 10)
 
@@ -337,7 +337,7 @@ def test_kmer_cuda_matches_torch_tier(cuda_device):
     for k in (3, 8, 11):
         assert _same(kmer.kmer_histogram_batch(interop.to_tensor(batch, cuda_device), lengths, k, canonical=True),
                      kmer.kmer_histogram_batch(interop.to_tensor(batch), lengths, k, canonical=True))
-    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2, 0, 0, 0, 0]
 
 
 def test_stats_cuda_matches_torch_tier(cuda_device, tmp_path, capsys):
@@ -467,3 +467,61 @@ def test_sketch_cli_cuda_matches_torch_tier(cuda_device, tmp_path, capsys):
             assert cli.main(["sketch", *paths, *argv, "--tier", tier]) == 0
             out[tier] = capsys.readouterr()
         assert out["cuda"] == out["torch"], argv
+
+
+def _every_triplet_words() -> np.ndarray:
+    """Every triplet value 0..127 in every slot, with and without bit 63."""
+    t = np.arange(128, dtype=np.uint64)
+    return np.concatenate([(t << np.uint64(7 * j)) | (np.uint64(b) << np.uint64(63)) for j in range(9) for b in (0, 1)])
+
+
+@pytest.mark.parametrize("n_words", (1, 2, 127, 128, 129, 40_001))
+def test_gc_b5_kernel_matches_plain(cuda_device, n_words):
+    """#7 on random words (any triplet, bit 63 on some), and on every triplet
+    value in every slot; the seqops route and its count of C and G bytes."""
+    from cute_nucleotides_tpu_torch.ops import seqops
+
+    rng = np.random.default_rng(n_words)
+    w64 = rng.integers(0, 2**63, n_words, dtype=np.uint64) | (rng.integers(0, 2, n_words, dtype=np.uint64) << np.uint64(63))
+    for words in (w64, _every_triplet_words()):
+        w = interop.u64_to_tensor(words, cuda_device)
+        assert _same(K.gc_b5_stream(w), K.gc_b5_stream_plain(w))
+    s = np.random.default_rng(3).choice(ALPHABET_N, 27 * 600 + 5)
+    w = interop.u64_to_tensor(native.n_to_bits2(s), cuda_device)
+    K.reset_launch_counts()
+    assert int(seqops.gc_content_packed_b5(w)) == int(np.isin(s, np.frombuffer(b"CGcg", np.uint8)).sum())
+    assert K.gc_b5_stream.launches == 1
+    with pytest.raises(ValueError, match="aligned"):
+        K.gc_b5_stream(w[2:])
+
+
+def _sort_cases(n: int) -> dict:
+    rng = np.random.default_rng(n)
+    asc = np.arange(n, dtype=np.uint32)
+    kmer_hi = rng.integers(0, 1 << 10, n, dtype=np.uint64).astype(np.uint32)
+    kmer_lo = rng.integers(0, 5000, n, dtype=np.uint64).astype(np.uint32)
+    kmer_hi[-n // 5 :] = kmer_lo[-n // 5 :] = 0xFFFFFFFF
+    return {"random": (rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
+                       rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)),
+            "all equal": (np.full(n, 7, np.uint32), np.full(n, 3, np.uint32)),
+            "descending": (asc[::-1].copy(), asc.copy()),
+            "ties on hi": (np.zeros(n, np.uint32), asc[::-1].copy()),
+            "sign bit": (rng.integers(2**31 - 4, 2**31 + 4, n, dtype=np.uint64).astype(np.uint32),
+                         rng.integers(2**31 - 4, 2**31 + 4, n, dtype=np.uint64).astype(np.uint32)),
+            "k-mer keys": (kmer_hi, kmer_lo)}
+
+
+@pytest.mark.parametrize("n", (2, 4096, 4133, 16383, (1 << 20) + 1))
+def test_sort_pairs_bitonic_kernel_matches_plain(cuda_device, n):
+    """#18 against its plain version and prefer="lax" on every key shape;
+    prefer="bitonic" launches it inside the envelope."""
+    from cute_nucleotides_tpu_torch.ops import sort
+
+    for label, (hi, lo) in _sort_cases(n).items():
+        th, tl = interop.to_tensor(hi, cuda_device), interop.to_tensor(lo, cuda_device)
+        got = K.sort_pairs_bitonic(th, tl)
+        for g, p, s in zip(got, K.sort_pairs_bitonic_plain(th, tl), sort.sort_pairs(th, tl)):
+            assert _same(g, p) and _same(g, s), (label, n)
+        K.reset_launch_counts()
+        sort.sort_pairs(th, tl, prefer="bitonic")
+        assert K.sort_pairs_bitonic.launches == int(n >= 2049), (label, n)

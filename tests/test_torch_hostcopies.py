@@ -1,9 +1,10 @@
 """The port's own copies of the reference's host layers against the
 originals: ``ops/spec.py``, ``ops/oracle.py``, the C++ oracle
 (``native/codec.cpp`` and ``ops/native.py``), ``utils/io.py`` and the
-``.nup`` container (``nup.py``).  The port imports none of the reference,
-so these tests keep the copies honest: the same constants, the same words,
-the same bytes on disk, the same records and the same errors."""
+``.nup`` container (``nup.py``, with its random access by name).  The port
+imports none of the reference, so these tests keep the copies honest: the
+same constants, the same words, the same bytes on disk, the same records
+and the same errors."""
 
 import gzip
 import io
@@ -109,6 +110,26 @@ def test_nup_files_identical_to_reference(tmp_path, codec):
     assert [(n, ln, w.tolist()) for n, ln, w in got[1]] == [(n, ln, w.tolist()) for n, ln, w in want[1]]
     with nup.NupReader(str(mine)) as r, ref_cli.NupReader(str(mine)) as q:
         assert r.names == q.names and r.lengths == q.lengths and r.codec == q.codec
+
+
+@pytest.mark.parametrize("codec", ("2bit", "base5"))
+def test_nup_random_access_equals_reference(tmp_path, codec):
+    """``len``, ``in``, ``get`` and the first-occurrence rule for a repeated
+    name (``r0`` twice), as ``region`` uses them."""
+    names, words, lengths = _entries(codec)
+    path = tmp_path / "r.nup"
+    nup.write_nup(str(path), names, words, lengths, codec)
+    with nup.NupReader(str(path)) as r, ref_cli.NupReader(str(path)) as q:
+        assert len(r) == len(q) == 4
+        for name in (b"r0", b"", b"chr1 some description", b"nope", b"r"):
+            assert (name in r) == (name in q)
+            if name in q:
+                (n1, w1), (n2, w2) = r.get(name), q.get(name)
+                assert n1 == n2 and np.array_equal(w1, w2) and w1.dtype == w2.dtype
+        assert r.get(b"r0")[0] == lengths[0] != lengths[3]  # the first r0, not the second
+        for reader in (q, r):
+            with pytest.raises(KeyError):
+                reader.get(b"nope")
 
 
 def test_nup_errors_equal_reference(tmp_path):

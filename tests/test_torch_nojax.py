@@ -123,6 +123,62 @@ assert not loaded, loaded
     assert "JAX []" in proc.stdout
 
 
+def test_seqops_sort_and_their_commands_load_neither_jax_nor_the_reference(tmp_path):
+    """region (FASTA and --packed), translate and dedup on both codecs, the
+    seqops functions (kernel #7's route included) and sort_pairs on both
+    routes, in one process: afterwards no jax and no cute_nucleotides_tpu
+    module is loaded; kernels #7 and #18 ran their plain versions (no
+    launch counted) and refuse a device without kernels."""
+    code = f"""
+import sys
+import torch
+from cute_nucleotides_tpu_torch import api, cli, interop
+from cute_nucleotides_tpu_torch.ops import kernels, seqops, sort
+d = {str(tmp_path)!r}
+seq = b"ACGTGATTACAGGGGTGTAATCCCN" * 40
+with open(d + "/r.fa", "wb") as f:
+    f.write(b">r1\\n" + seq + b"\\n>r2\\nACGT\\n>r3\\nACGT\\n")
+for codec in ("2bit", "base5"):
+    nup = d + "/r_" + codec + ".nup"
+    assert cli.main(["encode", d + "/r.fa", nup, "--codec", codec]) == 0
+    assert cli.main(["region", nup, "r1:5-700", "r2:1-3", "-o", d + "/w.fa"]) == 0
+    assert cli.main(["region", nup, "r1:5-700", "--packed", "-o", d + "/w.nup"]) == 0
+    assert cli.main(["translate", nup, d + "/p.fa", "--frames", "all"]) == 0
+    assert cli.main(["dedup", nup, d + "/u.nup"]) == 0
+w2 = interop.u64_to_tensor(api.n_to_bits(seq))
+w5 = interop.u64_to_tensor(api.n_to_bits2(seq * 30))  # 2224 u32: kernel #7's route
+n = len(seq)
+kernels.reset_launch_counts()
+joined = seqops.packed_concat(seqops.packed_slice(w2, 0, 7), 7, seqops.packed_slice(w2, 7, n - 7), n - 7)
+assert joined.view(torch.int32).equal(w2.view(torch.int32))
+assert int(seqops.gc_content_packed_b5(w5)) == 30 * (seq.count(b"C") + seq.count(b"G"))
+assert int(seqops.n_count_packed_b5(w5)) == 30 * 40
+assert seqops.revcomp_packed_b5(seqops.revcomp_packed_b5(w5, 30 * n), 30 * n).view(torch.int32).equal(w5.view(torch.int32))
+assert len(seqops.translate_6frame(w2, n)) == len(seqops.translate_6frame_b5(w5, 30 * n)) == 6
+assert seqops.duplicate_mask(w2.view(2, -1).repeat(2, 1), [n, n, n, 3]).tolist() == [False, False, True, False]
+keys = interop.to_tensor(torch.randint(0, 1 << 32, (5000,), dtype=torch.int64).to(torch.int32).view(torch.uint32).numpy())
+for prefer in ("lax", "bitonic"):
+    hi, lo = sort.sort_pairs(keys, keys, prefer=prefer)
+    assert hi.view(torch.int32).equal(lo.view(torch.int32))
+assert all(fn.launches == 0 for fn in kernels.WRAPPERS)
+for call in (lambda: kernels.gc_b5_stream(w5.to("meta")), lambda: seqops.gc_content_packed_b5(w5.to("meta")),
+             lambda: kernels.sort_pairs_bitonic(keys.to("meta"), keys.to("meta")),
+             lambda: sort.sort_pairs(keys.to("meta"), keys.to("meta"), prefer="bitonic")):
+    try:
+        call()
+    except ValueError as e:
+        assert str(e) == "no kernel for device meta", e
+        print("refused")
+    else:
+        raise SystemExit("computed on a device without kernels")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cute_nucleotides_tpu"))
+print("LOADED", loaded)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout and proc.stdout.count("refused") == 4
+
+
 def test_cuda_tier_without_cuda_raises():
     code = """
 import numpy as np, torch
