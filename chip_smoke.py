@@ -19,9 +19,23 @@ calls:
      and for ``--codec base5`` (decode with ``--verify-stream``, and a
      corrupted copy refused);
   6. launch counts of phases 3-5, read per path (each codec's path, the
-     search path, the k-mer path and the sketch path run with the counts
-     set to 0 just before them), then each kernel's time beside its plain
-     version's (CUDA events).
+     search path, the k-mer path, the sketch path, the seqops, sort and
+     planar paths run with the counts set to 0 just before them), then each
+     kernel's time beside its plain version's (CUDA events);
+  7. the port's bench, ``python -m cute_nucleotides_tpu_torch bench``, in a
+     child process at ``BENCH_SCALE=8 BENCH_FULL=1``: exit 0, its last line
+     shaped as the reference's, its 43 rows above 0, and its planar rows'
+     launches of #15-#17 read from its detail file.
+
+The planar path (kernels #15-#17, the base-5 codec's planar (lo, hi)
+layout): phase 2 holds #15 against its plain version at 1, 2, 37 and 128
+rows of 3456 nt and on all 256 byte values, and #16 (padded and compact)
+and #17 on random words and every triplet value in every slot with and
+without bit 63, also against #6 on the interleaved words; phase 3 runs the
+base-5 batch viewed as u8[310688, 3456] through ``encode_b5_planar`` (its
+planes reinterleaved against the batch's words) and back through both
+decodes (the padded one de-padded on the host by ``depad_nt4_host``),
+against the batch's bytes.
 
 The search path: phase 2 holds both search kernels against their plain
 versions at the word seams, with wildcards, planted hits, a poly-A query
@@ -116,6 +130,9 @@ import traceback
 
 import numpy as np
 
+# the card's peaks and the bound rule, shared with the port's bench
+from cute_nucleotides_tpu_torch.utils.profiling import HBM_BYTES_PER_S, bound as _bound
+
 SEED = 0x5EED
 ALPHABET = b"ACGTUacgtu"
 ALPHABET_N = b"ACGTUNacgtun"
@@ -151,15 +168,20 @@ REPLACES = {
     "minimizer_bits_stream": f"{_PK}:1714",
     "gc_b5_stream": f"{_PK}:1496",
     "sort_pairs_bitonic": "cute_nucleotides_tpu/ops/sort.py:158",
+    "encode_b5_planar": f"{_PK}:898",
+    "decode_b5_nt4_panels": f"{_PK}:2087",
+    "decode_b5_panels": f"{_PK}:607",
 }
 B5_KERNELS = ("encode_b5_stream", "decode_b5_stream", "match_b5_bits_stream")
+PLANAR_KERNELS = ("encode_b5_planar", "decode_b5_nt4_panels", "decode_b5_panels")
 SEARCH_KERNELS = ("match_bits_stream", "match_b5_bits_stream")
 KMER_KERNELS = ("kmer_codes_planar", "kmer_codes_planar_pair", "hist_codes")
 SKETCH_KERNELS = ("kmer_hashes_planar_pair", "minimizer_bits_stream")
 SEQOPS_KERNELS = ("gc_b5_stream",)
 SORT_KERNELS = ("sort_pairs_bitonic",)
 #: (kernels, source file, path) in the order a kernel's first group wins
-_GROUPS = ((SORT_KERNELS, "sort.cu", "sort"), (SEQOPS_KERNELS, "seqops.cu", "seqops"),
+_GROUPS = ((PLANAR_KERNELS, "codec_b5.cu", "planar"), (SORT_KERNELS, "sort.cu", "sort"),
+           (SEQOPS_KERNELS, "seqops.cu", "seqops"),
            (SKETCH_KERNELS, "sketch.cu", "sketch"), (KMER_KERNELS, "kmer.cu", "k-mer"),
            (SEARCH_KERNELS, "search.cu", "search"), (B5_KERNELS, "codec_b5.cu", "base-5"))
 _CSRC = "cute_nucleotides_tpu_torch/csrc"
@@ -168,20 +190,20 @@ PATH_OF = {k: next((path for ks, _, path in _GROUPS if k in ks), "2-bit") for k 
 GC_B5_WORDS = B5_WORDS + (1001,)  # phase-2 word counts of #7, one odd
 SORT_N = (4096, 4133, 16383, (1 << 20) + 1, 1 << 23)  # phase-2 pair counts of #18
 DEDUP_EVERY = 10  # one read in ten is planted as a duplicate of an earlier one
+PLANAR_R = (1, 2, 37, 128)  # phase-2 rows of #15-#17
+#: the bench child: scale, full table, its time limit, its rows, the keys of its last line
+BENCH_ENV = {"BENCH_SCALE": "8", "BENCH_FULL": "1"}
+BENCH_TIMEOUT_S, BENCH_ROWS = 600, 43
+BENCH_LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "gbps_per_chip", "vs_device_memcpy",
+                   "vs_reference_memcpy", "chips", "champions_gibs", "detail_file")
+#: bench rows that run #15-#17, and the wrapper each must launch
+BENCH_PLANAR_ROWS = {"encode_b5_cuda_planar": "encode_b5_planar", "decode_b5_cuda_nt4": "decode_b5_nt4_panels",
+                     "decode_b5_cuda_nt4_padded": "decode_b5_nt4_panels", "decode_b5_cuda_u8": "decode_b5_panels"}
 KMER_W = (1, 511, 512, 513)  # word lanes per row in phase 2; 37 rows, a multiple of no block
 STATS_READS, STATS_REC_NT = 20_000, 4_000_000
 MZ_NT = (16384 + 5, 32768, 100_003)  # stream lengths of the minimizer kernel's phase-2 cases, nt
 SKETCH_K, SKETCH_S, SKETCH_SCALE, SKETCH_CAP = 21, 1000, 1000, 1 << 19
 SENTINEL = 0xFFFFFFFF
-#: the card's peaks (NVIDIA's H100 SXM datasheet): HBM bytes/s, and
-#: integer instructions (one per lane) per second at the issue limit: an SM
-#: issues one warp instruction per clock on each of its four schedulers, 128
-#: lanes, the rate behind the 67 TFLOP/s FP32 figure (an FMA counted as two
-#: operations).  Integer work spreads over the INT32 pipe (64 lanes) and the
-#: FMA pipe (multiplies, and the shifts, adds and moves ptxas puts there as
-#: IMAD), so no mix of it issues faster.
-HBM_BYTES_PER_S = 3.35e12
-INT_INSTR_PER_S = 67e12 / 2
 
 
 class SmokeFailure(Exception):
@@ -739,6 +761,73 @@ def phase_kernels_seqops(errors: Errors, rng) -> None:
     say(f"phase 2 seqops and sort kernels: #7 on {GC_B5_WORDS} random words and every triplet in every slot +- "
         f"bit 63; #18 in {cases} cases at {SORT_N} pairs against its plain version and prefer='lax': "
         f"bit-identical ({errors.count} comparisons in phase 2; max abs err {errors.max})")
+
+
+def _planes(w64: np.ndarray, dev: str):
+    """u64 words (a multiple of 128) -> the (lo, hi) planes u32[R, 128] on dev."""
+    import torch
+
+    pair = w64.view(np.uint32).reshape(-1, 128, 2)
+    return tuple(torch.from_numpy(np.ascontiguousarray(pair[..., i])).to(dev) for i in (0, 1))
+
+
+def phase_kernels_planar(errors: Errors, rng) -> None:
+    """#15 at PLANAR_R rows of random ACGTUN bytes and on all 256 byte values
+    (in runs of 27, and at every position of a word), reinterleaved against
+    #5; #16 (padded and compact) and #17 at PLANAR_R rows of random words and
+    on every triplet value in every slot with and without bit 63, against
+    their plain versions and against #6 (``decode_b5_stream``) on the
+    interleaved words; the pad lanes 'AAAA'; a misaligned view refused."""
+    import torch
+
+    from cute_nucleotides_tpu_torch import interop
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    dev = "cuda"
+    k15, k16, k17 = PLANAR_KERNELS
+    alpha = np.frombuffer(ALPHABET_N, np.uint8)
+    rows = {f"{R} rows": rng.choice(alpha, size=(R, K.B5_ROW_NT)) for R in PLANAR_R}
+    rows["all 256 bytes in runs"] = np.arange(256, dtype=np.uint8).repeat(27).reshape(2, K.B5_ROW_NT)
+    rows["all 256 bytes at every position"] = np.tile(np.arange(256, dtype=np.uint8), 27).reshape(2, K.B5_ROW_NT)
+    for label, host in rows.items():
+        x = torch.from_numpy(host).to(dev)
+        lo, hi = K.encode_b5_planar(x)
+        for plane, got, want in zip(("lo", "hi"), (lo, hi), K.encode_b5_planar_plain(x)):
+            errors.compare(k15, got, want, f"planar encode {plane}, {label}")
+        check(torch.equal(K._interleave(lo, hi).view(torch.int32), K.encode_b5_stream(x.view(-1)).view(torch.int32)),
+              f"planar encode {label}: the planes reinterleaved != encode_b5_stream")
+    words = {f"{R} rows of random words": rng.integers(0, 2**64, R * K.B5_ROW_WORDS, dtype=np.uint64)
+             for R in PLANAR_R}
+    words["every triplet in every slot +- bit 63"] = _every_triplet_words()
+    for label, w64 in words.items():
+        lo, hi = _planes(w64, dev)
+        R = lo.shape[0]
+        want = K.decode_b5_stream(interop.u64_to_tensor(w64, dev))
+        got = K.decode_b5_panels(lo, hi)
+        errors.compare(k17, got, K.decode_b5_panels_plain(lo, hi), f"planar decode {label}")
+        check(torch.equal(got.view(-1), want), f"planar decode {label} != decode_b5_stream")
+        for padded in (True, False):
+            got = K.decode_b5_nt4_panels(lo, hi, padded=padded)
+            errors.compare(k16, got, K.decode_b5_nt4_panels_plain(lo, hi, padded=padded),
+                           f"nt4 decode padded={padded} {label}")
+        check(torch.equal(K.decode_b5_nt4_panels(lo, hi, padded=False).view(torch.uint8).view(-1), want),
+              f"compact nt4 decode {label} != decode_b5_stream")
+        lanes = K.decode_b5_nt4_panels(lo, hi).view(torch.int32).view(R, K.B5_SLICES, 112)
+        check(torch.equal(lanes[:, :, :108].contiguous().view(torch.uint8).view(-1), want),
+              f"padded nt4 decode {label}: data lanes != decode_b5_stream")
+        check(bool((lanes[:, :, 108:] == 0x41414141).all()), f"padded nt4 decode {label}: a pad lane is not 'AAAA'")
+    x = torch.zeros(2 * K.B5_ROW_NT + 16, dtype=torch.uint8, device=dev)[4 : 4 + K.B5_ROW_NT].view(1, K.B5_ROW_NT)
+    try:
+        K.encode_b5_planar(x)
+    except ValueError:
+        pass
+    else:
+        raise SmokeFailure("encode_b5_planar took a view that is not 16-byte aligned")
+    torch.cuda.synchronize()
+    say(f"phase 2 planar kernels: #15 on {PLANAR_R} rows and all 256 bytes, #16 (padded, compact) and #17 on "
+        f"{PLANAR_R} rows of random words and every triplet in every slot +- bit 63: bit-identical to the plain "
+        f"versions and to #5/#6 on the interleaved words; pad lanes 'AAAA' ({errors.count} comparisons in "
+        f"phase 2; max abs err {errors.max})")
 
 
 # --- phase 3: the resident 1-Gnt batch -----------------------------------------
@@ -1940,6 +2029,77 @@ def phase_sort_chr1(errors: Errors, chr1_words):
     return hi, lo
 
 
+# --- the planar path: phase 3 ------------------------------------------------------
+
+def phase_planar(x5, words5):
+    """The base-5 batch viewed as u8[310688, 3456] rows through
+    ``encode_b5_planar`` (#15), its planes reinterleaved against the
+    batch's words; ``decode_b5_nt4_panels`` (#16, compact, and padded then
+    de-padded on the host by ``depad_nt4_host``) and ``decode_b5_panels``
+    (#17) against the batch's decoded bytes.  Returns the planes."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    rows = x5.numel() // K.B5_ROW_NT
+    lo, hi = K.encode_b5_planar(x5.view(rows, K.B5_ROW_NT))
+    check(torch.equal(K._interleave(lo, hi).view(torch.int32), words5.view(-1).view(torch.int32)),
+          "planar encode of the base-5 batch, reinterleaved, != the batch's words")
+    want = _upper_t(x5).view(rows, K.B5_ROW_NT)
+    check(torch.equal(K.decode_b5_panels(lo, hi), want), "decode_b5_panels of the batch's planes != its bytes")
+    check(torch.equal(K.decode_b5_nt4_panels(lo, hi, padded=False).view(torch.uint8), want),
+          "compact decode_b5_nt4_panels of the batch's planes != its bytes")
+    padded = K.decode_b5_nt4_panels(lo, hi)
+    check(padded.shape == (rows, K.B5_NT4_PAD_LANES), f"padded nt4 shape {tuple(padded.shape)}")
+    check(bool((padded.view(torch.int32).view(rows, K.B5_SLICES, 112)[:, :, 108:] == 0x41414141).all()),
+          "padded nt4 decode of the batch: a pad lane is not 'AAAA'")
+    host = K.depad_nt4_host(padded.cpu().numpy())
+    check(torch.equal(torch.from_numpy(host).to("cuda"), want.view(-1)),
+          "depad_nt4_host of the padded decode != the batch's bytes")
+    del want, padded, host
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    say(f"phase 3 planar: encode_b5_planar of u8[{rows}, {K.B5_ROW_NT}] reinterleaves to the batch's words; "
+        f"decode_b5_panels, decode_b5_nt4_panels (compact, and padded de-padded on the host) == its bytes "
+        f"({time.perf_counter() - t0:.1f} s with the checks)")
+    return lo, hi
+
+
+# --- the bench: phase 7 -------------------------------------------------------------
+
+def phase_bench(workdir: str) -> None:
+    """``python -m cute_nucleotides_tpu_torch bench`` in a child process at
+    BENCH_ENV, its detail file in the work directory: exit 0, the last
+    stdout line with the reference's keys, all BENCH_ROWS rows above 0, and
+    the planar rows' launches of #15-#17."""
+    detail_path = os.path.join(workdir, "bench_detail.json")
+    env = dict(os.environ, **BENCH_ENV, BENCH_DETAIL_PATH=detail_path)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cute_nucleotides_tpu_torch", "bench"], env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if "FAILED" in line or line.startswith(("error", "Traceback")):
+            say(f"  bench: {line}")
+    check(proc.returncode == 0, f"bench exit {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(tuple(line) == BENCH_LINE_KEYS, f"bench last line keys {tuple(line)}")
+    with open(detail_path) as f:
+        detail = json.load(f)
+    gibs = detail["detail"]
+    check(len(gibs) == BENCH_ROWS and all(v > 0 for v in gibs.values()),
+          f"bench rows: {len(gibs)}, at 0: {[k for k, v in gibs.items() if not v > 0]}")
+    for row, fn in BENCH_PLANAR_ROWS.items():
+        check(detail["launches"].get(row, {}).get(fn, 0) > 0, f"bench row {row} launched no {fn}: "
+              f"{detail['launches'].get(row)}")
+    say(f"phase 7 bench ({' '.join(f'{k}={v}' for k, v in BENCH_ENV.items())}): {len(gibs)} rows in {wall:.1f} s "
+        f"wall; planar rows (GiB/s of nt): "
+        + ", ".join(f"{row} {gibs[row]:.1f} ({detail['launches'][row]})" for row in BENCH_PLANAR_ROWS))
+    say(f"  bench headline: {json.dumps(line)}")
+
+
 # --- timing -------------------------------------------------------------------
 
 def _time_ms(fn, iters: int) -> float:
@@ -1964,14 +2124,7 @@ def _clocks() -> str:
     return smi.stdout.strip() if smi.returncode == 0 else f"nvidia-smi failed: {smi.stderr.strip()}"
 
 
-def _bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
-    """The least time (ms) the card could take: the larger of the bytes at
-    the HBM rate and the integer instructions at the issue rate."""
-    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / INT_INSTR_PER_S
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, card: str) -> dict:
+def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, planes, card: str) -> dict:
     """Each kernel and its plain version at its path's shapes, in turns
     (plain, kernel, kernel, plain), with its bound from those shapes and,
     for the histogram and the sort, the one PyTorch call that computes the
@@ -2047,6 +2200,13 @@ def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, card: str) -> dic
     # phase-3 call); #18 on the chr1 k = 21 pairs (the sort path's call),
     # then on 2^23 random pairs
     cases["gc_b5_stream"] = [("", lambda: K.gc_b5_stream(w5), lambda: K.gc_b5_stream_plain(w5))]
+    # #15-#17 on the base-5 batch as planar rows (the planar path's calls)
+    b5_rows, (plo, phi) = x5.view(-1, K.B5_ROW_NT), planes
+    cases["encode_b5_planar"] = [("", lambda: K.encode_b5_planar(b5_rows), lambda: K.encode_b5_planar_plain(b5_rows))]
+    cases["decode_b5_nt4_panels"] = [
+        ("[padded]" if p else "[compact]", lambda p=p: K.decode_b5_nt4_panels(plo, phi, padded=p),
+         lambda p=p: K.decode_b5_nt4_panels_plain(plo, phi, padded=p)) for p in (True, False)]
+    cases["decode_b5_panels"] = [("", lambda: K.decode_b5_panels(plo, phi), lambda: K.decode_b5_panels_plain(plo, phi))]
     shi, slo = chr1_pairs
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 23)
@@ -2099,6 +2259,11 @@ def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, card: str) -> dic
         # #7: read the stream; the lookup form's 3 instructions per triplet
         # (extract, table load, add)
         "gc_b5_stream": _bound(8 * N5, 3 * 9 * N5),
+        # #15-#17 as #5 and #6; the padded decode writes 3584 B per row of 128 words
+        "encode_b5_planar": _bound(n5 + 8 * N5),
+        "decode_b5_nt4_panels": {"[padded]": _bound(8 * N5 + 4 * K.B5_NT4_PAD_LANES * (N5 // K.B5_ROW_WORDS)),
+                                 "[compact]": _bound(8 * N5 + n5)},
+        "decode_b5_panels": _bound(8 * N5 + n5),
         # #18: read and write each pair once (16 B); any comparison sort
         # makes at least n log2 n comparisons, one instruction each
         "sort_pairs_bitonic": {label: _bound(16 * p[0].numel(), p[0].numel() * math.log2(p[0].numel()))
@@ -2115,7 +2280,7 @@ def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, card: str) -> dic
             f"read+write)")
     times = {}
     for name, variants in cases.items():
-        g = gib5 if name in B5_KERNELS + SEQOPS_KERNELS else gib
+        g = gib5 if name in B5_KERNELS + SEQOPS_KERNELS + PLANAR_KERNELS else gib
         k_iters, p_iters = iters.get(name, (20, 2))
         for suffix, kernel, plain in variants:
             bound_ms, bound_by = bounds[name][suffix] if isinstance(bounds[name], dict) else bounds[name]
@@ -2157,8 +2322,9 @@ def main() -> int:
         phase_kernels_kmer(errors, rng)
         phase_kernels_sketch(errors, rng)
         phase_kernels_seqops(errors, rng)
+        phase_kernels_planar(errors, rng)
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        # each path (2-bit, base-5, search, k-mer, sketch, seqops, sort) runs
+        # each path (2-bit, base-5, search, k-mer, sketch, seqops, sort, planar) runs
         # with the counts set to 0 just before it and read just after; each
         # kernel must have launched on its own path
         launches = {}
@@ -2213,16 +2379,25 @@ def main() -> int:
             torch.cuda.synchronize()
             launches["sort"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
             say(f"phase 6 launches by the sort path (phase 4): {launches['sort']}")
-        own = {k: launches[PATH_OF[k]][k] for k in REPLACES}
-        check(all(n > 0 for n in own.values()), f"a kernel of its path never launched: {own}")
-        torch.cuda.empty_cache()
-        times = phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, card)
-        say(json.dumps({"kernels": [
-            {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-             "launches": own[k], "max_abs_err": errors.max[k], "ms": times[k][0], "plain_ms": times[k][1],
-             "bound_ms": times[k][2], "bound_by": times[k][3], "library_ms": times[k][4]}
-            for k in REPLACES
-        ]}))
+            K.reset_launch_counts()
+            planes = phase_planar(x5, words5)
+            torch.cuda.synchronize()
+            launches["planar"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+            say(f"phase 6 launches by the planar path (phase 3): {launches['planar']}")
+            own = {k: launches[PATH_OF[k]][k] for k in REPLACES}
+            check(all(n > 0 for n in own.values()), f"a kernel of its path never launched: {own}")
+            torch.cuda.empty_cache()
+            times = phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, planes, card)
+            kernels_line = json.dumps({"kernels": [
+                {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+                 "launches": own[k], "max_abs_err": errors.max[k], "ms": times[k][0], "plain_ms": times[k][1],
+                 "bound_ms": times[k][2], "bound_by": times[k][3], "library_ms": times[k][4]}
+                for k in REPLACES
+            ]})
+            del x, words, x5, words5, chr1_words, chr1_pairs, planes
+            torch.cuda.empty_cache()
+            phase_bench(workdir)
+        say(kernels_line)
     except Exception:
         traceback.print_exc()
         print("FAIL: chip smoke failed", file=sys.stderr)

@@ -1,8 +1,8 @@
 """Command-line interface of the port: encode / decode / parity / region /
-grep / translate / dedup / stats / sketch.
+grep / translate / dedup / stats / sketch / bench.
 
 Counterpart of those commands of ``cute_nucleotides_tpu/cli.py`` (all of
-its commands but ``approx`` and ``bench``); it reads and writes the same
+its commands but ``approx``); it reads and writes the same
 ``.nup`` container (:mod:`.nup`), so files are byte-identical between the
 two packages, and ``region``, ``grep``, ``translate``, ``dedup``, ``stats``
 and ``sketch`` print the same bytes::
@@ -17,6 +17,7 @@ and ``sketch`` print the same bytes::
     python -m cute_nucleotides_tpu_torch dedup out.nup unique.nup
     python -m cute_nucleotides_tpu_torch stats chr1.fa -k 21 --canonical --top 10
     python -m cute_nucleotides_tpu_torch sketch a.fq b.fq -k 21 -s 1000
+    python -m cute_nucleotides_tpu_torch bench
 
 ``--batch N`` is the production path: batches of N reads as resident
 tensors through :class:`.models.TwoBitCodec` or :class:`.models.Base5Codec`.
@@ -24,7 +25,8 @@ Without it each record goes through :mod:`.api` on its own.  The codec of
 ``decode``, ``region``, ``grep``, ``translate`` and ``dedup`` is the one the
 ``.nup`` names; ``grep``, ``translate``, ``dedup``, ``stats`` and ``sketch``
 work on the card when there is one (the ``auto`` tier's device), and
-``region`` on its ``--tier``'s device.
+``region`` on its ``--tier``'s device.  ``bench`` (:mod:`.bench`) measures
+the card, and without CUDA it refuses to run.
 
 A malformed or missing file ends in one ``error:`` line and exit 1, and a
 closed output pipe (``grep ... | head``) in exit 141, as in the reference.
@@ -741,6 +743,12 @@ def cmd_sketch(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from . import bench
+
+    return bench.main()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="cute-nucleotides-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -847,6 +855,9 @@ def main(argv=None) -> int:
     pk.add_argument("--tier", default="auto", choices=("auto", "torch", "cuda"),
                     help="codec-model tier for encoding ASCII inputs, and the device")
     pk.set_defaults(fn=cmd_sketch)
+
+    pb = sub.add_parser("bench", help="benchmark the kernels and tiers on the card (prints one JSON line)")
+    pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     try:

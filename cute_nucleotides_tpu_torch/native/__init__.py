@@ -42,6 +42,8 @@ _SIGNATURES = {
     "cutenuc_bits_to_n2": ([_u64p, _size, _u8p], None),
     "cutenuc_find_invalid": ([_u8p, _size, ctypes.c_int], ctypes.c_longlong),
     "cutenuc_fill_rows": ([_u8p, _i64p, _i64p, _size, _u8p, _size, _size], None),
+    "cutenuc_memcpy": ([_u8p, _size, _u8p], None),
+    "cutenuc_depad_nt4": ([_u8p, _size, _u8p], None),
 }
 
 

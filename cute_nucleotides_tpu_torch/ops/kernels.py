@@ -17,7 +17,9 @@ need whole 16-nt groups (C % 4 == 0).
 
 The base-5 kernels take flat streams: 27 N ASCII bytes <-> N u64 words as
 2 N u32 halves.  A batch u8[..., L] with L % 27 == 0 flattens into one
-stream, because word boundaries survive the flatten.
+stream, because word boundaries survive the flatten.  Their planar forms
+(the reference's panel API) take rows u8[R, 3456] <-> two u32[R, 128]
+planes, the low and high halves of the rows' 128 words.
 
 The search kernels take flat packed streams too and write one u32 of match
 bits per stream word (16 starts per 2-bit word, 27 per base-5 word).
@@ -55,7 +57,7 @@ import math
 import numpy as np
 import torch
 
-from . import _build, eager, seqops, spec, validate
+from . import _build, eager, native, seqops, spec, validate
 
 ENCODE_2BIT_VARIANTS = ("mul", "shift", "interleave", "mxu")
 DECODE_2BIT_VARIANTS = ("shuffle", "select", "swar")
@@ -382,6 +384,163 @@ def decode_b5_stream(words: torch.Tensor, checked: bool = False, digits: bool = 
 
 
 decode_b5_stream.launches = 0
+
+# --- kernels #15-#17: the planar (lo, hi) layout of the base-5 codec ------------
+
+#: nt per row of the planar layout (128 words), the reference's panel width
+B5_ROW_NT = 3456
+#: words per row of the planar layout
+B5_ROW_WORDS = 128
+#: 432-nt slices per row
+B5_SLICES = 8
+#: u32 lanes of a padded nt4 row: per slice 108 lanes of chars and 4 of 'AAAA'
+B5_NT4_PAD_LANES = 896
+
+
+def _name(dtype: torch.dtype) -> str:
+    """A dtype as numpy names it ("uint8"), so that messages read as the
+    reference's."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _check_planes(lo: torch.Tensor, hi: torch.Tensor) -> int:
+    if lo.shape != hi.shape or lo.ndim != 2 or lo.shape[1] != B5_ROW_WORDS:
+        raise TypeError(f"expected u32[R, {B5_ROW_WORDS}] planes, got {tuple(lo.shape)}/{tuple(hi.shape)}")
+    if lo.dtype != torch.uint32 or hi.dtype != torch.uint32:
+        raise TypeError(f"expected u32[R, {B5_ROW_WORDS}] planes, got {_name(lo.dtype)}/{_name(hi.dtype)}")
+    return lo.shape[0]
+
+
+def _interleave(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Planes u32[R, 128] -> the interleaved stream u32[256 R]."""
+    return torch.stack([lo.view(torch.int32), hi.view(torch.int32)], -1).view(-1).view(torch.uint32)
+
+
+def encode_b5_planar_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`encode_b5_planar`: :func:`encode_b5_stream_plain`
+    with the word halves split into two planes."""
+    R = x.shape[0]
+    pair = encode_b5_stream_plain(x.reshape(-1)).view(torch.int32).view(R, B5_ROW_WORDS, 2)
+    return pair[..., 0].contiguous().view(torch.uint32), pair[..., 1].contiguous().view(torch.uint32)
+
+
+def encode_b5_planar(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encode u8[R, 3456] nt rows -> planar (lo, hi) u32[R, 128] planes;
+    ``lo[r, w] | hi[r, w] << 32`` is word ``128 r + w`` of the base-5 stream.
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:encode_b5_planar``,
+    whose constant bf16 matmul built three 21-bit chunks per word because
+    the TPU has no byte gather.  Here it is the planar store mode of the
+    kernel of :func:`encode_b5_stream`: the same staging, funnel shifts and
+    SWAR digits, and each word stored as two coalesced 4-byte halves.
+    Bound by memory (27 B read, 8 B written per 27 nt).  Time on the H100:
+    PERF.md.
+    """
+    if x.dtype != torch.uint8 or x.ndim != 2 or x.shape[1] != B5_ROW_NT:
+        raise TypeError(f"expected u8[R, {B5_ROW_NT}], got {_name(x.dtype)}{tuple(x.shape)}")
+    if not _on_cuda(x):
+        return encode_b5_planar_plain(x)
+    R = x.shape[0]
+    lo = torch.empty((R, B5_ROW_WORDS), dtype=torch.uint32, device=x.device)
+    hi = torch.empty_like(lo)
+    if R:
+        lib = _build.load()
+        with torch.cuda.device(x.device):
+            _launch(lib.cn_encode_b5_planar, x.data_ptr(), lo.data_ptr(), hi.data_ptr(), R * B5_ROW_WORDS,
+                    _stream(x))
+        encode_b5_planar.launches += 1
+    return lo, hi
+
+
+encode_b5_planar.launches = 0
+
+
+def decode_b5_panels_plain(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`decode_b5_panels`: the planes interleaved, then
+    :func:`decode_b5_stream_plain`."""
+    return decode_b5_stream_plain(_interleave(lo, hi)).view(lo.shape[0], B5_ROW_NT)
+
+
+def decode_b5_nt4_panels_plain(lo: torch.Tensor, hi: torch.Tensor, *, padded: bool = True) -> torch.Tensor:
+    """Plain version of :func:`decode_b5_nt4_panels`: :func:`decode_b5_panels_plain`
+    as u32 lanes, with four 'AAAA' lanes after every 108 when padded."""
+    R = lo.shape[0]
+    chars = decode_b5_panels_plain(lo, hi)
+    if not padded:
+        return chars.view(torch.uint32)
+    out = torch.full((R, B5_SLICES, 4 * B5_NT4_PAD_LANES // B5_SLICES), ord("A"), dtype=torch.uint8,
+                     device=lo.device)
+    out[:, :, : B5_ROW_NT // B5_SLICES] = chars.view(R, B5_SLICES, B5_ROW_NT // B5_SLICES)
+    return out.view(R, 4 * B5_NT4_PAD_LANES).view(torch.uint32)
+
+
+def _launch_decode_planar(lo: torch.Tensor, hi: torch.Tensor, out: torch.Tensor, padded: bool) -> None:
+    lib = _build.load()
+    with torch.cuda.device(lo.device):
+        _launch(lib.cn_decode_b5_planar, lo.data_ptr(), hi.data_ptr(), out.data_ptr(), lo.shape[0] * B5_ROW_WORDS,
+                int(padded), _stream(lo))
+
+
+def decode_b5_nt4_panels(lo: torch.Tensor, hi: torch.Tensor, *, padded: bool = True) -> torch.Tensor:
+    """Decode planar u32[R, 128] planes -> nt4 u32 lanes (4 chars each,
+    little-endian): u32[R, 896] when ``padded`` (slice g of the row at lanes
+    [112 g, 112 g + 108), its 4 pad lanes 'AAAA'; :func:`depad_nt4_host`
+    strips them), else the compact u32[R, 864].  Upper-case 'ACTGN'; a
+    corrupt triplet decodes as in :func:`decode_b5_stream`.
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:
+    decode_b5_nt4_panels``, whose int8 scatter matmul and 896-lane padding
+    served the TPU (no byte shuffle; a u32[R, 864] result cost XLA a
+    relayout).  Here it is the planar load mode of the kernel of
+    :func:`decode_b5_stream`; compact is the very launch of
+    :func:`decode_b5_panels` (the same bytes, seen as u32), and padded a
+    store mode that writes each slice's 27 16-byte vectors and one vector of
+    'AAAA'.  Bound by memory (8 B read per 27 nt; 27 B written, 28 padded).
+    Time on the H100: PERF.md.
+    """
+    R = _check_planes(lo, hi)
+    if not _same_device(lo, hi):
+        return decode_b5_nt4_panels_plain(lo, hi, padded=padded)
+    out = torch.empty((R, B5_NT4_PAD_LANES if padded else B5_ROW_NT // 4), dtype=torch.uint32, device=lo.device)
+    if R:
+        _launch_decode_planar(lo, hi, out, padded)
+        decode_b5_nt4_panels.launches += 1
+    return out
+
+
+decode_b5_nt4_panels.launches = 0
+
+
+def decode_b5_panels(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Decode planar u32[R, 128] planes -> u8[R, 3456] upper-case 'ACTGN'.
+
+    Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:decode_b5_panels``
+    (bf16 gather and scatter matmuls on the TPU).  The same launch as the
+    compact :func:`decode_b5_nt4_panels`, returned as bytes.  Bound by
+    memory (8 B read, 27 B written per 27 nt).  Time on the H100: PERF.md.
+    """
+    R = _check_planes(lo, hi)
+    if not _same_device(lo, hi):
+        return decode_b5_panels_plain(lo, hi)
+    out = torch.empty((R, B5_ROW_NT), dtype=torch.uint8, device=lo.device)
+    if R:
+        _launch_decode_planar(lo, hi, out, False)
+        decode_b5_panels.launches += 1
+    return out
+
+
+decode_b5_panels.launches = 0
+
+
+def depad_nt4_host(panels: np.ndarray) -> np.ndarray:
+    """Host-side de-pad: padded nt4 rows u32[R, 896] -> the flat u8 chars
+    (each slice's first 432 bytes), as the reference's ``depad_nt4_host``:
+    the shape is checked before the native copy, which would read a narrower
+    array out of bounds."""
+    panels = np.ascontiguousarray(panels)
+    if panels.ndim != 2 or panels.shape[1] != B5_NT4_PAD_LANES:
+        raise TypeError(f"expected padded nt4 panels (R, {B5_NT4_PAD_LANES}), got {panels.shape}")
+    return native.depad_nt4(panels)
 
 # --- kernels #8 and #9: packed-domain search ------------------------------------
 
@@ -1011,7 +1170,8 @@ sort_pairs_bitonic.launches = 0
 WRAPPERS = (encode_2bit_nt4, decode_2bit_nt4, encode_2bit_nt4_checked, encode_2bit_nt4_mxu,
             encode_b5_stream, decode_b5_stream, match_bits_stream, match_b5_bits_stream,
             kmer_codes_planar, kmer_codes_planar_pair, hist_codes, kmer_hashes_planar_pair,
-            minimizer_bits_stream, gc_b5_stream, sort_pairs_bitonic)
+            minimizer_bits_stream, gc_b5_stream, sort_pairs_bitonic, encode_b5_planar, decode_b5_nt4_panels,
+            decode_b5_panels)
 
 
 def reset_launch_counts() -> None:

@@ -24,6 +24,8 @@ __all__ = [
     "bits_to_n2",
     "find_invalid",
     "fill_rows",
+    "memcpy",
+    "depad_nt4",
 ]
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -147,3 +149,31 @@ def fill_rows(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray, out_rows: n
         buf.ctypes.data_as(_u8p), starts64.ctypes.data_as(_i64p), lens64.ctypes.data_as(_i64p),
         cnt, out_rows.ctypes.data_as(_u8p), rows, width,
     )
+
+
+def memcpy(seq) -> np.ndarray:
+    """Allocate-and-copy baseline (reference benches/bench_n_to_bits.rs:20)."""
+    n = _as_u8(seq)
+    out = np.empty(n.size, dtype=np.uint8)
+    lib = _lib()
+    if lib is None:
+        np.copyto(out, n)
+        return out
+    lib.cutenuc_memcpy(n.ctypes.data_as(_u8p), n.size, out.ctypes.data_as(_u8p))
+    return out
+
+
+def depad_nt4(panels: np.ndarray) -> np.ndarray:
+    """Rows of 8 slices of 448 bytes (C-contiguous, any dtype) -> the first
+    432 bytes of each slice, flat u8: one ``memcpy`` per slice in C++, a
+    strided NumPy copy without it.  The caller checks the row width
+    (``kernels.depad_nt4_host``): the C++ loop reads 3584 bytes per row."""
+    rows = panels.shape[0]
+    raw = panels.view(np.uint8)
+    out = np.empty(rows * 8 * 432, np.uint8)
+    lib = _lib()
+    if lib is None:
+        np.copyto(out.reshape(rows, 8, 432), raw.reshape(rows, 8, 448)[:, :, :432])
+        return out
+    lib.cutenuc_depad_nt4(raw.ctypes.data_as(_u8p), rows, out.ctypes.data_as(_u8p))
+    return out

@@ -139,7 +139,7 @@ def test_cpu_dispatch_launches_nothing():
     K.decode_b5_stream(w)
     K.decode_b5_stream(w, checked=True)
     K.decode_b5_stream(w, digits=True)
-    assert [fn.launches for fn in K.WRAPPERS] == [0] * 15
+    assert [fn.launches for fn in K.WRAPPERS] == [0] * len(K.WRAPPERS)
 
 
 def test_wrapper_argument_checks():

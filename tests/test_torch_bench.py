@@ -1,0 +1,273 @@
+"""The port's bench (``cute_nucleotides_tpu_torch/bench.py``) on the CPU: its
+row table against the reference harness's (the root ``bench.py``: names with
+the tier swapped, denominators, byte models and bound tags), every row's
+step run once through a fake timer, the launch accounting, the output
+shapes, and the refusal without CUDA.  The eager twins the bench runs on
+the card are checked here for the uint32 operations the card lacks."""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+from cute_nucleotides_tpu_torch import bench, interop
+from cute_nucleotides_tpu_torch.ops import eager, kernels as K
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+#: rows of the reference whose functions the port does not have yet
+NOT_PORTED = {"stream_encode_e2e", "stream_encode_records", "stream_decode_e2e", "hamming_packed",
+              "pairwise_hamming_4096", "pairwise_hamming_packed_4096", "edit_distance_m128_n2048",
+              "approx_stream_m21", "host_myers_m128"}
+
+
+def _port_name(ref: str) -> str:
+    return ref.replace("_pallas", "_cuda").replace("_xla", "_torch")
+
+
+def _reference_rows(scale: int, full: bool) -> dict:
+    """{port name: (denominator, read bytes, write bytes, bound tag)} as the
+    reference's bench.py:382-1151 computes them (no roofline for host rows;
+    its "vpu" tag is the port's "operations" where the port counts no
+    instructions)."""
+    rows = max(32768 // scale, 8)
+    nt = rows * 8192
+    rows_b5 = rows * 8208 // 3456
+    nt5 = rows_b5 * 3456
+    w5 = 8 * (nt5 // 27)
+    padded = nt5 * 896 * 4 // 3456
+    t = {"memcpy_device": (nt, nt, nt, None)}
+    for v in ("mul", "shift", "interleave", "mxu", "checked"):
+        t[f"encode_2bit_pallas_{v}"] = (nt, nt, nt // 4, None)
+    for v in ("swar", "shuffle", "select"):
+        t[f"decode_2bit_pallas_{v}"] = (nt, nt // 4, nt, None)
+    for v in ("", "_planar", "_checked"):
+        t[f"encode_b5_pallas{v}"] = (nt5, nt5, w5, None)
+    t["decode_b5_pallas_nt4"] = (nt5, w5, nt5, None)
+    for v in ("nt4_padded", "interleaved", "digits"):
+        t[f"decode_b5_pallas_{v}"] = (nt5, w5, padded, None)
+    t["decode_b5_pallas_checked"] = (nt5, w5, nt5 * (896 + 128) * 4 // 3456, None)
+    if full:
+        t["decode_b5_pallas_u8"] = (nt5, w5, nt5, None)
+    xrows, xrows5 = (rows, rows_b5) if full else (rows // 8, rows_b5 // 8)
+    x_nt, x_nt5 = xrows * 8192, xrows5 * 3456
+    for v in ("mul", "dot"):
+        t[f"encode_2bit_xla_{v}"] = (x_nt, x_nt, x_nt // 4, None)
+    for v in ("shuffle", "broadcast"):
+        t[f"decode_2bit_xla_{v}"] = (x_nt, x_nt // 4, x_nt, None)
+    t["encode_b5_xla"] = (x_nt5, x_nt5, 8 * (x_nt5 // 27), None)
+    t["decode_b5_xla"] = (x_nt5, 8 * (x_nt5 // 27), x_nt5, None)
+    words = rows * 512
+    kmw = max(min(max(((1 << 20) // scale) & ~127, 128), words) & ~127, 128)
+    kc, mz = min(words, 1 << 18), kmw // 2
+    t["kmer_codes_k15"] = (16 * kmw, 8 * kmw, 64 * kmw, None)
+    t["kmer_histogram_k8"] = (16 * kmw, 4 * kmw, 4 * 4**8, None)
+    t["kmer_codes_k31_pair"] = (16 * kmw, 12 * kmw, 128 * kmw, None)
+    t["kmer_counts_k21"] = (16 * kc, 12 * kc, 8 * (16 * kc - 20), "sort")
+    t["minimizers_w10_k15"] = (16 * mz, 4 * mz, 16 * mz, "operations")
+    t["minimizer_bits_w10_k15"] = (16 * mz, 4 * mz, 4 * mz, "operations")
+    t["sketch_bottom1k_k21"] = (16 * kc, 12 * kc, 64 * kc, "sort")
+    t["revcomp_packed"] = t["revcomp_packed_ragged"] = (16 * words, 4 * words, 4 * words, None)
+    t["gc_content_packed"] = (16 * words, 4 * words, 4, None)
+    t["search_scan_7nt"] = t["search_scan_45nt"] = (4 * words, 4 * words, 4 * words, None)
+    n5 = 2 * (nt5 // 27)
+    t["search_b5_7nt"] = t["search_b5_45nt"] = (4 * n5, 5 * n5, 2 * n5, None)
+    t["gc_content_packed_b5"] = ((n5 // 2) * 27, 4 * n5, 4 * -(-n5 // 256), None)
+    t["revcomp_packed_b5"] = ((n5 // 2) * 27, 4 * n5, 4 * n5, "operations")
+    hb = min(rows, 4096) * 8192
+    for name in ("host_memcpy", "host_oracle_encode", "host_oracle_decode"):
+        t[name] = (hb, None, None, None)
+    return {_port_name(k): v for k, v in t.items()}
+
+
+@pytest.fixture(scope="module")
+def table():
+    return bench.build_rows("cpu", scale=4096, full=True)
+
+
+def test_row_names_are_the_reference_table_with_the_tier_swapped(table):
+    with open(REPO / "BENCH_DETAIL.json") as f:
+        ref = list(json.load(f)["detail"])
+    assert len(ref) == 51
+    want = [_port_name(n) for n in ref if n not in NOT_PORTED]
+    want.insert(want.index("decode_b5_cuda_checked") + 1, "decode_b5_cuda_u8")  # BENCH_FULL's extra row
+    assert [r.name for r in table] == want and len(want) == 43
+    short = [r.name for r in bench.build_rows("cpu", scale=4096)]
+    assert short == [n for n in want if n != "decode_b5_cuda_u8"] and len(short) == 42
+
+
+@pytest.mark.parametrize("scale, full", ((4096, True), (1024, False)))
+def test_denominators_and_byte_models_equal_the_reference(scale, full):
+    rows = bench.build_rows("cpu", scale=scale, full=full)
+    want = _reference_rows(scale, full)
+    assert set(want) == {r.name for r in rows}
+    for r in rows:
+        denom, read, write, tag = want[r.name]
+        assert r.denom == denom, r.name
+        if read is None:
+            assert r.roofline is None and r.section == "host", r.name
+        else:
+            assert (r.roofline.read_bytes, r.roofline.write_bytes) == (read, write), r.name
+        assert r.bound_override == tag, r.name
+
+
+def test_rows_calls_per_run_are_the_reference_chain_lengths(table):
+    k = {r.name: r.k for r in table}
+    assert k["memcpy_device"] == k["decode_b5_cuda_u8"] == k["search_b5_45nt"] == k["revcomp_packed"] == 32
+    assert k["kmer_codes_k15"] == k["minimizers_w10_k15"] == 16
+    assert k["kmer_counts_k21"] == k["sketch_bottom1k_k21"] == 6
+    assert k["encode_b5_torch"] == 32  # BENCH_FULL: the twins run the core chains
+    assert {r.name: r.k for r in bench.build_rows("cpu", scale=4096)}["encode_b5_torch"] == 16
+
+
+def test_every_step_runs_once_through_the_timer(table, capsys):
+    calls = []
+
+    def timer(row):
+        calls.append(row.name)
+        out = row.step()
+        assert out is not None
+        return 1e-3, 2e-5
+
+    results = bench.run_rows(table, timer, bench.Results())
+    assert calls == [r.name for r in table] and not results.failed
+    assert set(results.gibs) == set(results.ms) == set(calls)
+    assert all(v > 0 for v in results.gibs.values())
+    assert results.latency_ms["memcpy_device"] == pytest.approx(2e-2)
+    assert results.bound["kmer_counts_k21"] == "sort" and "kmer_counts_k21" not in results.sol
+    assert results.bound["search_scan_7nt"] == "bytes" and results.sol["search_scan_7nt"] > 0
+    assert "host_memcpy" not in results.bound
+    assert all(counts == {} for counts in results.launches.values())  # the CPU launches nothing
+    err = capsys.readouterr().err.splitlines()
+    assert len(err) == len(table) and err[0].startswith("memcpy_device") and "GiB/s" in err[0]
+
+
+def test_launches_failures_and_sections_are_accounted():
+    def planar_step():
+        K.encode_b5_planar.launches += 2
+        return torch.zeros(1)
+
+    def broken():
+        raise RuntimeError("boom")
+
+    rows = [bench.Row("a", "core", planar_step, 10, bench.Roofline(10, 10)),
+            bench.Row("b", "core", broken, 10), bench.Row("c", "packed", lambda: torch.zeros(1), 10),
+            bench.Row("d", "host", lambda: 0, 10)]
+    results = bench.run_rows(rows, lambda r: (r.step(), (1.0, 0.0))[1], bench.Results(), sections={"core", "host"})
+    assert results.launches["a"] == {"encode_b5_planar": 2}
+    assert results.failed == ["b"] and results.gibs["b"] == 0.0
+    assert "c" not in results.gibs and "d" in results.gibs
+    late = bench.run_rows(rows[2:], lambda r: (1.0, 0.0), bench.Results(), budget_s=0.0, t_start=0.0)
+    assert late.gibs == {}  # sections after core are skipped past the budget
+    K.reset_launch_counts()
+
+
+def test_headline_and_detail_file(tmp_path, capsys):
+    results = bench.Results(device={"name": "card"})
+    for name, v in (("memcpy_device", 900.0), ("encode_2bit_cuda_mul", 800.0), ("encode_2bit_cuda_mxu", 300.0),
+                    ("decode_b5_cuda_nt4", 700.0), ("gc_content_packed_b5", 2000.0)):
+        results.gibs[name] = v
+    path = str(tmp_path / "d" / "detail.json")
+    bench.emit(results, path)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(line) == ["metric", "value", "unit", "vs_baseline", "gbps_per_chip", "vs_device_memcpy",
+                          "vs_reference_memcpy", "chips", "champions_gibs", "detail_file"]
+    assert line["metric"] == "encode_2bit_throughput" and line["value"] == 800.0 and line["chips"] == 1
+    assert line["vs_device_memcpy"] == round(800 / 900, 3) and line["vs_baseline"] == round(800 / 28.962, 3)
+    champions = line["champions_gibs"]
+    assert champions["decode_b5"] == 700.0 and champions["gc_b5"] == 2000.0
+    assert champions["stream_encode"] is champions["edit_distance_gcups"] is champions["encode_b5"] is None
+    assert line["detail_file"] == path
+    with open(path) as f:
+        detail = json.load(f)
+    assert {"detail", "sol_frac", "bound", "dispatch_latency_ms", "stream", "device", "launches"} <= set(detail)
+    assert detail["stream"] == {} and detail["device"] == {"name": "card"}
+
+
+def test_config_from_env():
+    default = bench.Config.from_env({})
+    assert (default.scale, default.full, default.sections) == (1, False, frozenset())
+    assert default.detail_path.endswith(os.path.join("build", "bench_detail.json"))
+    partial = bench.Config.from_env({"BENCH_SCALE": "8", "BENCH_FULL": "1"})
+    assert partial.full and partial.detail_path.endswith("bench_detail.partial.json")
+    assert bench.Config.from_env({"BENCH_SECTIONS": "core,host"}).detail_path.endswith("partial.json")
+    assert bench.Config.from_env({"BENCH_DETAIL_PATH": "x.json"}).detail_path == "x.json"
+    assert "BENCH_DETAIL.json" not in default.detail_path
+    with pytest.raises(ValueError, match="unknown BENCH_SECTIONS"):
+        bench.Config.from_env({"BENCH_SECTIONS": "xla"})
+
+
+def test_main_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="CUDA is not available"):
+        bench.main({})
+
+
+def test_bench_command_without_cuda_exits_1_with_one_error_line():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-m", "cute_nucleotides_tpu_torch", "bench"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1 and proc.stdout == ""
+    assert proc.stderr.strip().splitlines() == ["error: bench measures the card, and CUDA is not available"]
+
+
+# --- the uint32 operations the card lacks ---------------------------------------
+
+#: aten ops that raise NotImplementedError for uint32 on the card (probed:
+#: bitwise and shifts; add, lt and minimum are not in its uint32 kernels)
+_MISSING_ON_CARD = {"bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not", "bitwise_left_shift",
+                    "bitwise_right_shift", "__and__", "__or__", "__xor__", "__lshift__", "__rshift__", "__iand__",
+                    "__ior__", "__ixor__", "__ilshift__", "__irshift__", "add", "add_", "lt", "minimum"}
+
+
+class _CardUint32(TorchDispatchMode):
+    """Raise, as the card does, where one of those ops meets a uint32 tensor."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.overloadpacket.__name__ in _MISSING_ON_CARD and any(
+                isinstance(a, torch.Tensor) and a.dtype == torch.uint32 for a in tree_flatten((args, kwargs))[0]):
+            raise NotImplementedError(f"{func} on uint32 (missing on the card)")
+        return func(*args, **kwargs)
+
+
+def test_the_guard_catches_uint32_bit_ops():
+    w = torch.arange(4, dtype=torch.int32).view(torch.uint32)
+    for op in (lambda: w & 1, lambda: w >> 1, lambda: w + w, lambda: w < w, lambda: torch.minimum(w, w)):
+        with _CardUint32(), pytest.raises(NotImplementedError, match="missing on the card"):
+            op()
+    with _CardUint32():
+        assert torch.equal((w.view(torch.int32) & 1), torch.tensor([0, 1, 0, 1], dtype=torch.int32))
+
+
+def test_torch_twins_and_planar_plain_versions_avoid_the_missing_ops():
+    """The six functions of the bench's torch rows, and the plain versions
+    of #15-#17 that chip_smoke.py runs on the card, under the guard: each
+    equals its unguarded result."""
+    rng = np.random.default_rng(1)
+    x = interop.to_tensor(rng.choice(np.frombuffer(b"ACGTUacgtu", np.uint8), size=(3, 256)))
+    x5 = interop.to_tensor(rng.choice(np.frombuffer(b"ACGTUNacgtun", np.uint8), size=(2, K.B5_ROW_NT)))
+    w2 = eager.encode_2bit_words(x, "mul")
+    w5 = eager.encode_b5_words(x5)
+    lo, hi = K.encode_b5_planar_plain(x5)
+    calls = {"encode mul": lambda: eager.encode_2bit_words(x, "mul"),
+             "encode dot": lambda: eager.encode_2bit_words(x, "dot"),
+             "decode shuffle": lambda: eager.decode_2bit_bytes(w2, "shuffle"),
+             "decode broadcast": lambda: eager.decode_2bit_bytes(w2, "broadcast"),
+             "encode b5": lambda: eager.encode_b5_words(x5), "decode b5": lambda: eager.decode_b5_bytes(w5),
+             "#15 plain": lambda: K.encode_b5_planar_plain(x5)[1],
+             "#16 plain": lambda: K.decode_b5_nt4_panels_plain(lo, hi),
+             "#16 compact plain": lambda: K.decode_b5_nt4_panels_plain(lo, hi, padded=False),
+             "#17 plain": lambda: K.decode_b5_panels_plain(lo, hi)}
+    for label, call in calls.items():
+        want = call()
+        with _CardUint32():
+            got = call()
+        assert torch.equal(got.view(torch.int32) if got.dtype == torch.uint32 else got,
+                           want.view(torch.int32) if want.dtype == torch.uint32 else want), label

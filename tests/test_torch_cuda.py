@@ -1,6 +1,7 @@
-"""The CUDA kernels of both codecs, the search, the k-mer path and the
-sketch path on the card: each against its plain version, the cuda tier against the torch tier
-and the oracle, launch counts and refusals.
+"""The CUDA kernels of both codecs (with their planar forms), the search,
+the k-mer path and the sketch path on the card: each against its plain
+version, the cuda tier against the torch tier and the oracle, launch counts
+and refusals; and the bench's table.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX, so it also runs where JAX is not installed; the tests' conftest
@@ -106,7 +107,7 @@ def test_launch_counts_and_alignment(cuda_device):
     K.encode_2bit_nt4_mxu(t)
     K.encode_2bit_nt4_mxu(t, checked=True)
     K.decode_2bit_nt4(K.encode_2bit_nt4(t))
-    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     misaligned = torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:36]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_2bit_nt4(misaligned.view(torch.uint32).view(2, 4))
@@ -192,7 +193,7 @@ def test_b5_launch_counts_and_alignment(cuda_device):
     K.encode_b5_stream(x, checked=True)
     for checked, digits in B5_MODES:
         K.decode_b5_stream(w, checked, digits)
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_b5_stream(torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:31])
     with pytest.raises(ValueError, match="checked digit"):
@@ -280,7 +281,7 @@ def test_search_launch_counts(cuda_device):
     search.match_positions_b5(w5, s.size, b"GAT?ACA")
     search.match_positions_b5(w5[:1000], 13500, b"GAT?ACA")  # under 1024 u32: the mask tier
     search.match_count_b5(w5, s.size, b"A" * 1025)  # over 1024 nt: the mask tier
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.match_bits_stream(w2[1:], *search.compile_query(b"ACG")[:2], 10)
 
@@ -337,7 +338,7 @@ def test_kmer_cuda_matches_torch_tier(cuda_device):
     for k in (3, 8, 11):
         assert _same(kmer.kmer_histogram_batch(interop.to_tensor(batch, cuda_device), lengths, k, canonical=True),
                      kmer.kmer_histogram_batch(interop.to_tensor(batch), lengths, k, canonical=True))
-    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2, 0, 0, 0, 0, 0, 0, 0]
 
 
 def test_stats_cuda_matches_torch_tier(cuda_device, tmp_path, capsys):
@@ -525,3 +526,69 @@ def test_sort_pairs_bitonic_kernel_matches_plain(cuda_device, n):
         K.reset_launch_counts()
         sort.sort_pairs(th, tl, prefer="bitonic")
         assert K.sort_pairs_bitonic.launches == int(n >= 2049), (label, n)
+
+
+@pytest.mark.parametrize("R", (1, 2, 37, 128))
+def test_planar_kernels_match_plain(cuda_device, R):
+    """#15 on random rows and all 256 byte values, #16 (padded, compact) and
+    #17 on random words and every triplet value in every slot with and
+    without bit 63: against their plain versions and the interleaved
+    kernels #5 and #6; the pad lanes 'AAAA'."""
+    rng = np.random.default_rng(R)
+    inputs = [rng.choice(ALPHABET_N, size=(R, K.B5_ROW_NT))]
+    if R == 2:
+        inputs += [np.arange(256, dtype=np.uint8).repeat(27).reshape(2, -1),
+                   np.tile(np.arange(256, dtype=np.uint8), 27).reshape(2, -1)]
+    for host in inputs:
+        x = interop.to_tensor(host, cuda_device)
+        lo, hi = K.encode_b5_planar(x)
+        plo, phi = K.encode_b5_planar_plain(x)
+        assert _same(lo, plo) and _same(hi, phi)
+        assert _same(K._interleave(lo, hi), K.encode_b5_stream(x.view(-1)))
+    for w64 in (rng.integers(0, 2**64, R * 128, dtype=np.uint64), _every_triplet_words()):
+        pair = w64.view(np.uint32).reshape(-1, 128, 2)
+        lo, hi = (interop.to_tensor(np.ascontiguousarray(pair[..., i]), cuda_device) for i in (0, 1))
+        want = K.decode_b5_stream(interop.u64_to_tensor(w64, cuda_device))
+        assert _same(K.decode_b5_panels(lo, hi), K.decode_b5_panels_plain(lo, hi))
+        assert _same(K.decode_b5_panels(lo, hi).view(-1), want)
+        for padded in (True, False):
+            assert _same(K.decode_b5_nt4_panels(lo, hi, padded=padded),
+                         K.decode_b5_nt4_panels_plain(lo, hi, padded=padded))
+        lanes = K.decode_b5_nt4_panels(lo, hi).view(torch.int32).view(-1, 8, 112)
+        assert _same(lanes[:, :, :108].contiguous().view(torch.uint8).view(-1), want)
+        assert bool((lanes[:, :, 108:] == 0x41414141).all())
+
+
+def test_planar_launch_counts_and_refusals(cuda_device):
+    K.reset_launch_counts()
+    x = interop.to_tensor(np.random.default_rng(9).choice(ALPHABET_N, size=(3, K.B5_ROW_NT)), cuda_device)
+    lo, hi = K.encode_b5_planar(x)
+    K.decode_b5_nt4_panels(lo, hi)
+    K.decode_b5_nt4_panels(lo, hi, padded=False)
+    K.decode_b5_panels(lo, hi)
+    K.encode_b5_planar(x[:0])  # no rows: nothing launched
+    assert [fn.launches for fn in K.WRAPPERS][-3:] == [1, 2, 1] and sum(fn.launches for fn in K.WRAPPERS) == 4
+    with pytest.raises(ValueError, match="aligned"):
+        K.encode_b5_planar(torch.zeros(2 * K.B5_ROW_NT, dtype=torch.uint8, device=cuda_device)[4 : 4 + K.B5_ROW_NT]
+                           .view(1, -1))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.decode_b5_panels(lo.t().contiguous().t(), hi)
+    with pytest.raises(ValueError, match="inputs on"):
+        K.decode_b5_panels(lo, hi.cpu())
+
+
+def test_bench_table_on_the_card(cuda_device):
+    """The bench's rows at a small scale with the real timer: every row above
+    0, none failed, and the planar rows launched #15-#17."""
+    from cute_nucleotides_tpu_torch import bench
+
+    rows = bench.build_rows(cuda_device, scale=512, full=True)
+    results = bench.run_rows(rows, bench.cuda_timer, bench.Results())
+    assert not results.failed and len(results.gibs) == 43 and all(v > 0 for v in results.gibs.values())
+    calls = 1 + bench.TRIALS * bench.K_CORE + 1  # warm-up, timed runs, latency call
+    assert results.launches["encode_b5_cuda_planar"] == {"encode_b5_planar": calls}
+    for row in ("decode_b5_cuda_nt4", "decode_b5_cuda_nt4_padded"):
+        assert results.launches[row] == {"decode_b5_nt4_panels": calls}
+    assert results.launches["decode_b5_cuda_u8"] == {"decode_b5_panels": calls}
+    assert results.launches["memcpy_device"] == {} and results.launches["encode_2bit_torch_mul"] == {}
+    assert all(s > 0 for s in results.sol.values())

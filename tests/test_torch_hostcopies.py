@@ -1,7 +1,9 @@
 """The port's own copies of the reference's host layers against the
 originals: ``ops/spec.py``, ``ops/oracle.py``, the C++ oracle
-(``native/codec.cpp`` and ``ops/native.py``), ``utils/io.py`` and the
-``.nup`` container (``nup.py``, with its random access by name).  The port
+(``native/codec.cpp`` and ``ops/native.py``, with the bench's ``memcpy``
+and the de-pad copy), ``utils/io.py``, the ``.nup`` container (``nup.py``,
+with its random access by name) and the byte models of
+``utils/profiling.py``.  The port
 imports none of the reference, so these tests keep the copies honest: the
 same constants, the same words, the same bytes on disk, the same records
 and the same errors."""
@@ -15,11 +17,12 @@ import pytest
 
 from cute_nucleotides_tpu import cli as ref_cli
 from cute_nucleotides_tpu.native import __file__ as ref_native_init
-from cute_nucleotides_tpu.ops import native as ref_native, oracle as ref_oracle, spec as ref_spec
-from cute_nucleotides_tpu.utils import io as ref_io
+from cute_nucleotides_tpu.ops import native as ref_native, oracle as ref_oracle, pallas_kernels as ref_pk
+from cute_nucleotides_tpu.ops import spec as ref_spec
+from cute_nucleotides_tpu.utils import io as ref_io, profiling as ref_profiling
 from cute_nucleotides_tpu_torch import native as port_native_build, nup
-from cute_nucleotides_tpu_torch.ops import native, oracle, spec
-from cute_nucleotides_tpu_torch.utils import io as port_io
+from cute_nucleotides_tpu_torch.ops import kernels, native, oracle, spec
+from cute_nucleotides_tpu_torch.utils import io as port_io, profiling
 
 LENGTHS = (0, 1, 26, 27, 28, 31, 32, 33, 1000, 4099)
 
@@ -87,6 +90,47 @@ def test_fill_rows_equals_reference():
     assert np.array_equal(a, b)
     with pytest.raises(ValueError, match="out of buffer bounds"):
         native.fill_rows(buf, np.array([490]), np.array([20]), a)
+
+
+@pytest.mark.parametrize("n", (0, 1, 4099, 1 << 20))
+def test_memcpy_equals_reference(n):
+    s = _seq(n)
+    got = native.memcpy(s)
+    assert got.dtype == np.uint8 and np.array_equal(got, ref_native.memcpy(s)) and np.array_equal(got, s)
+    assert got.ctypes.data != s.ctypes.data
+    assert np.array_equal(native.memcpy(bytes(s[:33])), ref_native.memcpy(bytes(s[:33])))
+
+
+@pytest.mark.parametrize("rows", (0, 1, 3, 64))
+def test_depad_equals_reference(rows):
+    panels = np.random.default_rng(rows).integers(0, 2**32, (rows, 896), dtype=np.uint32)
+    got = kernels.depad_nt4_host(panels)
+    assert np.array_equal(got, ref_pk.depad_nt4_host(panels)) and got.size == rows * 3456
+    assert np.array_equal(native.depad_nt4(panels), got)
+    assert np.array_equal(kernels.depad_nt4_host(panels.T.copy().T), got)  # made contiguous first
+    for bad in (np.zeros((2, 864), np.uint32), np.zeros(896, np.uint32)):
+        with pytest.raises(TypeError) as want:
+            ref_pk.depad_nt4_host(bad)
+        with pytest.raises(TypeError) as err:
+            kernels.depad_nt4_host(bad)
+        assert str(err.value) == str(want.value)
+
+
+@pytest.mark.parametrize("nt", (0, 26, 27, 1000, 268_435_456, 268_959_744))
+def test_byte_models_equal_reference(nt):
+    for name in ("encode_2bit_roofline", "decode_2bit_roofline", "encode_b5_roofline", "decode_b5_roofline"):
+        got, want = getattr(profiling, name)(nt), getattr(ref_profiling, name)(nt)
+        assert (got.read_bytes, got.write_bytes, got.total) == (want.read_bytes, want.write_bytes, want.total), name
+
+
+def test_roofline_bound_at_the_card_peaks():
+    r = profiling.Roofline(3_350_000_000, 0)  # 1 ms of bytes at 3.35 TB/s
+    assert r.speed_of_light_s() == pytest.approx(1e-3) and r.bound_kind() == "bytes"
+    assert r.efficiency(2e-3) == pytest.approx(0.5)
+    ops = profiling.Roofline(8, 8, int_ops=67_000_000_000)  # 2 ms of instructions at 33.5 T/s
+    assert ops.speed_of_light_s() == pytest.approx(2e-3) and ops.bound_kind() == "operations"
+    assert profiling.bound(3.35e9) == (pytest.approx(1.0), "bytes")
+    assert not hasattr(profiling, "HBM_GIBS") and not hasattr(profiling, "MXU_INT8_TOPS")
 
 
 def _entries(codec: str):

@@ -147,7 +147,7 @@ def test_cpu_dispatch_launches_nothing():
     K.encode_2bit_nt4_mxu(t)
     K.encode_2bit_nt4_mxu(t, checked=True)
     K.decode_2bit_nt4(K.encode_2bit_nt4(t))
-    assert [fn.launches for fn in K.WRAPPERS] == [0] * 15
+    assert [fn.launches for fn in K.WRAPPERS] == [0] * len(K.WRAPPERS)
 
 
 def test_wrapper_argument_checks():

@@ -207,6 +207,34 @@ print("auto resolves to", models.TwoBitCodec().tier, models.Base5Codec().tier)
     assert "auto resolves to torch torch" in proc.stdout
 
 
+def test_bench_loads_neither_jax_nor_the_reference():
+    """The bench and its roofline module are scanned with the rest of the
+    port; its CPU path (the row table, every step once, the headline) and
+    the planar kernels' plain versions leave no jax and no
+    cute_nucleotides_tpu module loaded and launch nothing."""
+    sources = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"bench.py", "utils/profiling.py"} <= sources
+    for name in ("bench.py", "utils/profiling.py"):
+        assert not IMPORTS_REFERENCE.search((PORT / name).read_text())
+        assert not re.search(r"^\s*(import jax|from jax\b)", (PORT / name).read_text(), re.M)
+    code = """
+import sys
+from cute_nucleotides_tpu_torch import bench
+from cute_nucleotides_tpu_torch.ops import kernels
+rows = bench.build_rows("cpu", scale=4096, full=True)
+kernels.reset_launch_counts()
+results = bench.run_rows(rows, lambda row: (row.step(), (1e-3, 0.0))[1], bench.Results())
+assert len(results.gibs) == 43 and not results.failed
+assert all(fn.launches == 0 for fn in kernels.WRAPPERS)
+print(bench.headline(results, "detail.json"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cute_nucleotides_tpu"))
+print("LOADED", loaded)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout and '"metric": "encode_2bit_throughput"' in proc.stdout
+
+
 def test_chip_smoke_fails_without_cuda():
     proc = _run([str(REPO / "chip_smoke.py")])
     assert proc.returncode != 0

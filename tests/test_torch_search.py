@@ -365,7 +365,7 @@ def test_plain_versions_take_only_cpu_tensors():
     assert torch.equal(K.match_bits_stream(w, q, care, 280 - m + 1),
                        K.match_bits_stream_plain(w, q, care, 280 - m + 1))
     assert torch.equal(K.match_b5_bits_stream(w5, qc, 274), K.match_b5_bits_stream_plain(w5, qc, 274))
-    assert [fn.launches for fn in K.WRAPPERS] == [0] * 15
+    assert [fn.launches for fn in K.WRAPPERS] == [0] * len(K.WRAPPERS)
     for call in (lambda: K.match_bits_stream(w.to("meta"), q, care, 10),
                  lambda: K.match_b5_bits_stream(w5.to("meta"), qc, 10),
                  lambda: search.match_bits(w.to("meta"), 280, b"GATTACA"),
