@@ -63,8 +63,9 @@ The sketch path (MinHash sketches, minimizers, the ``sketch`` command):
 phase 2 holds #12 against its plain version at every k in 16..31, canonical
 and forward, W in {1, 511, 512, 513, 3000} as one stream and as 37-word
 read rows, ``n_valid`` at word and row seams, with a planted k-mer whose
-hash is 0xFFFFFFFF, and #14 at k in {1, 7, 15}, w in {2, 10, 64, 2049 - k}
-on 16389-, 32768- and 100,003-nt random and poly-A streams; phase 4 runs
+hash is 0xFFFFFFFF, and #14 at k in {1, 7, 15}, w in {2, 3, 8, 9, 10, 16,
+17, 33, 64, 1024, 1025, 2049 - k} on 16389-, 32768- and 100,003-nt random
+and poly-A streams; phase 4 runs
 ``bottom_k_sketch(k=21, s=1000)``, ``frac_sketch(k=21, scale=1000)``,
 ``minimizers(k=15, w=10)``, ``minimizer_bits`` and ``kmer_hashes_planar``
 on the chr1-length stream against their plain-built twins; phase 5 runs
@@ -85,10 +86,11 @@ each codec with windows at word seams and one over 1 Mnt, ``translate
 200,000 reads of each codec with one record in ten planted as a duplicate,
 each output against numpy on the bytes.
 
-The sort path (kernel #18): phase 2 holds it against its plain version and
-``prefer="lax"`` at 4096, 4133, 16383, 2^20 + 1 and 2^23 pairs (random,
-all equal, descending, ties on hi, keys straddling the sign bit, k-mer keys
-with sentinels); phase 4 runs ``sort.sort_pairs(hi, lo, prefer="bitonic")``
+The sort path (kernel #18, a radix sort): phase 2 holds it against its
+plain version and ``prefer="lax"`` at 4096, 4097, 4133, 16383, 37 * 4096 +
+5, 2^20 + 1, 2^22 + 3 and 2^23 pairs (random, all equal, descending, ties
+on hi, keys straddling the sign bit, k-mer keys with and without
+sentinels); phase 4 runs ``sort.sort_pairs(hi, lo, prefer="bitonic")``
 on the chr1-length stream's k = 21 canonical k-mer pairs (the keys
 ``kmer_counts`` sorts) against ``prefer="lax"``.
 
@@ -102,11 +104,12 @@ torch and numpy; the host oracle it checks against is the port's own
 
 The line before the last lists every kernel with its launches on its path,
 its largest difference from its plain version, its time (CUDA events) beside
-the plain version's and, for the histogram, ``torch.bincount``'s, and its
+the plain version's and, for the histogram and the sort, ``torch.bincount``'s
+and ``torch.sort``'s, and its
 bound: the least time the card could take, the larger of the bytes it must
 move at 3.35 TB/s and the integer instructions its data needs at the
-card's issue rate.  Phase 1 prints the SASS instruction mix of the sketch
-kernels (``cuobjdump``), the check on those counts.
+card's issue rate.  Phase 1 prints the SASS instruction mix of the sketch,
+GC and radix sort kernels (``cuobjdump``), the check on those counts.
 
 All data comes from seeds.  Exits non-zero, without the final line, on any
 failure or without CUDA.  Run from the repository root:
@@ -188,7 +191,9 @@ _CSRC = "cute_nucleotides_tpu_torch/csrc"
 SOURCES = {k: f"{_CSRC}/" + next((src for ks, src, _ in _GROUPS if k in ks), "codec2bit.cu") for k in REPLACES}
 PATH_OF = {k: next((path for ks, _, path in _GROUPS if k in ks), "2-bit") for k in REPLACES}
 GC_B5_WORDS = B5_WORDS + (1001,)  # phase-2 word counts of #7, one odd
-SORT_N = (4096, 4133, 16383, (1 << 20) + 1, 1 << 23)  # phase-2 pair counts of #18
+#: phase-2 pair counts of #18: one tile of its passes (4096 keys), one tile +
+#: 1, ragged, many tiles, and sizes past the look-back's first tiles
+SORT_N = (4096, 4097, 4133, 16383, 37 * 4096 + 5, (1 << 20) + 1, (1 << 22) + 3, 1 << 23)
 DEDUP_EVERY = 10  # one read in ten is planted as a duplicate of an earlier one
 PLANAR_R = (1, 2, 37, 128)  # phase-2 rows of #15-#17
 #: the bench child: scale, full table, its time limit, its rows, the keys of its last line
@@ -202,8 +207,12 @@ BENCH_PLANAR_ROWS = {"encode_b5_cuda_planar": "encode_b5_planar", "decode_b5_cud
 KMER_W = (1, 511, 512, 513)  # word lanes per row in phase 2; 37 rows, a multiple of no block
 STATS_READS, STATS_REC_NT = 20_000, 4_000_000
 MZ_NT = (16384 + 5, 32768, 100_003)  # stream lengths of the minimizer kernel's phase-2 cases, nt
+#: its windows: powers of two and their neighbours move the doubling's last
+#: offset; 2049 - k (the largest) is added per k
+MZ_W = (2, 3, 8, 9, 10, 16, 17, 33, 64, 1024, 1025)
 SKETCH_K, SKETCH_S, SKETCH_SCALE, SKETCH_CAP = 21, 1000, 1000, 1 << 19
 SENTINEL = 0xFFFFFFFF
+SORT_KERNEL_LAUNCHES = 9  # #18: the histogram kernel and eight radix passes per call
 
 
 class SmokeFailure(Exception):
@@ -273,17 +282,31 @@ def phase_build():
     lib = _build.load()
     say(f"phase 1 build: nvcc {' '.join(_build.NVCC_FLAGS)} {os.path.relpath(_build.CSRC_DIR)}/*.cu; "
         f"build and load {time.perf_counter() - t0:.1f} s")
-    _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel", "gc_b5_kernel"))
+    _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel", "gc_b5_kernel",
+                                          "radix_hist_kernel", "radix_pass_kernel"))
+
+
+def _kernel_label(name: str, kernels):
+    """``kernel<args>`` for a mangled function name holding one of
+    ``kernels``, else None."""
+    hit = next((k for k in kernels if k in name), None)
+    # the template arguments from the mangled name: Lb1E is true, Li256E 256
+    targs = re.search(f"{hit}I((?:L[a-z]+[0-9]+E)+)E", name) if hit else None
+    args = ", ".join(("true" if v == "1" else "false") if t == "b" else v
+                     for t, v in re.findall(r"L([a-z]+)([0-9]+)E", targs.group(1))) if targs else ""
+    return (f"{hit}<{args}>" if args else hit) if hit else None
 
 
 def _sass_mix(nvcc: str, path: str, kernels) -> None:
     """Print the SASS instruction count of each instance of ``kernels`` in the
     library at ``path`` (``cuobjdump -sass`` beside ``nvcc``, NOPs left out),
-    with its opcodes by frequency; a missing cuobjdump is reported, not
-    fatal."""
+    with its opcodes by frequency, then its registers per thread and its
+    static shared and local bytes (``cuobjdump -res-usage``); a missing
+    cuobjdump is reported, not fatal."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     try:
         dump = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True, timeout=120)
+        res = subprocess.run([cuobjdump, "-res-usage", path], capture_output=True, text=True, timeout=120)
     except OSError as e:
         say(f"phase 1 SASS: {cuobjdump} did not run ({e})")
         return
@@ -293,9 +316,7 @@ def _sass_mix(nvcc: str, path: str, kernels) -> None:
     fn, mixes = None, {}
     for line in dump.stdout.splitlines():
         if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            hit = next((k for k in kernels if k in name), None)
-            fn = f"{hit}<{'true' if 'ILb1' in name else 'false'}>" if hit else None
+            fn = _kernel_label(line.split("Function :", 1)[1].strip(), kernels)
             continue
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
         if fn and m and m.group(1) != "NOP":
@@ -304,6 +325,12 @@ def _sass_mix(nvcc: str, path: str, kernels) -> None:
     for fn, mix in sorted(mixes.items()):
         top = sorted(mix.items(), key=lambda kv: -kv[1])
         say(f"phase 1 SASS {fn}: {sum(mix.values())} instructions: {dict(top)}")
+    for name, usage in re.findall(r"Function (\S+?):\s*(REG:[^\n]*)", res.stdout):
+        fn = _kernel_label(name, kernels)
+        if fn:
+            u = dict(re.findall(r"(\w+):(\d+)", usage))
+            say(f"phase 1 resources {fn}: {u.get('REG')} registers a thread, stack {u.get('STACK')} B, "
+                f"static shared {u.get('SHARED')} B, local {u.get('LOCAL')} B")
 
 
 # --- phase 2: each kernel vs its plain version ---------------------------------
@@ -642,9 +669,10 @@ def phase_kernels_sketch(errors: Errors, rng) -> None:
     """#12 at every k in 16..31, canonical and forward, W in KMER_W (one
     stream, and rows of 37 words as a read batch), n_valid at the end, at a
     word seam and at a row seam, with a planted k-mer whose hash is
-    0xFFFFFFFF; #14 at k in {1, 7, 15} and w in {2, 10, 64, 2049 - k},
-    canonical and forward, on MZ_NT-long random and poly-A streams; each
-    bit for bit against its plain version."""
+    0xFFFFFFFF; #14 at k in {1, 7, 15} and w in MZ_W and 2049 - k,
+    canonical and forward, on MZ_NT-long random and poly-A streams (n a
+    multiple of neither block span); each bit for bit against its plain
+    version."""
     import torch
 
     from cute_nucleotides_tpu_torch.ops import kernels as K
@@ -678,7 +706,7 @@ def phase_kernels_sketch(errors: Errors, rng) -> None:
         for label, stream in (("random", words), ("poly-A", np.zeros_like(words))):
             w = torch.from_numpy(stream).to(dev)
             for k in (1, 7, 15):
-                for win in (2, 10, 64, 2048 - k + 1):
+                for win in MZ_W + (2048 - k + 1,):
                     for canonical in (False, True):
                         n = nt - k + 1
                         got = K.minimizer_bits_stream(w, n, k, win, canonical=canonical)
@@ -693,7 +721,7 @@ def phase_kernels_sketch(errors: Errors, rng) -> None:
     torch.cuda.synchronize()
     say(f"phase 2 sketch kernels: #12 at k 16..31 on W in {KMER_W + (3000,)} (one stream and 37-word rows, "
         f"n_valid at the end and at word and row seams, a planted 0xFFFFFFFF k-mer in {planted} streams); #14 "
-        f"in {cases} cases on {MZ_NT}-nt random and poly-A streams: bit-identical to the plain versions "
+        f"in {cases} cases (w in {MZ_W} and 2049 - k) on {MZ_NT}-nt random and poly-A streams: bit-identical to the plain versions "
         f"({errors.count} comparisons in phase 2; max abs err {errors.max})")
 
 
@@ -708,24 +736,28 @@ def _sort_cases(rng, n: int) -> dict:
     """(hi, lo) u32[n] key planes of the shapes #18 must order: random, all
     equal, descending, ties on hi, values straddling the int32 sign bit,
     and k-mer keys (a 10-bit hi, heavy lo duplication, the last fifth the
-    (0xFFFFFFFF, 0xFFFFFFFF) sentinel)."""
+    (0xFFFFFFFF, 0xFFFFFFFF) sentinel), and k-mer keys without sentinels,
+    whose digits 2, 3, 6 and 7 each hold a single value."""
     asc = np.arange(n, dtype=np.uint32)
     kmer_hi = rng.integers(0, 1 << 10, n, dtype=np.uint64).astype(np.uint32)
     kmer_lo = rng.integers(0, 5000, n, dtype=np.uint64).astype(np.uint32)
     kmer_hi[-(n // 5):] = kmer_lo[-(n // 5):] = SENTINEL
+    plain = (rng.integers(0, 1 << 10, n, dtype=np.uint64).astype(np.uint32),
+             rng.integers(0, 5000, n, dtype=np.uint64).astype(np.uint32))
     straddle = (rng.integers(2**31 - 4, 2**31 + 4, n, dtype=np.uint64).astype(np.uint32),
                 rng.integers(2**31 - 4, 2**31 + 4, n, dtype=np.uint64).astype(np.uint32))
     return {"random": (rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
                        rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)),
             "k-mer keys": (kmer_hi, kmer_lo), "descending": (asc[::-1].copy(), asc.copy()),
             "all equal": (np.full(n, 7, np.uint32), np.full(n, 3, np.uint32)),
-            "ties on hi": (np.zeros(n, np.uint32), asc[::-1].copy()), "sign bit": straddle}
+            "ties on hi": (np.zeros(n, np.uint32), asc[::-1].copy()), "sign bit": straddle,
+            "k-mer keys, no sentinels": plain}
 
 
 def phase_kernels_seqops(errors: Errors, rng) -> None:
     """#7 on GC_B5_WORDS random words (any triplet value, bit 63 on about
     half) and on every triplet value in every slot with and without bit 63;
-    #18 at SORT_N pairs on the _sort_cases shapes (the three most telling
+    #18 at SORT_N pairs on the _sort_cases shapes (the four most telling
     above 2^16), against its plain version and prefer="lax"; each bit for
     bit."""
     import torch
@@ -747,13 +779,13 @@ def phase_kernels_seqops(errors: Errors, rng) -> None:
     cases = 0
     for n in SORT_N:
         for label, (hi, lo) in _sort_cases(rng, n).items():
-            if n > 1 << 16 and label not in ("random", "k-mer keys", "descending"):
+            if n > 1 << 16 and label not in ("random", "k-mer keys", "descending", "k-mer keys, no sentinels"):
                 continue
             th, tl = torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
             got = K.sort_pairs_bitonic(th, tl)
             for ref, by in ((K.sort_pairs_bitonic_plain(th, tl), "plain version"), (sort.sort_pairs(th, tl), "lax")):
                 for plane, a, b in zip(("hi", "lo"), got, ref):
-                    errors.compare(k18, a, b, f"bitonic {label} n={n} {plane} vs {by}")
+                    errors.compare(k18, a, b, f"#18 {label} n={n} {plane} vs {by}")
             cases += 1
             del th, tl, got, ref
     torch.cuda.empty_cache()
@@ -1094,7 +1126,7 @@ def _profiled(fn):
     the wall seconds, and the device ms of the port's kernels, of copies
     (memcpy) and of other device work, summed over the profiler's raw
     device events (``key_averages()`` would build a Python object per event,
-    minutes for the 20,000-read ``stats``), with the three largest device
+    minutes for the 20,000-read ``stats``), with the five largest device
     event names by total under "top".  The port's kernel events are counted
     against the launches its wrappers counted during the call: a profile
     that saw fewer (the profiler loses events in a long process, PERF.md)
@@ -1121,14 +1153,14 @@ def _profiled(fn):
             continue
         key, ms = ev.name(), ev.duration_ns() / 1e6
         if any(tag in key for tag in ("_2bit_", "_b5_", "kmer_codes", "hist_codes", "kmer_hashes",
-                                      "minimizer_kernel", "bitonic_")):
+                                      "minimizer_kernel", "radix_")):
             kind = "kernels"
             seen += 1
         else:
             kind = "copies" if key.startswith("Memcpy") else "other"
         device[kind] += ms
         by_name[key] = by_name.get(key, 0.0) + ms
-    device["top"] = sorted(((ms, key[:48]) for key, ms in by_name.items()), reverse=True)[:3]
+    device["top"] = sorted(((ms, key[:64]) for key, ms in by_name.items()), reverse=True)[:5]
     device["seen"] = seen
     device["lost"] = (seen, launched) if seen < launched else None
     return out, wall, device
@@ -2011,11 +2043,10 @@ def phase_sort_chr1(errors: Errors, chr1_words):
     hi, lo = _chr1_kmer_pairs(chr1_words)
     n0 = hi.numel()
     (hs, ls), wall, dev = _profiled(lambda: sort.sort_pairs(hi, lo, prefer="bitonic"))
-    # one wrapper call launches the whole network: 1 + P (P + 3) / 2
-    # kernels, P = log2(n / 8192); a profile that saw fewer lost some
-    p = (1 << (n0 - 1).bit_length()).bit_length() - 1 - 13
-    if dev["seen"] < 1 + p * (p + 3) // 2:
-        dev["lost"] = (dev["seen"], 1 + p * (p + 3) // 2)
+    # one wrapper call launches the histogram kernel and the eight radix
+    # passes (beside nine memsets); a profile that saw fewer lost some
+    if dev["seen"] < SORT_KERNEL_LAUNCHES:
+        dev["lost"] = (dev["seen"], SORT_KERNEL_LAUNCHES)
     want = sort.sort_pairs(hi, lo)
     errors.compare("sort_pairs_bitonic", hs, want[0], "chr1 k=21 pairs: bitonic hi vs lax")
     errors.compare("sort_pairs_bitonic", ls, want[1], "chr1 k=21 pairs: bitonic lo vs lax")
@@ -2023,9 +2054,9 @@ def phase_sort_chr1(errors: Errors, chr1_words):
     check(sentinels == n0 - (CHR1_NT - SKETCH_K + 1), f"chr1 pairs: {sentinels} sentinels at the end")
     del hs, ls, want
     torch.cuda.empty_cache()
-    say(f"phase 4 sort chr1: sort_pairs(prefer='bitonic') of {n0} k=21 canonical pairs (padded to "
-        f"{1 << (n0 - 1).bit_length()}) == prefer='lax'; the {sentinels} sentinels last")
-    say(f"  sort_pairs bitonic, chr1 k=21 pairs: {_breakdown(wall, dev)}")
+    say(f"phase 4 sort chr1: sort_pairs(prefer='bitonic') (#18, radix) of {n0} k=21 canonical pairs == "
+        f"prefer='lax'; the {sentinels} sentinels last")
+    say(f"  sort_pairs bitonic, chr1 k=21 pairs: {_breakdown(wall, dev)}; top device events (ms) {dev['top']}")
     return hi, lo
 
 
@@ -2193,9 +2224,10 @@ def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, planes, card: str
     cases["kmer_hashes_planar_pair"] = [(f"[k={SKETCH_K} canonical]",
                                          lambda: K.kmer_hashes_planar_pair(chr1_words, SKETCH_K, n12),
                                          lambda: K.kmer_hashes_planar_pair_plain(chr1_words, SKETCH_K, n12))]
-    cases["minimizer_bits_stream"] = [("[k=15 w=10 canonical]",
-                                       lambda: K.minimizer_bits_stream(chr1_words, n14, 15, 10),
-                                       lambda: K.minimizer_bits_stream_plain(chr1_words, n14, 15, 10))]
+    cases["minimizer_bits_stream"] = [(f"[k=15 w={win} canonical]",
+                                       lambda win=win: K.minimizer_bits_stream(chr1_words, n14, 15, win),
+                                       lambda win=win: K.minimizer_bits_stream_plain(chr1_words, n14, 15, win))
+                                      for win in (10, 1024)]
     # #7 on the base-5 batch's words as one stream (the seqops path's
     # phase-3 call); #18 on the chr1 k = 21 pairs (the sort path's call),
     # then on 2^23 random pairs
@@ -2251,9 +2283,11 @@ def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, planes, card: str
         "kmer_hashes_planar_pair": _bound(4 * W3 + 4 * 16 * R3, 28 * n12 + 21 * W3),
         # #14: read the stream, write 4 B per 16 positions; per position 21:
         # the forward and reverse codes (funnel shift and mask each: 4), min
-        # (1), fmix32 (8), van Herk windowed min (prefix, suffix, combine: 3)
-        # and max (3), the compare (1) and the ballot (1); per word 5: the
-        # load and its reverse complement
+        # (1), fmix32 (8), a windowed min (prefix, suffix, combine: 3) and
+        # max (3) as van Herk's flat-cost form needs them, the compare (1)
+        # and the ballot (1); per word 5: the load and its reverse complement.
+        # The doubling passes take more (2 floor(log2 w) + 2 passes), so the
+        # bound does not depend on w
         "minimizer_bits_stream": _bound(4 * W3 + 4 * (-(-n14 // 16)), 21 * n14 + 5 * W3),
         "hist_codes": {label: _bound(4 * c.numel() + 4 * K.HIST_BINS) for label, c in hist_inputs.items()},
         # #7: read the stream; the lookup form's 3 instructions per triplet
@@ -2264,10 +2298,9 @@ def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, planes, card: str
         "decode_b5_nt4_panels": {"[padded]": _bound(8 * N5 + 4 * K.B5_NT4_PAD_LANES * (N5 // K.B5_ROW_WORDS)),
                                  "[compact]": _bound(8 * N5 + n5)},
         "decode_b5_panels": _bound(8 * N5 + n5),
-        # #18: read and write each pair once (16 B); any comparison sort
-        # makes at least n log2 n comparisons, one instruction each
-        "sort_pairs_bitonic": {label: _bound(16 * p[0].numel(), p[0].numel() * math.log2(p[0].numel()))
-                               for label, p in sort_inputs.items()},
+        # #18: read and write each pair once (16 B); the radix passes' own
+        # floor, 136 B a pair, is 8.5 times that and is not the function's
+        "sort_pairs_bitonic": {label: _bound(16 * p[0].numel()) for label, p in sort_inputs.items()},
     }
     iters = {"sort_pairs_bitonic": (3, 1)}  # (kernel, plain) launches per timed run; 20 and 2 elsewhere
     say(f"  clocks before timing: {_clocks()}")

@@ -29,17 +29,27 @@
 // lacks).  Position p (< n) is flagged iff its hash is the least of some
 // window of w hashes starting in [0, n - w]: with wm[j] = min(h[j..j+w-1])
 // for such starts j (0 elsewhere), iff h[p] == max(wm[p-w+1..p]).  A block
-// owns 4096 positions.  It loads its 256 words and a halo of w - 1 nt
-// (rounded up to whole words) on each side into shared memory, hashes every
-// position of that span, and takes the windowed min and max by van
-// Herk/Gil-Werman: the span is cut into segments of w, so any window is a
-// suffix of one segment and a prefix of the next, and four segmented scans
-// (prefix and suffix min, then max) give every window in a constant number
-// of operations per position, whatever w.  A warp scans whole segments, 32
-// elements a step with shuffles, carrying a segment's running value from
-// step to step.  The flags of a warp's 32 positions go out as one
-// __ballot_sync, two output words of 16 bits.  Bound by integer work (the
-// hash and the scans); 4 bytes read and 4 written per 16 positions.
+// of T threads (256 while the halo is at most 256 nt, else 1024) covers 8 T
+// positions: its own span of 8 T - 2 halo and a halo of w - 1 nt, rounded
+// up to whole words, on each side.  Thread i holds positions 8 i .. 8 i + 7
+// in registers, hashed from the one word they share and the next.  Both
+// windowed extremes come by doubling (a sparse table): with a = floor(log2
+// w), a passes of m[t] <- min(m[t], m[t + 2^i]) leave the least of the 2^a
+// hashes from t, and wm[t] = min(m[t], m[t + w - 2^a]); the same backward
+// with max gives the windows that hold t.  A pass at an offset below 8
+// stays in registers, taking the values past a thread's 8 from the next
+// lane by a shuffle and across a warp's edge through shared memory; a pass
+// at an offset of 8 or more, and each join at w - 2^a, trades whole
+// threads' values through shared memory (two 16-byte stores and loads a
+// thread).  No pass divides or carries a value from one step to the next,
+// so every position costs the same few instructions a pass.  There are
+// 2 a + 2 passes, each behind one barrier: 8 at w = 10, 6 of them in
+// registers; the cost grows with log2 w (22 passes at w = 1024).  An even
+// thread and the next hold the 16 flags of one output word.  A 256-thread
+// block is held to 32 registers (16 B of stack), so that 8 fit an SM; at
+// its free 48 registers 5 fit, and took 0.7% longer at w = 10 (PERF.md).
+// Bound by integer work (the hash and the passes); 4 bytes read and 4
+// written per 16 positions.
 //
 // Every entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() after its launch.
@@ -50,11 +60,10 @@
 namespace {
 
 constexpr int kHashThreads = 256;
-constexpr int kMzThreads = 256;
-constexpr int kMzWarps = kMzThreads / 32;
-constexpr int kMzSpan = 4096;      // positions a minimizer block owns (256 words)
-constexpr int kMzMaxHalo = 2048;   // w - 1 <= 2047, rounded up to a whole word
-constexpr int kMzMaxSmem = (3 * (kMzSpan + 2 * kMzMaxHalo) + (kMzSpan + 2 * kMzMaxHalo) / 16 + 1) * 4;
+constexpr int kMzPer = 8;              // positions a minimizer thread holds in registers
+constexpr int kMzNarrowThreads = 256;  // 2048 positions with the halos, for halos up to kMzNarrowHalo
+constexpr int kMzWideThreads = 1024;   // 8192 positions with the halos
+constexpr int kMzNarrowHalo = 256;
 constexpr uint32_t kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -124,103 +133,190 @@ kmer_hashes_pair_kernel(const uint32_t* __restrict__ words, int64_t n_words, int
     hash_word<kCanonical, true>(a, b, c, k, o, width, n_left);
 }
 
-// Segmented inclusive scan (min or max; prefix when kForward, else suffix)
-// of x[0, n) in segments of `seg` elements starting at 0, into y (y may be
-// x).  Warp q takes a run of whole segments; a step scans 32 elements with
-// shuffles and adds the carry of the segment that runs in from the previous
-// step.
-template <bool kMin, bool kForward>
-__device__ __forceinline__ void seg_scan(const uint32_t* x, uint32_t* y, int n, int seg) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_seg = (n + seg - 1) / seg;
-  const int lo = warp * n_seg / kMzWarps * seg;
-  const int hi = min((warp + 1) * n_seg / kMzWarps * seg, n);
-  const uint32_t ident = kMin ? 0xFFFFFFFFu : 0u;
-  uint32_t carry = ident;
+// Shared bytes of a minimizer block of kThreads threads: two double-buffered
+// planes of every thread's 8 values, two edge buffers of 8 values a warp,
+// and the words of its positions and one more.
+template <int kThreads>
+constexpr int mz_smem() {
+  return 2 * 2 * kThreads * 16 + 2 * (kThreads / 32) * kMzPer * 4 + (kMzPer * kThreads / 16 + 1) * 4;
+}
+
+// Thread i's 8 values to plane buffer b, then a barrier.
+template <int kThreads>
+__device__ __forceinline__ void mz_put(uint4* planes, int b, const uint32_t (&v)[kMzPer]) {
+  planes[2 * b * kThreads + threadIdx.x] = make_uint4(v[0], v[1], v[2], v[3]);
+  planes[(2 * b + 1) * kThreads + threadIdx.x] = make_uint4(v[4], v[5], v[6], v[7]);
+  __syncthreads();
+}
+
+// Thread src's 8 values from plane buffer b to u[o .. o + 7]; ident past
+// the block's threads.
+template <int kThreads, int kLen>
+__device__ __forceinline__ void mz_get(const uint4* planes, int b, int src, uint32_t ident, uint32_t (&u)[kLen],
+                                       int o) {
+  uint4 x = make_uint4(ident, ident, ident, ident), y = x;
+  if (src >= 0 && src < kThreads) {
+    x = planes[2 * b * kThreads + src];
+    y = planes[(2 * b + 1) * kThreads + src];
+  }
+  u[o] = x.x, u[o + 1] = x.y, u[o + 2] = x.z, u[o + 3] = x.w;
+  u[o + 4] = y.x, u[o + 5] = y.y, u[o + 6] = y.z, u[o + 7] = y.w;
+}
+
+// One doubling pass at an offset kO below 8, in registers: forward (min),
+// v[j] <- min(v[j], value at j + kO); backward (max), v[j] <- max(v[j], value
+// at j - kO).  The values past a thread's 8 come from its neighbour lane by
+// a shuffle, and across a warp's edge through edge buffer b.
+template <int kThreads, int kO, bool kForward>
+__device__ __forceinline__ void mz_shuffle_pass(uint32_t (&v)[kMzPer], uint32_t* edges, int b) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* e = edges + b * kWarps * kMzPer;
+  uint32_t x[kO];
   if (kForward) {
-    for (int base = lo; base < hi; base += 32) {
-      const int i = base + lane;
-      const int start = i - i % seg;
-      uint32_t v = i < hi ? x[i] : ident;
+    if (lane == 0)
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const uint32_t u = __shfl_up_sync(kFull, v, d);
-        if (lane >= d && i - d >= start) v = kMin ? min(v, u) : max(v, u);
-      }
-      if (start < base) v = kMin ? min(v, carry) : max(v, carry);
-      if (i < hi) y[i] = v;
-      carry = __shfl_sync(kFull, v, 31);
-    }
+      for (int j = 0; j < kO; ++j) e[warp * kMzPer + j] = v[j];
+#pragma unroll
+    for (int j = 0; j < kO; ++j) x[j] = __shfl_down_sync(kFull, v[j], 1);
+    __syncthreads();
+    if (lane == 31)
+#pragma unroll
+      for (int j = 0; j < kO; ++j) x[j] = warp + 1 < kWarps ? e[(warp + 1) * kMzPer + j] : 0xFFFFFFFFu;
+#pragma unroll
+    for (int j = 0; j < kMzPer; ++j) v[j] = min(v[j], j + kO < kMzPer ? v[j + kO] : x[j + kO - kMzPer]);
   } else {
-    for (int top = hi; top > lo; top -= 32) {
-      const int i = top - 32 + lane;
-      const int ic = max(i, lo);
-      const int end = ic - ic % seg + seg;  // past the end of i's segment
-      uint32_t v = i >= lo ? x[i] : ident;
+    if (lane == 31)
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const uint32_t u = __shfl_down_sync(kFull, v, d);
-        if (lane + d < 32 && i + d < end) v = kMin ? min(v, u) : max(v, u);
-      }
-      if (end > top) v = kMin ? min(v, carry) : max(v, carry);
-      if (i >= lo) y[i] = v;
-      carry = __shfl_sync(kFull, v, 0);
-    }
+      for (int j = 0; j < kO; ++j) e[warp * kMzPer + j] = v[kMzPer - kO + j];
+#pragma unroll
+    for (int j = 0; j < kO; ++j) x[j] = __shfl_up_sync(kFull, v[kMzPer - kO + j], 1);
+    __syncthreads();
+    if (lane == 0)
+#pragma unroll
+      for (int j = 0; j < kO; ++j) x[j] = warp > 0 ? e[(warp - 1) * kMzPer + j] : 0u;
+#pragma unroll
+    for (int j = kMzPer - 1; j >= 0; --j) v[j] = max(v[j], j >= kO ? v[j - kO] : x[j]);
   }
 }
 
-template <bool kCanonical>
-__global__ void __launch_bounds__(kMzThreads)
+template <int kThreads, bool kCanonical>
+__global__ void __launch_bounds__(kThreads, kThreads == kMzNarrowThreads ? 8 : 1)
 minimizer_kernel(const uint32_t* __restrict__ words, int64_t n_words, int64_t n, int k, int w, int halo,
                  uint32_t* __restrict__ out, int64_t n_out) {
-  extern __shared__ uint32_t smem[];
-  const int r = w - 1;
-  const int N = kMzSpan + 2 * halo;  // positions of the span, halo included
-  uint32_t* hs = smem;               // hashes
-  uint32_t* a = smem + N;            // prefix scans
-  uint32_t* b = smem + 2 * N;        // suffix scans, then the window minima
-  uint32_t* ws = smem + 3 * N;       // the span's words and one more
-  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kMzSpan;  // first own position
-  const int64_t t0 = p0 - halo;                                    // position of span index 0
-  const int64_t g0 = t0 / 16;                                      // exact: both are whole words
-  for (int u = threadIdx.x; u <= N / 16; u += kMzThreads) {
+  constexpr int kN = kMzPer * kThreads;  // positions of the span, halos included
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ uint4 smem4[];
+  uint4* planes = smem4;                                                // [2][2][kThreads]
+  uint32_t* edges = reinterpret_cast<uint32_t*>(smem4 + 4 * kThreads);  // [2][kWarps][8]
+  uint32_t* ws = edges + 2 * kWarps * kMzPer;                           // [kN / 16 + 1]
+  const int tid = threadIdx.x;
+  const int span = kN - 2 * halo;                               // own positions, a multiple of 16
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * span;  // first own position
+  const int64_t t0 = p0 - halo;                                 // position of span index 0
+  const int64_t g0 = t0 / 16;                                   // exact: both are whole words
+  for (int u = tid; u <= kN / 16; u += kThreads) {
     const int64_t g = g0 + u;
     ws[u] = (g >= 0 && g < n_words) ? __ldg(words + g) : 0u;
   }
   __syncthreads();
+  // thread tid holds span indices 8 tid .. 8 tid + 7, all in word tid / 2
   const uint32_t kmask = (1u << (2 * k)) - 1u;
   const uint32_t comp = 0xAAAAAAAAu >> (32 - 2 * k);
   const int rsh = 32 - 2 * k;
-  for (int t = threadIdx.x; t < N; t += kMzThreads) {
-    uint32_t c = __funnelshift_r(ws[t >> 4], ws[(t >> 4) + 1], 2 * (t & 15)) & kmask;
+  const uint32_t wa = ws[tid >> 1], wb = ws[(tid >> 1) + 1];
+  uint32_t h[kMzPer], v[kMzPer];
+#pragma unroll
+  for (int j = 0; j < kMzPer; ++j) {
+    uint32_t c = __funnelshift_r(wa, wb, 16 * (tid & 1) + 2 * j) & kmask;
     if (kCanonical) c = min(c, rev_fields32(c ^ comp) >> rsh);
-    hs[t] = fmix32(c);
+    h[j] = v[j] = fmix32(c);
   }
-  __syncthreads();
-  // the window starting at t is a suffix of t's segment and a prefix of the next
-  seg_scan<true, true>(hs, a, N, w);
-  seg_scan<true, false>(hs, b, N, w);
-  __syncthreads();
-  for (int t = threadIdx.x; t < N; t += kMzThreads) {
-    const int64_t j = t0 + t;
-    b[t] = (t + r < N && j >= 0 && j <= n - w) ? min(b[t], a[t + r]) : 0u;
+  const int a = 31 - __clz(w);    // floor(log2 w) >= 1
+  const int tail = w - (1 << a);  // the second read of a window, 0 at a power of two
+  const int qt = tail / kMzPer, rt = tail % kMzPer;
+  int eb = 0, pb = 0;             // the edge and plane buffers the next pass writes
+  uint32_t c[2 * kMzPer];
+  // after pass i, v holds min(h[t .. t + 2^(i+1) - 1]) wherever that fits in the span
+  mz_shuffle_pass<kThreads, 1, true>(v, edges, eb), eb ^= 1;
+  if (a > 1) mz_shuffle_pass<kThreads, 2, true>(v, edges, eb), eb ^= 1;
+  if (a > 2) mz_shuffle_pass<kThreads, 4, true>(v, edges, eb), eb ^= 1;
+  for (int i = 3; i < a; ++i, pb ^= 1) {  // offsets of whole threads: through the planes
+    mz_put<kThreads>(planes, pb, v);
+    mz_get<kThreads>(planes, pb, tid + (1 << (i - 3)), 0xFFFFFFFFu, c, 0);
+#pragma unroll
+    for (int j = 0; j < kMzPer; ++j) v[j] = min(v[j], c[j]);
   }
-  __syncthreads();
-  // the windows containing t start in [t - r, t]: a suffix and a prefix again
-  seg_scan<false, true>(b, a, N, w);
-  __syncwarp();  // the same warp rewrites its run of b below
-  seg_scan<false, false>(b, b, N, w);
-  __syncthreads();
-  for (int l = threadIdx.x; l < kMzSpan; l += kMzThreads) {
-    const int t = halo + l;
-    const bool flag = p0 + l < n && hs[t] == max(a[t], b[t - r]);
-    const uint32_t m = __ballot_sync(kFull, flag);
-    if ((threadIdx.x & 31) == 0) {
-      const int64_t o = (p0 + l) / 16;  // even: the warp's 32 positions start a pair of words
-      if (o < n_out) out[o] = m & 0xFFFFu;
-      if (o + 1 < n_out) out[o + 1] = m >> 16;
-    }
+  // the window minima: min(v[t], v[t + tail]), 0 at the starts outside [0, n - w]
+  mz_put<kThreads>(planes, pb, v);
+  mz_get<kThreads>(planes, pb, tid + qt, 0xFFFFFFFFu, c, 0);
+  mz_get<kThreads>(planes, pb, tid + qt + 1, 0xFFFFFFFFu, c, kMzPer);
+  pb ^= 1;
+  if (rt & 1)
+#pragma unroll
+    for (int j = 0; j + 1 < 2 * kMzPer; ++j) c[j] = c[j + 1];
+  if (rt & 2)
+#pragma unroll
+    for (int j = 0; j + 2 < 2 * kMzPer; ++j) c[j] = c[j + 2];
+  if (rt & 4)
+#pragma unroll
+    for (int j = 0; j + 4 < 2 * kMzPer; ++j) c[j] = c[j + 4];
+#pragma unroll
+  for (int j = 0; j < kMzPer; ++j) {
+    const int64_t start = t0 + kMzPer * tid + j;
+    v[j] = (start >= 0 && start <= n - w) ? min(v[j], c[j]) : 0u;
   }
+  // after pass i, v holds max(wm[t - 2^(i+1) + 1 .. t])
+  mz_shuffle_pass<kThreads, 1, false>(v, edges, eb), eb ^= 1;
+  if (a > 1) mz_shuffle_pass<kThreads, 2, false>(v, edges, eb), eb ^= 1;
+  if (a > 2) mz_shuffle_pass<kThreads, 4, false>(v, edges, eb), eb ^= 1;
+  for (int i = 3; i < a; ++i, pb ^= 1) {
+    mz_put<kThreads>(planes, pb, v);
+    mz_get<kThreads>(planes, pb, tid - (1 << (i - 3)), 0u, c, 0);
+#pragma unroll
+    for (int j = 0; j < kMzPer; ++j) v[j] = max(v[j], c[j]);
+  }
+  // the windows that hold t start in [t - r, t]: max(v[t], v[t - tail])
+  mz_put<kThreads>(planes, pb, v);
+  mz_get<kThreads>(planes, pb, tid - qt - 1, 0u, c, 0);
+  mz_get<kThreads>(planes, pb, tid - qt, 0u, c, kMzPer);
+  if (rt & 1)
+#pragma unroll
+    for (int j = 2 * kMzPer - 1; j >= 1; --j) c[j] = c[j - 1];
+  if (rt & 2)
+#pragma unroll
+    for (int j = 2 * kMzPer - 1; j >= 2; --j) c[j] = c[j - 2];
+  if (rt & 4)
+#pragma unroll
+    for (int j = 2 * kMzPer - 1; j >= 4; --j) c[j] = c[j - 4];
+  uint32_t bits = 0;
+#pragma unroll
+  for (int j = 0; j < kMzPer; ++j) {
+    const int t = kMzPer * tid + j;
+    const bool own = t >= halo && t < halo + span && p0 + (t - halo) < n;
+    bits |= static_cast<uint32_t>(own && h[j] == max(v[j], c[kMzPer + j])) << j;
+  }
+  // an even thread and the next hold the 16 positions of one output word
+  const uint32_t word = bits | (__shfl_down_sync(kFull, bits, 1) << kMzPer);
+  const int t = kMzPer * tid;
+  if ((tid & 1) == 0 && t >= halo && t < halo + span) {
+    const int64_t o = (p0 + t - halo) / 16;
+    if (o < n_out) out[o] = word;
+  }
+}
+
+template <int kThreads, bool kCanonical>
+cudaError_t launch_minimizer(const uint32_t* words, int64_t n_words, int64_t n, int k, int w, int halo,
+                             uint32_t* out, cudaStream_t s) {
+  constexpr int kSmem = mz_smem<kThreads>();
+  cudaError_t err = cudaFuncSetAttribute(minimizer_kernel<kThreads, kCanonical>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const int span = kMzPer * kThreads - 2 * halo;
+  const unsigned blocks = static_cast<unsigned>((n + span - 1) / span);
+  minimizer_kernel<kThreads, kCanonical><<<blocks, kThreads, kSmem, s>>>(words, n_words, n, k, w, halo, out,
+                                                                         (n + 15) / 16);
+  return cudaGetLastError();
 }
 
 unsigned blocks_for(int64_t items, int per_block) {
@@ -256,21 +352,17 @@ int cn_minimizer_bits(const void* words, int64_t n_words, int64_t n, int k, int 
                       void* stream) {
   if (k < 1 || k > 15 || w < 2 || w - 1 > 2048 - k || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int halo = (w - 1 + 15) / 16 * 16;
-  const size_t smem = (3 * (kMzSpan + 2 * halo) + (kMzSpan + 2 * halo) / 16 + 1) * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(minimizer_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kMzMaxSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(minimizer_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMzMaxSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* wp = static_cast<const uint32_t*>(words);
   auto* o = static_cast<uint32_t*>(out);
-  const int64_t n_out = (n + 15) / 16;
-  if (canonical)
-    minimizer_kernel<true><<<blocks_for(n, kMzSpan), kMzThreads, smem, s>>>(wp, n_words, n, k, w, halo, o, n_out);
+  cudaError_t err;
+  if (halo <= kMzNarrowHalo)
+    err = canonical ? launch_minimizer<kMzNarrowThreads, true>(wp, n_words, n, k, w, halo, o, s)
+                    : launch_minimizer<kMzNarrowThreads, false>(wp, n_words, n, k, w, halo, o, s);
   else
-    minimizer_kernel<false><<<blocks_for(n, kMzSpan), kMzThreads, smem, s>>>(wp, n_words, n, k, w, halo, o, n_out);
-  return static_cast<int>(cudaGetLastError());
+    err = canonical ? launch_minimizer<kMzWideThreads, true>(wp, n_words, n, k, w, halo, o, s)
+                    : launch_minimizer<kMzWideThreads, false>(wp, n_words, n, k, w, halo, o, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

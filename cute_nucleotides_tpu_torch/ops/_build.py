@@ -51,7 +51,7 @@ _SIGNATURES = {
     "cn_kmer_hashes_pair": [_vp, _i64, _i64, _i64, _i64, _i64, _int, _int, _vp, _vp],
     "cn_minimizer_bits": [_vp, _i64, _i64, _int, _int, _int, _vp, _vp],
     "cn_gc_b5": [_vp, _i64, _vp, _vp],
-    "cn_sort_pairs_bitonic": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _vp],
+    "cn_sort_pairs_radix": [_vp, _vp, _vp, _vp, _vp, _i64, _vp, _vp, _i64, _vp],
 }
 
 

@@ -44,9 +44,9 @@ bound by integer work at short queries.  The k-mer code kernels are bound
 by their writes (64 B per 16 nt, twice that for pairs), the histogram by
 reading the codes, the hash kernel by its writes (4 B per position).  The
 minimizer kernel reads and writes little and is bound by its integer work
-(a hash and four segment scans per position).  The GC kernel is bound by
-reading its stream, the sort by its passes over the keys.  Times on the
-H100 beside the plain versions' are in PERF.md.
+(a hash and 2 floor(log2 w) + 2 doubling passes per position).  The GC
+kernel is bound by reading its stream, the radix sort by its passes over
+the keys.  Times on the H100 beside the plain versions' are in PERF.md.
 """
 
 from __future__ import annotations
@@ -1002,14 +1002,18 @@ def minimizer_bits_stream(words: torch.Tensor, n: int, k: int, w: int, *, canoni
 
     Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:
     minimizer_bits_panels``, whose sixteen s-planes of 1280-lane panels
-    stood in for a lane shift the TPU lacks.  Here a block owns 4096
-    positions: it loads its 256 words and a halo of w - 1 nt (rounded up to
-    whole words) on each side, hashes into shared memory, takes the forward
-    windowed min and the backward windowed max with van Herk/Gil-Werman
-    segment scans (warp shuffles; the cost per position does not grow with
-    w), and packs each warp's 32 flags with one ``__ballot_sync`` into two
-    output words.  Bound by integer work (the hashes and four segment
-    scans); 4 bytes read per 16 positions.  Time on the H100: PERF.md.
+    stood in for a lane shift the TPU lacks.  Here a block of 256 threads
+    (1024 once the halo passes 256 nt) covers 8 positions a thread: its own
+    span and a halo of w - 1 nt (rounded up to whole words) on each side.
+    Each thread hashes its 8 positions into registers and takes the forward
+    windowed min and the backward windowed max by doubling (a sparse table:
+    floor(log2 w) passes of a pairwise min or max at offsets 1, 2, 4, ..,
+    then one pass that joins two overlapping halves of each window; 8
+    passes at w = 10, none with a division or a value carried between
+    steps).  Offsets below 8 stay in registers and warp shuffles, larger
+    ones and the joins trade values through shared memory.  Two threads
+    write each 16-bit output word.  Bound by integer work (the hashes and
+    the passes); 4 bytes read per 16 positions.  Time on the H100: PERF.md.
     """
     W = _check_stream(words, torch.uint32, 1, "packed u32[W]")
     _check_minimizer_args(k, w)
@@ -1068,7 +1072,7 @@ def gc_b5_stream(words: torch.Tensor) -> torch.Tensor:
 
 gc_b5_stream.launches = 0
 
-# --- kernel #18: bitonic sort of u32 key pairs --------------------------------------
+# --- kernel #18: radix sort of u32 key pairs ---------------------------------------
 
 _SIGN = -(1 << 31)  # the sign bit of an int32
 
@@ -1095,72 +1099,98 @@ def split_keys(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def bitonic_size(n0: int) -> int:
-    """The network's size for n0 pairs: n0 rounded up to a power of two, at
-    least 2."""
+    """The reference's bitonic network size for n0 pairs: n0 rounded up to
+    a power of two, at least 2.  It sets the ``prefer="bitonic"`` route's
+    envelope in :func:`.sort.sort_pairs`; the radix kernel needs no padding."""
     return 1 << max((n0 - 1).bit_length(), 1)
 
 
+#: bits per digit and keys per tile of kernel #18's passes (``kBits`` and
+#: ``kTileKeys`` in csrc/sort.cu, whose entry point refuses a status array
+#: too short for its own tiles)
+SORT_BITS, SORT_TILE = 8, 4096
+_SORT_BINS, _SORT_PASSES = 1 << SORT_BITS, 64 // SORT_BITS
+
+
+def _radix_pass_plain(key: torch.Tensor, shift: int) -> torch.Tensor:
+    """One stable pass of kernel #18 on the digit at bit ``shift`` of the
+    int64 keys, placed as the kernel places it: at its bin's start (the
+    exclusive scan of the digit's histogram), plus the bin's count in all
+    earlier tiles of SORT_TILE keys (what the look-back hands over), plus
+    its rank among the keys of its bin in its own tile."""
+    n, bins = key.numel(), _SORT_BINS
+    tiles = spec.cdiv(n, SORT_TILE)
+    digit = (key >> shift) & (bins - 1)
+    count = torch.bincount(digit, minlength=bins)
+    at = (torch.arange(n, device=key.device) // SORT_TILE) * bins + digit  # (tile, bin)
+    per_tile = torch.bincount(at, minlength=tiles * bins).view(tiles, bins)
+    carried = per_tile.cumsum(0) - per_tile
+    dest = (count.cumsum(0) - count)[digit] + carried.view(-1)[at]
+    del at, carried
+    # the rank in the tile's bin: a key's place in its tile's stable digit
+    # order less its bin's first place there (past n0, bin 256 sorts last)
+    padded = torch.full((tiles * SORT_TILE,), bins, dtype=torch.int64, device=key.device)
+    padded[:n] = digit
+    del digit
+    order = torch.sort(padded.view(tiles, SORT_TILE), dim=1, stable=True)
+    first = torch.cat([per_tile.cumsum(1) - per_tile, per_tile.sum(1, keepdim=True)], 1)
+    place = torch.arange(SORT_TILE, device=key.device) - first.gather(1, order.values)
+    rank = torch.empty_like(place).scatter_(1, order.indices, place)
+    del order, place, padded
+    out = torch.empty_like(key)
+    out[dest + rank.view(-1)[:n]] = key
+    return out
+
+
 def sort_pairs_bitonic_plain(hi: torch.Tensor, lo: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`sort_pairs_bitonic`: the same padded network,
-    every stage a whole-tensor compare-exchange on the int64 keys of
-    :func:`pair_keys` (in the unsigned order that the kernel compares),
-    with the kernel's direction bits."""
+    """Plain version of :func:`sort_pairs_bitonic`: the kernel's eight
+    stable passes over the u64 keys ``hi << 32 | lo`` (as int64 bits),
+    least significant digit first, each with the kernel's tiles
+    (:func:`_radix_pass_plain`)."""
     n0 = _check_pairs(hi, lo)
     if n0 == 0:
         return hi.clone(), lo.clone()
-    n = bitonic_size(n0)
-    dev = hi.device
-    key = torch.full((n,), (1 << 63) - 1, dtype=torch.int64, device=dev)  # the pad pair's key
-    key[:n0] = pair_keys(hi, lo)
-    k = 2
-    while k <= n:
-        j = k // 2
-        while j:
-            pairs = key.view(n // (2 * j), 2, j)
-            a, b = pairs[:, 0], pairs[:, 1]
-            # every element of block m lies at 2 j m + r with r < j < k, so
-            # its direction bit is that of 2 j m
-            desc = ((torch.arange(n // (2 * j), device=dev) * (2 * j)) & k).ne(0).view(-1, 1)
-            small, big = torch.minimum(a, b), torch.maximum(a, b)
-            a.copy_(torch.where(desc, big, small))
-            b.copy_(torch.where(desc, small, big))
-            del small, big
-            j //= 2
-        k *= 2
-    return split_keys(key[:n0])
+    key = hi.view(torch.int32).to(torch.int64) << 32
+    key.bitwise_or_(lo.view(torch.int32).to(torch.int64) & eager.U32)
+    for p in range(_SORT_PASSES):
+        key = _radix_pass_plain(key, SORT_BITS * p)
+    return (key >> 32).to(torch.int32).view(torch.uint32), key.to(torch.int32).view(torch.uint32)
 
 
 def sort_pairs_bitonic(hi: torch.Tensor, lo: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort u32 pairs (hi, lo)[n] ascending, unsigned and lexicographic ->
-    (hi_sorted, lo_sorted) u32[n], by a bitonic network over n rounded up to
-    a power of two (:func:`bitonic_size`), padded with (0xFFFFFFFF,
-    0xFFFFFFFF) pairs and cut back to n.
+    (hi_sorted, lo_sorted) u32[n], by radix; n < 2^30 on the card.  The name
+    is the reference's route (``sort_pairs(prefer="bitonic")``).
 
     Replaces ``cute_nucleotides_tpu/ops/sort.py:_sort_pairs_bitonic`` (its
-    ``_k1_kernel``/``_k2_kernel`` through ``_strip_call``), whose row and
-    transposed layouts, (8, 128) strips and int32 order flip served the
-    TPU's VMEM and its missing lane shuffle and unsigned compare.  Here each
-    pair is one u64 key compared natively: a block sorts each 8192-key tile
-    in shared memory, then each phase beyond the tile runs one global
-    compare-exchange launch per stride of 8192 or more and one shared-memory
-    pass over the smaller strides, the last of which writes hi and lo back.
-    Bound by memory: every global stride reads and writes all keys.  Time on
-    the H100: PERF.md.
+    ``_k1_kernel``/``_k2_kernel`` through ``_strip_call``), a bitonic
+    network in row and transposed layouts that served the TPU's VMEM and
+    its missing scatter.  Here each pair is the u64 key ``hi << 32 | lo``,
+    sorted least significant digit first in eight stable passes of 8-bit
+    digits over the n pairs themselves: one kernel counts every digit's
+    histogram, then each pass ranks a tile of 4096 keys by digit in shared
+    memory (warp multisplit with ``__match_any_sync``), learns the bins'
+    counts in earlier tiles by decoupled look-back and writes its keys out
+    one run per bin.  Bound by memory: 136 B moved per pair, against the
+    16 B of one read and one write.  Time on the H100: PERF.md.
 
     ``.launches`` counts calls of this wrapper: one call launches the
-    network's 1 + log2(n / 8192) (log2(n / 8192) + 3) / 2 kernels.
+    histogram kernel and the eight passes, after nine memsets (the
+    histograms, and the status array before each pass).
     """
     n0 = _check_pairs(hi, lo)
     if not _same_device(hi, lo):
         return sort_pairs_bitonic_plain(hi, lo)
     hi_s, lo_s = torch.empty_like(hi), torch.empty_like(lo)
     if n0:
-        n = bitonic_size(n0)
-        keys = torch.empty(n, dtype=torch.int64, device=hi.device)
+        dev = hi.device
+        keys = torch.empty(2 * n0, dtype=torch.int64, device=dev)
+        hist = torch.empty(_SORT_PASSES * _SORT_BINS, dtype=torch.int32, device=dev)
+        status = torch.empty((spec.cdiv(n0, SORT_TILE) + 1) * _SORT_BINS, dtype=torch.int32, device=dev)
         lib = _build.load()
-        with torch.cuda.device(hi.device):
-            _launch(lib.cn_sort_pairs_bitonic, hi.data_ptr(), lo.data_ptr(), keys.data_ptr(), hi_s.data_ptr(),
-                    lo_s.data_ptr(), n0, n, _stream(hi))
+        with torch.cuda.device(dev):
+            _launch(lib.cn_sort_pairs_radix, hi.data_ptr(), lo.data_ptr(), keys.data_ptr(), hist.data_ptr(),
+                    status.data_ptr(), status.numel(), hi_s.data_ptr(), lo_s.data_ptr(), n0, _stream(hi))
         sort_pairs_bitonic.launches += 1
     return hi_s, lo_s
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``cute_nucleotides_tpu/ops/sort.py:sort_pairs``.  Its
 production path (``prefer="lax"``, ``jax.lax.sort``) is ``torch.sort`` of
-one int64 key per pair here; ``prefer="bitonic"`` runs the bitonic network,
-kernel #18 (:func:`.kernels.sort_pairs_bitonic`), inside the reference's
-envelope and the same ``torch.sort`` outside it, as the reference does.
+one int64 key per pair here; ``prefer="bitonic"`` runs kernel #18 (the
+radix sort :func:`.kernels.sort_pairs_bitonic`, in the place of the
+reference's bitonic network) inside the reference's envelope and the same
+``torch.sort`` outside it, as the reference does.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ __all__ = ["sort_pairs", "BITONIC_COLS", "BITONIC_MAX_N"]
 BITONIC_COLS = 1024
 
 #: largest padded n the bitonic route takes.  The reference sized it from a
-#: TPU core's VMEM; the Hopper kernel's global passes have no shared-memory
+#: TPU core's VMEM; the Hopper kernel's passes have no shared-memory
 #: ceiling, so it is set where the chr1 k = 21 key sort fits (248,956,402
-#: pairs pad to 2^28; the keys take 2 GiB of scratch)
+#: pairs pad to 2^28; the radix passes' two key buffers take 4 GB)
 BITONIC_MAX_N = 1 << 28
 
 
@@ -32,8 +33,8 @@ def sort_pairs(hi: torch.Tensor, lo: torch.Tensor, *, prefer: str = "lax") -> tu
 
     ``prefer="lax"`` (the default) sorts one int64 key per pair
     (:func:`.kernels.pair_keys`) with ``torch.sort``.  ``prefer="bitonic"``
-    runs the bitonic network (kernel #18 on a CUDA tensor, its plain version
-    on the CPU) when the padded n lies in ``[4 * BITONIC_COLS,
+    runs kernel #18 (on a CUDA tensor; its plain version on the CPU) when
+    the padded n (:func:`.kernels.bitonic_size`) lies in ``[4 * BITONIC_COLS,
     BITONIC_MAX_N]``, and ``torch.sort`` otherwise; the result is the same.
     """
     if prefer not in ("lax", "bitonic"):

@@ -402,15 +402,22 @@ def test_kmer_hashes_kernel_matches_plain(cuda_device, W):
                 assert _same(got, want), (k, canonical, seg, n_valid)
 
 
+#: windows of #14: powers of two and their neighbours move the doubling's
+#: last offset; 2049 - k (the largest) is added per k
+MZ_WINDOWS = (2, 3, 8, 9, 10, 16, 17, 33, 64, 1024, 1025)
+
+
 @pytest.mark.parametrize("nt", (16384 + 5, 32768, 100_003))
 def test_minimizer_kernel_matches_plain(cuda_device, nt):
+    """#14 on random and poly-A streams whose n is a multiple of neither
+    block span (2048 and 8192 positions), at every window of MZ_WINDOWS."""
     rng = np.random.default_rng(nt)
     words = rng.integers(0, 2**32, -(-nt // 16), dtype=np.uint32)
     poly_a = np.zeros_like(words)  # every hash ties
     for label, stream in (("random", words), ("poly-A", poly_a)):
         w = interop.to_tensor(stream, cuda_device)
         for k in (1, 7, 15):
-            for win in (2, 10, 64, 2048 - k + 1):
+            for win in MZ_WINDOWS + (2048 - k + 1,):
                 for canonical in (False, True):
                     n = nt - k + 1
                     got = K.minimizer_bits_stream(w, n, k, win, canonical=canonical)
@@ -502,7 +509,9 @@ def _sort_cases(n: int) -> dict:
     kmer_hi = rng.integers(0, 1 << 10, n, dtype=np.uint64).astype(np.uint32)
     kmer_lo = rng.integers(0, 5000, n, dtype=np.uint64).astype(np.uint32)
     kmer_hi[-n // 5 :] = kmer_lo[-n // 5 :] = 0xFFFFFFFF
-    return {"random": (rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
+    plain_hi = rng.integers(0, 1 << 10, n, dtype=np.uint64).astype(np.uint32)  # digits 6 and 7 are all 0
+    return {"k-mer keys, no sentinels": (plain_hi, rng.integers(0, 5000, n, dtype=np.uint64).astype(np.uint32)),
+            "random": (rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
                        rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)),
             "all equal": (np.full(n, 7, np.uint32), np.full(n, 3, np.uint32)),
             "descending": (asc[::-1].copy(), asc.copy()),
@@ -512,7 +521,9 @@ def _sort_cases(n: int) -> dict:
             "k-mer keys": (kmer_hi, kmer_lo)}
 
 
-@pytest.mark.parametrize("n", (2, 4096, 4133, 16383, (1 << 20) + 1))
+#: one tile of #18's passes is 4096 keys: one tile, one tile + 1, many
+#: tiles, and sizes past the look-back's first few tiles
+@pytest.mark.parametrize("n", (2, 4096, 4097, 4133, 16383, 37 * 4096 + 5, (1 << 20) + 1, (1 << 22) + 3))
 def test_sort_pairs_bitonic_kernel_matches_plain(cuda_device, n):
     """#18 against its plain version and prefer="lax" on every key shape;
     prefer="bitonic" launches it inside the envelope."""
@@ -526,6 +537,29 @@ def test_sort_pairs_bitonic_kernel_matches_plain(cuda_device, n):
         K.reset_launch_counts()
         sort.sort_pairs(th, tl, prefer="bitonic")
         assert K.sort_pairs_bitonic.launches == int(n >= 2049), (label, n)
+
+
+@pytest.mark.parametrize("n", (4096, 4097))
+def test_sort_pairs_radix_refuses_short_status(cuda_device, n):
+    """#18's entry point checks the status array against its own tile size:
+    one word short of the wrapper's size is cudaErrorInvalidValue (1), with
+    nothing launched."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import _build
+
+    hi = torch.zeros(n, dtype=torch.int32, device=cuda_device).view(torch.uint32)
+    keys = torch.empty(2 * n, dtype=torch.int64, device=cuda_device)
+    hist = torch.empty(8 * 256, dtype=torch.int32, device=cuda_device)
+    words = (-(-n // K.SORT_TILE) + 1) * 256
+    status = torch.empty(words, dtype=torch.int32, device=cuda_device)
+    out = torch.empty_like(hi)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    fn = _build.load().cn_sort_pairs_radix
+    args = (hi.data_ptr(), hi.data_ptr(), keys.data_ptr(), hist.data_ptr(), status.data_ptr())
+    assert fn(*args, words - 1, out.data_ptr(), out.data_ptr(), n, stream) == 1
+    assert fn(*args, words, out.data_ptr(), out.data_ptr(), n, stream) == 0
+    torch.cuda.synchronize(cuda_device)
 
 
 @pytest.mark.parametrize("R", (1, 2, 37, 128))

@@ -1,11 +1,12 @@
 """The port's ``sort_pairs`` (``ops/sort.py``) with ``prefer`` "lax" and
 "bitonic" against ``np.lexsort`` and the JAX package's ``sort_pairs``
 (whose bitonic route runs its Pallas kernels in interpret mode here), and
-the plain bitonic network alone (kernel #18's CPU route)."""
+the plain radix passes alone (kernel #18's CPU route)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from cute_nucleotides_tpu.ops import sort as ref
 from cute_nucleotides_tpu_torch import interop
@@ -92,13 +93,46 @@ def test_adversarial_orders():
     _check(hi, lo)
 
 
-@pytest.mark.parametrize("n", (1 << 14, (1 << 14) + 1))
+def _key_sets(n: int) -> dict:
+    """The key shapes the radix passes must order: random, kmer_counts'
+    keys with trailing sentinels, values straddling the int32 sign bit, all
+    equal, and descending."""
+    rng = np.random.default_rng(n)
+    kmer_hi = rng.integers(0, 1 << 10, n, dtype=np.uint64).astype(np.uint32)
+    kmer_lo = rng.integers(0, 5000, n, dtype=np.uint64).astype(np.uint32)
+    kmer_hi[n - n // 5 :] = kmer_lo[n - n // 5 :] = 0xFFFFFFFF
+    asc = np.arange(n, dtype=np.uint32)
+    return {"random": _pairs(n + 2, n), "k-mer keys with sentinels": (kmer_hi, kmer_lo),
+            "sign bit": tuple(rng.integers(2**31 - 4, 2**31 + 4, n, dtype=np.uint64).astype(np.uint32)
+                              for _ in range(2)),
+            "all equal": (np.full(n, 7, np.uint32), np.full(n, 3, np.uint32)),
+            "descending": (asc[::-1].copy(), asc[::-1].copy())}
+
+
+#: below one tile of kernel #18's passes (4096 keys), one tile, one tile + 1,
+#: and several tiles
+@pytest.mark.parametrize("n", (100, 4096, 4097, 3 * 4096 + 5, 1 << 14, (1 << 14) + 1))
 def test_plain_network_alone(n):
-    hi, lo = _pairs(n + 2, n)
-    got = kernels.sort_pairs_bitonic_plain(interop.to_tensor(hi), interop.to_tensor(lo))
-    for g, w in zip(got, _lexsorted(hi, lo)):
-        assert np.array_equal(interop.to_numpy(g), w)
+    """Kernel #18's plain version (its CPU route) alone: the eight radix
+    passes with the kernel's tiles, against np.lexsort."""
+    assert kernels.SORT_TILE == 4096
+    for label, (hi, lo) in _key_sets(n).items():
+        got = kernels.sort_pairs_bitonic_plain(interop.to_tensor(hi), interop.to_tensor(lo))
+        for g, w in zip(got, _lexsorted(hi, lo)):
+            assert np.array_equal(interop.to_numpy(g), w), label
     assert kernels.bitonic_size(n) == 1 << (n - 1).bit_length()
+
+
+@pytest.mark.parametrize("shift", (0, 8, 56))
+def test_plain_radix_pass_is_stable_across_tiles(shift):
+    """One plain pass orders by its digit alone and keeps the input order of
+    equal digits, also across tiles (the look-back's carried counts)."""
+    rng = np.random.default_rng(shift)
+    n = 3 * kernels.SORT_TILE + 77
+    key = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64))
+    got = kernels._radix_pass_plain(key, shift).numpy()
+    digit = (key.numpy() >> shift) & 255
+    assert np.array_equal(got, key.numpy()[np.argsort(digit, kind="stable")])
 
 
 def test_errors_equal_reference():
