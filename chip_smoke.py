@@ -109,7 +109,8 @@ and ``torch.sort``'s, and its
 bound: the least time the card could take, the larger of the bytes it must
 move at 3.35 TB/s and the integer instructions its data needs at the
 card's issue rate.  Phase 1 prints the SASS instruction mix of the sketch,
-GC and radix sort kernels (``cuobjdump``), the check on those counts.
+GC, radix sort and base-5 search kernels (``cuobjdump``), the check on
+those counts.
 
 All data comes from seeds.  Exits non-zero, without the final line, on any
 failure or without CUDA.  Run from the repository root:
@@ -150,7 +151,10 @@ RAGGED = (1, 15, 16, 17, 31, 32, 33)
 RAGGED_B5 = (1, 26, 27, 28, 53, 54, 55)  # nt, through the api
 B5_WORDS = (1, 2, 127, 128, 129)  # words, straight into the kernels
 SEARCH_NT = (1, 15, 16, 17, 31, 32, 33, 5000, 100_003)  # 2-bit stream lengths, nt
-SEARCH_NT_B5 = (1, 15, 16, 17, 26, 27, 28, 31, 32, 33, 27 * 127, 27 * 128, 27 * 129, 27 * 129 + 13)
+#: base-5 stream lengths, nt: ragged short streams, 1-5 words, and word counts
+#: at and beside #9's block span (512 words, 4 a thread) and two spans
+SEARCH_NT_B5 = (1, 15, 16, 17, 26, 27, 28, 31, 32, 33, 54, 81, 27 * 4, 27 * 5, 27 * 127, 27 * 128, 27 * 129,
+                27 * 129 + 13, 27 * 511, 27 * 512, 27 * 513 + 13, 27 * 1024 + 5)
 SEARCH_M = (1, 7, 16, 17, 32, 33, 45, 141)  # query lengths, nt
 LONG_QUERY, B5_MAX_QUERY = 8200, 1024
 PRIMER = b"GTTCAGAGTTCTACAGTCCG"  # 20 nt
@@ -283,7 +287,7 @@ def phase_build():
     say(f"phase 1 build: nvcc {' '.join(_build.NVCC_FLAGS)} {os.path.relpath(_build.CSRC_DIR)}/*.cu; "
         f"build and load {time.perf_counter() - t0:.1f} s")
     _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel", "gc_b5_kernel",
-                                          "radix_hist_kernel", "radix_pass_kernel"))
+                                          "radix_hist_kernel", "radix_pass_kernel", "match_b5_kernel"))
 
 
 def _kernel_label(name: str, kernels):
@@ -521,7 +525,8 @@ def _planted(rng, n: int, alpha: bytes, m: int, wildcard: bytes):
 def phase_kernels_search(errors: Errors, rng) -> None:
     """Both search kernels against their plain versions at the word seams,
     every query length, wildcards and planted hits; poly-A on poly-A (every
-    anchor fires); a query over 8192 nt (2-bit); every triplet value with and
+    anchor fires); a query over 8192 nt (2-bit); random queries with 10% '?'
+    at #9's block seams, A?A?.. on poly-A, and every triplet value with and
     without bit 63 against literal-N queries (base-5)."""
     import torch
 
@@ -563,11 +568,16 @@ def phase_kernels_search(errors: Errors, rng) -> None:
                 one_b5(w, n, query, f"base-5 search {n} nt, {m}-nt query")
                 check(0 in search.match_positions_b5(w, n, query).tolist(), f"base-5 search {n}/{m}: hit at 0 missed")
                 cases += 1
+        for m in rng.integers(1, min(n, B5_MAX_QUERY) + 1, 3).tolist():  # random, 10% '?'
+            q = rng.choice(np.frombuffer(b"ACGTN", np.uint8), m)
+            q[rng.random(m) < 0.1] = ord("?")
+            one_b5(w, n, q.tobytes(), f"base-5 search {n} nt, random {m}-nt query")
         w = interop.u64_to_tensor(api.n_to_bits2(np.full(n, ord("A"), np.uint8), tier="oracle"), dev)
-        for m in (1, 17, 45):
-            if m <= n:
-                one_b5(w, n, b"A" * m, f"base-5 poly-A {n} nt, {m} nt")
-                check(int(search.match_count_b5(w, n, b"A" * m)) == n - m + 1, f"base-5 poly-A {n}/{m} count")
+        for query in (b"A", b"A" * 17, b"A" * 45, (b"A?" * 23)[:45], (b"A?" * 512)[:1023]):
+            m = len(query)
+            if m <= n:  # poly-A: every anchor fires
+                one_b5(w, n, query, f"base-5 poly-A {n} nt, {query[:4]!r}.. ({m} nt)")
+                check(int(search.match_count_b5(w, n, query)) == n - m + 1, f"base-5 poly-A {n}/{m} count")
     t = np.arange(128, dtype=np.uint64)
     w64 = np.concatenate([(t << np.uint64(7 * j)) | (np.uint64(b) << np.uint64(63)) for j in range(9) for b in (0, 1)])
     w = interop.u64_to_tensor(w64, dev)
@@ -581,7 +591,8 @@ def phase_kernels_search(errors: Errors, rng) -> None:
     torch.cuda.synchronize()
     say(f"phase 2 search kernels: {cases} planted (stream, query) cases at {SEARCH_NT} nt (2-bit) and "
         f"{SEARCH_NT_B5} nt (base-5), queries {SEARCH_M} + {LONG_QUERY} (2-bit) / {B5_MAX_QUERY} (base-5) "
-        f"nt, poly-A, all 128 triplets +- bit 63: bit-identical to the plain versions "
+        f"nt, random base-5 queries with 10% '?', poly-A against A.. and A?A?.., all 128 triplets +- bit 63: "
+        f"bit-identical to the plain versions "
         f"({errors.count} comparisons in phase 2; max abs err {errors.max})")
 
 

@@ -11,24 +11,45 @@
 // in each concrete 2-bit field and 0b00 at an N wildcard.
 //
 // Base-5 (replaces pallas_kernels.py:match_b5_bits_rows): words are u64 of 9
-// triplets t = a + 5b + 25c (7 bits each, bit 63 unused).  Each triplet is
-// split into base-8 digit slots a | b << 3 | c << 6 with the exact
-// multiply-shifts t / 5 == (t * 205) >> 10 and t / 25 == (t * 41) >> 10, so a
-// corrupt triplet (125..127) keeps a high digit of 5 and never equals a
-// literal N (4).  A start at nt 27w + 3j + p (triplet u = 9w + j, phase p)
-// matches iff every tap i of phase p has ((t8[u + i] ^ q8[i]) & care8[i]) ==
-// 0; bit 3j + p of out[w] holds it (27 bits used).
+// triplets t = a + 5b + 25c (7 bits each, bit 63 unused).  A block splits
+// each word once into three digit words, A, B and C, holding the a, b and c
+// digits of its 9 triplets in 3-bit fields at bits 3j (27 bits used), by
+// the exact divisions t / 5 and t / 25, unclamped: a corrupt triplet
+// (125..127) has c = 5, which fits in 3 bits and never equals a query digit
+// (0..4, N is 4).  A start at nt 27w + 3j + p (slot j, phase p) matches iff
+// for every cared digit d of every tap i of phase p, digit d of triplet 9w
+// + j + i equals the query's.  All nine slots of a word are tested at once:
+// the window of digit word d at triplet offset i = 9a + r is (X[w+a] >> 3r)
+// | (X[w+a+1] << (27 - 3r)), one funnel shift; xor with the query digit
+// replicated into the nine fields leaves field j zero iff slot j agrees;
+// OR-ing that over the phase's taps and digits and one add,
+// ~(((v & 0x36DB6DB) + 0x36DB6DB) | v) & 0x4924924, sets bit 3j + 2 iff
+// slot j matched.  Shifted right by 2 - p it lands at bit 3j + p of out[w].
+//
+// The table is grouped by offset, not by phase: the window of a digit word
+// at offset i is the same for the three phases, and only the query digit
+// differs.  So one step per offset takes up to three funnel shifts and
+// serves every phase with a tap there (a 7-nt query: 6 shifts and 21
+// xor-ors a word, against 27 and 27 with one entry per phase and tap).
+// Each thread takes 4 consecutive words and keeps their 64-bit digit-word
+// pairs in registers, so each step entry is read once per 4 words and steps
+// within a word need no shared load; 8 words a thread took 166 registers or
+// more and ran slower.
 //
 // Neither kernel bakes the query in: it arrives as a small device table that
 // every thread of a warp reads at the same address (one broadcast load), so
-// one build of this file serves every query.  Multi-word queries fold their
-// anchor taps first and the rest only where an anchor matched (a per-thread
-// early exit; anchors are chosen on the host, as the reference chooses them).
+// one build of this file serves every query.  Long queries fold their anchor
+// taps first and the rest only where an anchor matched (anchors are chosen
+// on the host, as the reference chooses them): per thread in the 2-bit
+// kernel, per warp (__any_sync) in the base-5 one, where nearly every warp
+// has a live start after a short anchor.
 //
 // Bound: the memory traffic is small (4 B in, 4 B out per 16 nt; 8 B in, 4 B
 // out per 27 nt); the integer pipes bound both kernels at short queries (16
-// funnel-compare-select steps per 2-bit word and query word, 9 shared loads
-// and compares per base-5 word and tap).
+// funnel-compare-select steps per 2-bit word and query word; in the base-5
+// kernel the shifts and logic ops of the steps, the zero tests and the
+// pairs, which share the integer ALU pipe at half the dispatch rate, while the
+// splits' multiplies run on the multiply-add pipe beside it).
 //
 // Every entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() after its launch.
@@ -94,88 +115,234 @@ match_2bit_kernel(const uint32_t* __restrict__ x, int64_t n_words, const uint32_
 
 // --- base-5 ------------------------------------------------------------------
 
-constexpr int kWords5 = 128;     // u64 words (threads) per block
-constexpr int kMaxLook5 = 40;    // lookahead words: a 1024-nt query (342 taps) needs 39
-constexpr int kTableHead = 6;    // table = ntaps[3], nanchor[3], then taps[3][max_taps]
+constexpr int kThreads5 = 128;            // threads a block
+constexpr int kRun5 = 4;                  // consecutive words a thread
+constexpr int kSpan5 = kThreads5 * kRun5; // words a block
+constexpr int kMaxLook5 = 40;             // lookahead words: a 1024-nt query (342 taps) needs 39
+constexpr int kRow5 = kSpan5 + kMaxLook5; // digit words a block stages of each kind
+constexpr int kTableHead = 8;             // table = n_first, n_steps, 0 x 6, then the steps
+constexpr uint32_t kLow2 = 0x36DB6DBu;    // the low two bits of each 3-bit field j < 9
+constexpr uint32_t kHigh = 0x4924924u;    // bit 3j + 2 of each field j < 9
 
-// A tap packs its offset i (triplets past the start), care8 and q8.
-__device__ __forceinline__ uint32_t tap_offset(uint32_t tap) { return tap >> 18; }
-__device__ __forceinline__ uint32_t tap_care(uint32_t tap) { return (tap >> 9) & 0x1FFu; }
-__device__ __forceinline__ uint32_t tap_q(uint32_t tap) { return tap & 0x1FFu; }
-
-__device__ __forceinline__ uint32_t b8_digits(uint32_t t) {
-  const uint32_t v5 = (t * 205u) >> 10;
-  const uint32_t v25 = (t * 41u) >> 10;
-  return (t - 5u * v5) | ((v5 - 5u * v25) << 3) | (v25 << 6);
+// The digit words of one u64 stream word: its 9 triplets t = a + 5b + 25c
+// as dig[0] = sum a_j << 3j, dig[1] = sum b_j << 3j, dig[2] = sum c_j << 3j,
+// by exact divisions, unclamped: a corrupt triplet (125..127) gives c = 5.
+// t / 5 and t / 25 are the high words of t times ceil(2^32 / 5) and
+// ceil(2^32 / 25) (exact for t < 2^30).  The sums are linear, so a = t - 5
+// (t / 5) and b = t / 5 - 5 (t / 25) are taken once a word, on the sums of
+// t, t / 5 and t / 25 at 3j (exact mod 2^32: each result's fields do not
+// overlap).  The divisions and sums are multiplies (IMAD), which run on the
+// multiply-add pipe beside the integer ALU that extracts the triplets.  Bit
+// 63 is ignored.
+__device__ __forceinline__ void digit_words(uint64_t v, uint32_t (&dig)[3]) {
+  uint32_t t_sum = 0, v5_sum = 0, v25_sum = 0;
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const uint32_t t = static_cast<uint32_t>(v >> (7 * j)) & 0x7Fu;
+    t_sum += t * (1u << (3 * j));
+    v5_sum += __umulhi(t, 0x33333334u) * (1u << (3 * j));
+    v25_sum += __umulhi(t, 0x0A3D70A4u) * (1u << (3 * j));
+  }
+  dig[0] = t_sum - 5u * v5_sum;
+  dig[1] = v5_sum - 5u * v25_sum;
+  dig[2] = v25_sum;
 }
 
-// The 9-bit mask of slots j (start triplet 9w + j) that agree with taps
-// [from, to) of one phase; t8 points at the thread's first triplet.
-__device__ __forceinline__ uint32_t fold_b5(const uint16_t* t8, const uint32_t* __restrict__ taps,
-                                            int from, int to) {
-  uint32_t hit = 0x1FFu;
-  for (int idx = from; idx < to && hit != 0u; ++idx) {
-    const uint32_t tap = __ldg(taps + idx);
-    const uint16_t* s = t8 + tap_offset(tap);
-    const uint32_t q = tap_q(tap), c = tap_care(tap);
+// Bit 3j + 2 set iff field j < 9 of v is zero.  The add cannot carry out of
+// a field ((v & 3) + 3 <= 6); bits 27 and up of v are dropped.
+__device__ __forceinline__ uint32_t zero_fields(uint32_t v) {
+  return ~(((v & kLow2) + kLow2) | v) & kHigh;
+}
+
+// acc | (w ^ q) as one three-input logic op (ptxas would otherwise combine
+// three of them for a word as a tree, one op more)
+__device__ __forceinline__ uint32_t or_xor(uint32_t acc, uint32_t w, uint32_t q) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xF6;" : "=r"(r) : "r"(acc), "r"(w), "r"(q));
+  return r;
+}
+
+// lo/hi pairs of kind d for the words x[0..kRun5] (kRun5 + 1 digit words)
+__device__ __forceinline__ void pair_words(const uint32_t* x, uint32_t (&lo)[kRun5], uint32_t (&hi)[kRun5]) {
 #pragma unroll
-    for (int j = 0; j < 9; ++j) {
-      if ((s[j] ^ q) & c) hit &= ~(1u << j);
+  for (int k = 0; k < kRun5; ++k) {
+    lo[k] = x[k] | (x[k + 1] << 27);
+    hi[k] = x[k + 1] >> 5;
+  }
+}
+
+// One step over a thread's kRun5 words.  lo/hi[d][k] hold digit words k and
+// k + 1 of kind d as one 64-bit value (word k | word k + 1 << 27), so the
+// 9-slot window at shift sh (3 x the step's triplet offset within its
+// word) is one funnel shift, or the low word itself at sh = 0 (bits 27 and
+// up are garbage every test drops).  The window of each kind serves the
+// three phases: diff[p][k] ORs in window d xor the phase's replicated query
+// digit for each (p, d) the step cares for, so a field of diff[p][k] stays
+// zero while every step so far agrees at that start.
+template <bool kShift>
+__device__ __forceinline__ void fold_step(const uint32_t (&lo)[3][kRun5], const uint32_t (&hi)[3][kRun5],
+                                          uint32_t sh, uint32_t kinds, const uint32_t (&q)[9],
+                                          uint32_t (&diff)[3][kRun5]) {
+  uint32_t win[3][kRun5];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    if (kinds & (0x49u << d)) {  // some phase cares for digit d
+#pragma unroll
+      for (int k = 0; k < kRun5; ++k) win[d][k] = kShift ? __funnelshift_r(lo[d][k], hi[d][k], sh) : lo[d][k];
     }
   }
-  return hit;
-}
-
-// slot mask h of phase p -> bits 3j + p
-__device__ __forceinline__ uint32_t spread_phase(uint32_t h, int p) {
-  uint32_t out = 0;
-#pragma unroll
-  for (int j = 0; j < 9; ++j) out |= ((h >> j) & 1u) << (3 * j + p);
-  return out;
-}
-
-// Block b covers words 128b..128b+127: it stages them and `look` following
-// words as base-8 digit triplets in shared memory (9 per word, u16 each);
-// thread w then folds the anchor taps of each phase over its 9 start slots,
-// and the other taps only if an anchor matched.
-__global__ void __launch_bounds__(kWords5)
-match_b5_kernel(const uint64_t* __restrict__ x, int64_t n_words, const uint32_t* __restrict__ table,
-                int max_taps, int look, int64_t n_starts, uint32_t* __restrict__ out) {
-  __shared__ uint16_t t8[(kWords5 + kMaxLook5) * 9];
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kWords5;
-  for (int i = threadIdx.x; i < kWords5 + look; i += kWords5) {
-    const uint64_t v = w0 + i < n_words ? x[w0 + i] : 0ull;
-#pragma unroll
-    for (int j = 0; j < 9; ++j) {
-      t8[9 * i + j] = static_cast<uint16_t>(b8_digits(static_cast<uint32_t>(v >> (7 * j)) & 0x7Fu));
-    }
-  }
-  __syncthreads();
-  const int64_t w = w0 + threadIdx.x;
-  if (w >= n_words) return;
-  const uint16_t* mine = t8 + 9 * threadIdx.x;
-  const uint32_t* taps = table + kTableHead;
-  uint32_t h[3];
-  uint32_t any = 0;
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
-    h[p] = fold_b5(mine, taps + p * max_taps, 0, static_cast<int>(__ldg(table + 3 + p)));
-    any |= h[p];
-  }
-  uint32_t bits = 0;
-  if (any != 0u) {
+    const uint32_t mine = (kinds >> (3 * p)) & 7u;  // uniform: a branch, not predicates
+    if (mine == 7u) {
 #pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      if (h[p] != 0u) {
-        h[p] &= fold_b5(mine, taps + p * max_taps, static_cast<int>(__ldg(table + 3 + p)),
-                        static_cast<int>(__ldg(table + p)));
+      for (int k = 0; k < kRun5; ++k) {
+        diff[p][k] = or_xor(or_xor(or_xor(diff[p][k], win[0][k], q[3 * p]), win[1][k], q[3 * p + 1]),
+                            win[2][k], q[3 * p + 2]);
       }
-      bits |= spread_phase(h[p], p);
+    } else if (mine != 0u) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        if (mine & (1u << d)) {
+#pragma unroll
+          for (int k = 0; k < kRun5; ++k) diff[p][k] = or_xor(diff[p][k], win[d][k], q[3 * p + d]);
+        }
+      }
     }
   }
-  const int64_t lim = n_starts - 27 * w;
-  if (lim < 27) bits &= lim <= 0 ? 0u : (1u << lim) - 1u;
-  out[w] = bits;
+}
+
+// Steps [from, to) over a thread's words.  A step entry is three uint4: a
+// << 16 | kinds << 5 | 3r for the step's triplet offset 9a + r (bit 3p + d
+// of kinds: phase p cares for digit d of the triplet), then the query's
+// digit d for phase p replicated into the nine fields at u32 1 + 3p + d,
+// then two zeros.  Steps with a = 0 take the thread's own pairs; the others
+// read their words from the block's digit words in shared memory.
+__device__ __forceinline__ void fold_steps(const uint4* __restrict__ steps, int from, int to,
+                                           const uint32_t (&lo)[3][kRun5], const uint32_t (&hi)[3][kRun5],
+                                           const uint32_t* dig, int base, uint32_t (&diff)[3][kRun5]) {
+  for (int idx = from; idx < to; ++idx) {
+    const uint4 e0 = __ldg(steps + 3 * idx), e1 = __ldg(steps + 3 * idx + 1), e2 = __ldg(steps + 3 * idx + 2);
+    const uint32_t a = e0.x >> 16, kinds = (e0.x >> 5) & 0x1FFu, sh = e0.x & 31u;
+    const uint32_t q[9] = {e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w, e2.x, e2.y};
+    if (a == 0u) {
+      if (sh == 0u) {
+        fold_step<false>(lo, hi, sh, kinds, q, diff);
+      } else {
+        fold_step<true>(lo, hi, sh, kinds, q, diff);
+      }
+    } else {
+      uint32_t flo[3][kRun5], fhi[3][kRun5];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        if (kinds & (0x49u << d)) pair_words(dig + d * kRow5 + base + a, flo[d], fhi[d]);
+      }
+      fold_step<true>(flo, fhi, sh, kinds, q, diff);
+    }
+  }
+}
+
+// digit words of stream words i (even) and i + 1 into the block's rows
+__device__ __forceinline__ void stage_pair(uint32_t* dig, int i, ulonglong2 v) {
+  uint32_t d0[3], d1[3];
+  digit_words(v.x, d0);
+  digit_words(v.y, d1);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) *reinterpret_cast<uint2*>(dig + d * kRow5 + i) = make_uint2(d0[d], d1[d]);
+}
+
+constexpr int kPairs5 = kSpan5 / (2 * kThreads5);  // 16-byte loads a thread
+
+// Block b covers words kSpan5 b .. kSpan5 (b + 1) - 1.  Its threads load
+// them and `look` following words (16-byte loads, all in flight before the
+// first split; zeros past the stream), split each into its three digit
+// words in shared memory, then thread t takes words kRun5 t .. kRun5 t +
+// kRun5 - 1: the anchor steps, and the other steps only where an anchor
+// left a start alive in some lane of the warp (a warp-uniform skip).
+__global__ void __launch_bounds__(kThreads5)
+match_b5_kernel(const uint64_t* __restrict__ x, int64_t n_words, const uint32_t* __restrict__ table, int look,
+                int64_t n_starts, uint32_t* __restrict__ out) {
+  __shared__ __align__(16) uint32_t dig[3 * kRow5];
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kSpan5;
+  ulonglong2 raw[kPairs5];
+#pragma unroll
+  for (int m = 0; m < kPairs5; ++m) {
+    const int64_t w = w0 + 2 * (threadIdx.x + m * kThreads5);
+    if (w + 1 < n_words) {
+      raw[m] = __ldg(reinterpret_cast<const ulonglong2*>(x + w));
+    } else {
+      raw[m] = make_ulonglong2(w < n_words ? __ldg(x + w) : 0ull, 0ull);
+    }
+  }
+  const int64_t wl = w0 + kSpan5 + threadIdx.x;
+  const uint64_t extra = static_cast<int>(threadIdx.x) < look && wl < n_words ? __ldg(x + wl) : 0ull;
+#pragma unroll
+  for (int m = 0; m < kPairs5; ++m) stage_pair(dig, 2 * (threadIdx.x + m * kThreads5), raw[m]);
+  if (static_cast<int>(threadIdx.x) < look) {
+    uint32_t d[3];
+    digit_words(extra, d);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) dig[k * kRow5 + kSpan5 + threadIdx.x] = d[k];
+  }
+  __syncthreads();
+  const uint4* steps = reinterpret_cast<const uint4*>(table + kTableHead);
+  const int n_first = static_cast<int>(__ldg(table)), n_steps = static_cast<int>(__ldg(table + 1));
+  const int base = kRun5 * threadIdx.x;
+  uint32_t lo[3][kRun5], hi[3][kRun5];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    uint32_t run[kRun5 + 1];
+#pragma unroll
+    for (int c = 0; c < kRun5; c += 4) {
+      const uint4 own = *reinterpret_cast<const uint4*>(dig + d * kRow5 + base + c);
+      run[c] = own.x, run[c + 1] = own.y, run[c + 2] = own.z, run[c + 3] = own.w;
+    }
+    run[kRun5] = dig[d * kRow5 + base + kRun5];
+    pair_words(run, lo[d], hi[d]);
+#pragma unroll
+    for (int k = 0; k < kRun5; ++k) {
+      // keep the pairs in registers: rebuilding them in every step costs
+      // three instructions a window
+      asm volatile("" : "+r"(lo[d][k]), "+r"(hi[d][k]));
+    }
+  }
+  uint32_t diff[3][kRun5] = {};
+  fold_steps(steps, 0, n_first, lo, hi, dig, base, diff);
+  if (n_first < n_steps) {
+    uint32_t nonzero = 0xFFFFFFFFu;  // bit 3j + 2: field j nonzero in every diff so far
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+#pragma unroll
+      for (int k = 0; k < kRun5; ++k) nonzero &= ((diff[p][k] & kLow2) + kLow2) | diff[p][k];
+    }
+    const bool live = (~nonzero & kHigh) != 0u;
+    if (__any_sync(0xFFFFFFFFu, live)) fold_steps(steps, n_first, n_steps, lo, hi, dig, base, diff);
+  }
+  const int64_t w = w0 + base;
+  uint32_t bits[kRun5];
+#pragma unroll
+  for (int k = 0; k < kRun5; ++k) {
+    // phase p's hits sit at bits 3j + 2; the output wants them at 3j + p
+    bits[k] = (zero_fields(diff[0][k]) >> 2) | (zero_fields(diff[1][k]) >> 1) | zero_fields(diff[2][k]);
+  }
+  if (n_starts - 27 * w < 27 * kRun5) {
+#pragma unroll
+    for (int k = 0; k < kRun5; ++k) {
+      const int64_t lim = n_starts - 27 * (w + k);
+      if (lim < 27) bits[k] &= lim <= 0 ? 0u : (1u << lim) - 1u;
+    }
+  }
+  if (w + kRun5 <= n_words) {
+#pragma unroll
+    for (int c = 0; c < kRun5; c += 4) {
+      *reinterpret_cast<uint4*>(out + w + c) = make_uint4(bits[c], bits[c + 1], bits[c + 2], bits[c + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRun5; ++k) {
+      if (w + k < n_words) out[w + k] = bits[k];
+    }
+  }
 }
 
 }  // namespace
@@ -196,18 +363,19 @@ int cn_match_2bit(const void* words, int64_t n_words, const void* table, int wq,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Base-5 stream u64[n_words] (8-byte aligned) -> match bits u32[n_words].
-// table (on the device) = ntaps[3], nanchor[3], taps[3][max_taps], each tap
-// offset << 18 | care8 << 9 | q8 with a nonzero care8, anchors first; look =
-// the largest tap offset / 9 + 1 words, at most 40.
-int cn_match_b5(const void* words, int64_t n_words, const void* table, int max_taps, int look,
-                int64_t n_starts, void* out, void* stream) {
+// Base-5 stream u64[n_words] (16-byte aligned) -> match bits u32[n_words]
+// (16-byte aligned).  table (on the device, 16-byte aligned) = n_first,
+// n_steps, six zeros, then n_steps steps of 12 u32 (fold_steps), the
+// anchor steps first.  look = ceil(largest step offset / 9) + 1 words, at
+// most 40.
+int cn_match_b5(const void* words, int64_t n_words, const void* table, int look, int64_t n_starts, void* out,
+                void* stream) {
   if (n_words == 0) return 0;
-  if (look < 1 || look > kMaxLook5 || max_taps < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>((n_words + kWords5 - 1) / kWords5);
-  match_b5_kernel<<<blocks, kWords5, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(words), n_words, static_cast<const uint32_t*>(table), max_taps, look,
-      n_starts, static_cast<uint32_t*>(out));
+  if (look < 1 || look > kMaxLook5) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((n_words + kSpan5 - 1) / kSpan5);
+  match_b5_kernel<<<blocks, kThreads5, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(words), n_words, static_cast<const uint32_t*>(table), look, n_starts,
+      static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

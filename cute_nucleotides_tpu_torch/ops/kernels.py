@@ -639,10 +639,29 @@ def _b5_anchor_taps(qc) -> tuple | None:
     return tuple(taps)
 
 
-def _b5_table(qc) -> tuple[np.ndarray, int, int]:
-    """The kernel's query table: ntaps[3], nanchor[3], then per phase its
-    cared-for taps (offset << 18 | care8 << 9 | q8), anchors first; with the
-    tap capacity per phase and the lookahead words the taps reach."""
+#: the base-5 kernel's table: a head of u32[8] (n_first, n_steps, six
+#: zeros), then twelve u32 a step
+_B5_HEAD, _B5_STEP = 8, 12
+
+#: a base-5 digit replicated into the nine 3-bit fields of a digit word
+_B5_REP = 0x1249249
+
+#: the low two bits, and the high bit, of each of the nine 3-bit fields
+_B5_LOW2, _B5_HIGH = 0x36DB6DB, 0x4924924
+
+
+def _b5_table(qc) -> tuple[np.ndarray, int]:
+    """The kernel's query table and the lookahead words its steps reach.
+
+    A step is one triplet offset i = 9 a + r, shared by the three phases:
+    its first u32 is ``a << 16 | kinds << 5 | 3 r``, where bit 3 p + d of
+    kinds says that phase p's tap at offset i cares for digit d (a, b, c)
+    of the triplet, and u32 1 + 3 p + d holds that digit times 0x1249249
+    (replicated into the nine 3-bit fields); u32 10 and 11 are 0.  The head
+    is n_first, n_steps: the first n_first steps hold each phase's anchor
+    taps (the reference's prefilter, ``_b5_anchor_taps``), the rest its
+    other taps, each part in offset order.  Taps that care for nothing
+    are left out."""
     if len(qc) != 3:
         raise ValueError(f"expected three phase tables, got {len(qc)}")
     max_taps = max(len(q8) for q8, _ in qc)
@@ -650,37 +669,64 @@ def _b5_table(qc) -> tuple[np.ndarray, int, int]:
         raise ValueError(f"the base-5 search kernel takes at most {_B5_MAX_TAPS} triplets per "
                          f"phase (a 1024-nt query), got {max_taps}")
     anchors = _b5_anchor_taps(qc)
-    table = np.zeros(6 + 3 * max_taps, dtype=np.uint32)
-    max_off = 0
+    parts = ({}, {})  # offset -> [kinds, q u32[9]], anchor taps then the rest
     for p, (q8, care8) in enumerate(qc):
-        live = [i for i in range(len(care8)) if care8[i]]
-        first = [i for i in live if anchors is None or i in anchors[p]]
-        order = first + [i for i in live if i not in first]
-        table[p], table[3 + p] = len(order), len(first)
-        for k, i in enumerate(order):
-            table[6 + p * max_taps + k] = (i << 18) | (int(care8[i]) << 9) | int(q8[i])
-        max_off = max([max_off, *order])
-    return table, max_taps, (max_off + 8) // 9 + 1
+        for i in range(len(care8)):
+            if not care8[i]:
+                continue
+            step = parts[anchors is not None and i not in anchors[p]].setdefault(i, [0, [0] * 9])
+            for d in range(3):
+                if (int(care8[i]) >> (3 * d)) & 7:
+                    step[0] |= 1 << (3 * p + d)
+                    step[1][3 * p + d] = ((int(q8[i]) >> (3 * d)) & 7) * _B5_REP
+    steps = [(i, *parts[k][i]) for k in (0, 1) for i in sorted(parts[k])]
+    table = np.zeros(_B5_HEAD + _B5_STEP * len(steps), dtype=np.uint32)
+    table[0], table[1] = len(parts[0]), len(steps)
+    for k, (i, kinds, q) in enumerate(steps):
+        at = _B5_HEAD + _B5_STEP * k
+        table[at] = (i // 9) << 16 | kinds << 5 | 3 * (i % 9)
+        table[at + 1 : at + 10] = q
+    max_off = max((i for i, _, _ in steps), default=0)
+    return table, (max_off + 8) // 9 + 1
+
+
+def _b5_digit_words(words: torch.Tensor) -> torch.Tensor:
+    """Packed u32[2 N] -> the digit words int64[3, N]: row d holds digit d
+    (a, b, c of t = a + 5 b + 25 c) of triplet j at bits 3 j, split
+    unclamped (``eager.b5_b8_slots``), so a corrupt triplet's c is 5."""
+    pair = eager.u32_to_i64(words).reshape(-1, 2)
+    slots = eager.b5_b8_slots(eager.b5_word_triplets(pair[:, 0], pair[:, 1]))
+    shifts = 3 * torch.arange(spec.TRIPLETS_PER_WORD, device=words.device, dtype=torch.int64)
+    return torch.stack([(((slots >> (3 * d)) & 7) << shifts).sum(-1) for d in range(3)])  # disjoint: sum == OR
+
+
+def _b5_zero_fields(v: torch.Tensor) -> torch.Tensor:
+    """Bit 3 j + 2 set iff 3-bit field j < 9 of v is zero (one add finds the
+    nonzero fields: (v & 3) + 3 <= 6 cannot carry out of a field)."""
+    return ~(((v & _B5_LOW2) + _B5_LOW2) | v) & _B5_HIGH
 
 
 def match_b5_bits_stream_plain(words: torch.Tensor, qc, n_starts: int) -> torch.Tensor:
-    """Plain version of :func:`match_b5_bits_stream`: the stream's triplets
-    as base-8 digit slots on int64 lanes, each phase's taps compared as
-    shifted slices (O(W) memory)."""
+    """Plain version of :func:`match_b5_bits_stream`, in the kernel's own
+    arithmetic on int64 lanes (O(W) memory): the stream's digit words; per
+    step of :func:`_b5_table`, the 27-bit window of each digit word at the
+    step's offset, xor-ed with each caring phase's replicated query digit
+    and OR-ed into that phase's differences; then one zero-field test per
+    phase, whose hits at bits 3 j + 2 shift down to 3 j + p."""
     n = _check_stream(words, torch.uint32, 2, "packed u32[2 N]")
-    pair = eager.u32_to_i64(words).reshape(n, 2)
-    t8 = eager.b5_b8_slots(eager.b5_word_triplets(pair[:, 0], pair[:, 1])).reshape(-1)
-    t8 = torch.cat([t8, t8.new_zeros(max(len(q8) for q8, _ in qc))])
-    U = spec.TRIPLETS_PER_WORD * n
-    shifts = 3 * torch.arange(spec.TRIPLETS_PER_WORD, device=words.device, dtype=torch.int64)
-    bits = torch.zeros(n, dtype=torch.int64, device=words.device)
-    for p, (q8, care8) in enumerate(qc):
-        diff = torch.zeros(U, dtype=torch.int64, device=words.device)
-        for i in range(len(q8)):
-            if care8[i]:
-                diff |= (t8[i : i + U] ^ int(q8[i])) & int(care8[i])
-        hit = (diff == 0).to(torch.int64).reshape(n, spec.TRIPLETS_PER_WORD)
-        bits |= (hit << (shifts + p)).sum(-1)  # disjoint bits: sum == OR
+    table, look = _b5_table(qc)
+    dig = torch.cat([_b5_digit_words(words), words.new_zeros((3, look + 1), dtype=torch.int64)], dim=1)
+    diff = torch.zeros((3, n), dtype=torch.int64, device=words.device)
+    for k in range(int(table[1])):
+        at = _B5_HEAD + _B5_STEP * k
+        a, kinds, sh = int(table[at]) >> 16, int(table[at]) >> 5 & 0x1FF, int(table[at]) & 31
+        for d in range(3):
+            if kinds & (0b1001001 << d):
+                win = (dig[d, a : a + n] >> sh) | (dig[d, a + 1 : a + 1 + n] << (27 - sh))
+                for p in range(3):
+                    if kinds >> (3 * p + d) & 1:
+                        diff[p] |= win ^ int(table[at + 1 + 3 * p + d])
+    bits = sum(_b5_zero_fields(diff[p]) >> (2 - p) for p in range(3))  # disjoint bits: sum == OR
     return eager.i64_to_u32(_clear_tail(bits, n_starts, spec.NT_PER_WORD_B5))
 
 
@@ -692,17 +738,23 @@ def match_b5_bits_stream(words: torch.Tensor, qc, n_starts: int) -> torch.Tensor
 
     Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:
     match_b5_bits_rows``, whose bf16 de-interleave matmuls, (1024 + 256)-lane
-    rows and per-query compiled constants were TPU artefacts.  One thread per
-    u64 word: a block turns its 128 words and up to 40 lookahead words into
-    base-8 digit slots in shared memory (the exact 205/41 multiply-shifts,
-    so a corrupt triplet never equals a literal N), then folds each phase's
-    taps over its 9 start slots, the 4 anchor taps per phase first and the
-    rest only where an anchor matched.  Bound by integer work (9 shared
-    loads and compares per tap); 12 bytes move per 27 nt.  Time on the
-    H100: PERF.md.
+    rows and per-query compiled constants were TPU artefacts.  A block of
+    128 threads splits its 512 words and up to 40 lookahead words once into
+    digit words in shared memory: the a, b and c digits of the nine
+    triplets in 3-bit fields, by exact divisions, unclamped, so a corrupt
+    triplet's c = 5 fits and never equals a literal N.  Each thread then
+    takes 4 words.  One step of :func:`_b5_table` (one triplet offset)
+    funnel-shifts each digit word it needs once and serves the three
+    phases: the window xor the phase's query digit, replicated into the nine
+    fields, tests all nine starts of a word at once, and one add per phase
+    finds the starts where every field agreed.  The anchor steps run first,
+    the rest only where an anchor left a start alive in some lane of the
+    warp.  :func:`match_b5_bits_stream_plain` repeats this arithmetic.
+    Bound by the integer ALU pipe (the steps' shifts and logic ops, at half
+    the dispatch rate); 12 bytes move per 27 nt.  Time on the H100: PERF.md.
     """
     n = _check_stream(words, torch.uint32, 2, "packed u32[2 N]")
-    table, max_taps, look = _b5_table(qc)
+    table, look = _b5_table(qc)
     if not _on_cuda(words):
         return match_b5_bits_stream_plain(words, qc, n_starts)
     out = torch.empty(n, dtype=torch.uint32, device=words.device)
@@ -710,8 +762,8 @@ def match_b5_bits_stream(words: torch.Tensor, qc, n_starts: int) -> torch.Tensor
         dev_table = _device_table(table.tobytes(), words.device)
         lib = _build.load()
         with torch.cuda.device(words.device):
-            _launch(lib.cn_match_b5, words.data_ptr(), n, dev_table.data_ptr(), max_taps, look,
-                    n_starts, out.data_ptr(), _stream(words))
+            _launch(lib.cn_match_b5, words.data_ptr(), n, dev_table.data_ptr(), look, n_starts,
+                    out.data_ptr(), _stream(words))
         match_b5_bits_stream.launches += 1
     return out
 

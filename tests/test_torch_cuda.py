@@ -237,8 +237,18 @@ def test_search_2bit_kernel_matches_plain(cuda_device, n):
             assert int(search.match_count(w, n, b"A" * m)) == n - m + 1
 
 
-@pytest.mark.parametrize("n", (1, 26, 27, 28, 31, 32, 33, 27 * 127, 27 * 128, 27 * 129, 27 * 129 + 13))
+#: base-5 stream lengths in nt: ragged short streams, then 1, 2 and 3 words,
+#: and word counts at and one on each side of the kernel's run (4 words a
+#: thread), its block span (512 words) and two spans, some with a ragged tail
+SEARCH_B5_NT = (1, 26, 27, 28, 31, 32, 33, 54, 81, 27 * 4, 27 * 5, 27 * 127, 27 * 128, 27 * 129,
+                27 * 129 + 13, 27 * 511, 27 * 512, 27 * 513 + 13, 27 * 1024 + 5)
+
+
+@pytest.mark.parametrize("n", SEARCH_B5_NT)
 def test_search_b5_kernel_matches_plain(cuda_device, n):
+    """Planted queries (every fifth byte '?'), random queries with 10% '?'
+    at random lengths up to 1024 nt, and poly-A against all-A and
+    'A?A?...' queries, where every anchor tap fires."""
     rng = np.random.default_rng(n)
     for m in SEARCH_QUERIES + (1024,):
         if m > n:
@@ -249,10 +259,19 @@ def test_search_b5_kernel_matches_plain(cuda_device, n):
         got = K.match_b5_bits_stream(w, qc, n - m + 1)
         assert _same(got, K.match_b5_bits_stream_plain(w, qc, n - m + 1)), (n, m)
         assert 0 in search.match_positions_b5(w, n, query).tolist()
+    for m in rng.integers(1, min(n, 1024) + 1, 4).tolist():
+        q = rng.choice(np.frombuffer(b"ACGTN", np.uint8), m)
+        q[rng.random(m) < 0.1] = ord("?")
+        qc = search.compile_query_b5(q.tobytes())
+        assert _same(K.match_b5_bits_stream(w, qc, n - m + 1), K.match_b5_bits_stream_plain(w, qc, n - m + 1)), (n, m)
     w = interop.u64_to_tensor(native.n_to_bits2(np.full(n, ord("A"), np.uint8)), cuda_device)
-    for m in (1, 17, 45):
+    for query in (b"A", b"A" * 17, b"A" * 45, (b"A?" * 23)[:45], (b"A?" * 512)[:1023]):
+        m = len(query)
         if m <= n:
-            assert int(search.match_count_b5(w, n, b"A" * m)) == n - m + 1
+            qc = search.compile_query_b5(query)
+            got = K.match_b5_bits_stream(w, qc, n - m + 1)
+            assert _same(got, K.match_b5_bits_stream_plain(w, qc, n - m + 1)), (n, query[:8])
+            assert int(search.match_count_b5(w, n, query)) == n - m + 1
 
 
 def test_search_b5_kernel_on_every_triplet(cuda_device):

@@ -274,6 +274,133 @@ def test_b5_corrupt_triplets_never_match_a_literal_n():
     assert corrupt and not hits & set(corrupt)
 
 
+# --- the base-5 kernel's table and its plain version ---------------------------------------
+
+def _plain_positions(tw, n_starts: int, query: bytes) -> np.ndarray:
+    """Start positions from the plain version of kernel #9 (bits 27..31 of
+    every word must be zero)."""
+    bits = K.match_b5_bits_stream_plain(tw, search.compile_query_b5(query), n_starts)
+    assert not (_np(bits) >> 27).any()
+    return search._bit_positions(bits, spec.NT_PER_WORD_B5)
+
+
+#: plant starts (word, nt offset in the word): the three phases, and word
+#: offsets 0, 8, 9 and 26, two words apart (queries up to 30 nt do not overlap)
+B5_PLANTS = ((1, 0), (3, 1), (5, 2), (7, 8), (9, 9), (11, 26))
+
+
+@pytest.mark.parametrize("m", range(1, 31))
+def test_b5_plain_every_query_length(m):
+    """Every query length 1-30, planted at each phase and at word offsets 0,
+    8, 9 and 26, against the reference's mask (interpret mode)."""
+    rng = np.random.default_rng(100 + m)
+    query = bytearray(rng.choice(ACGTN, m).tobytes())
+    if m >= 4:
+        query[m // 2] = ord("?")
+    query = bytes(query)
+    L = 27 * 40 + 13
+    s = _seq(rng, L, ACGTN, plant=query.replace(b"?", b"G"), at=[27 * w + o for w, o in B5_PLANTS] + [L - m])
+    rw, tw = _both(_words(s, "base5"))
+    want = np.flatnonzero(np.asarray(ref.match_mask_b5(rw, L, query)))
+    assert {27 * w + o for w, o in B5_PLANTS} | {L - m} <= set(want.tolist())
+    assert np.array_equal(_plain_positions(tw, L - m + 1, query), want)
+
+
+@pytest.mark.parametrize("query", [b"?CGTTACA", b"A?GTTACA", b"AC?TTACA", b"??GTTACA", b"A??TTACA",
+                                   b"?C?TTACA"])
+def test_b5_plain_wildcard_in_each_slot(query):
+    """'?' in each slot of a tap, alone (two digits of the triplet cared
+    for) and in pairs (one), shifted through the three phases by the
+    plants, against the reference's packed bits."""
+    rng = np.random.default_rng(sum(query))
+    L = 27 * 30
+    s = _seq(rng, L, ACGT, plant=query.replace(b"?", b"T"), at=[27 * w + o for w, o in B5_PLANTS])
+    rw, tw = _both(_words(s, "base5"))
+    n = tw.shape[0] // 2
+    bits = K.match_b5_bits_stream_plain(tw, search.compile_query_b5(query), L - len(query) + 1)
+    assert np.array_equal(_np(bits), _ref_flat(ref.match_bits_b5(rw, L, query), n))
+
+
+def test_b5_plain_1024_nt_query_reaches_the_lookahead():
+    """A 1024-nt query: phase 2's last tap sits at triplet 341, 38 words past
+    the start, so the table asks for the kernel's 39 lookahead words (of
+    40); hits at the last start and at the last slot of a word."""
+    rng = np.random.default_rng(1024)
+    query = bytearray(rng.choice(ACGTN, 1024).tobytes())
+    query[::97] = b"?" * len(query[::97])
+    query = bytes(query)
+    table, look = K._b5_table(search.compile_query_b5(query))
+    assert look == 39
+    L = 27 * 120 + 6
+    last = L - 1024
+    assert last % 3 == 2  # phase 2: the longest phase table
+    s = _seq(rng, L, ACGTN, plant=query.replace(b"?", b"C"), at=(27 * 2 + 26, last))
+    rw, tw = _both(_words(s, "base5"))
+    want = np.flatnonzero(np.asarray(ref.match_mask_b5(rw, L, query)))
+    assert want.tolist() == [27 * 2 + 26, last]
+    assert np.array_equal(_plain_positions(tw, last + 1, query), want)
+
+
+@pytest.mark.parametrize("bit63", [0, 1])
+@pytest.mark.parametrize("query", [b"N", b"?N", b"CAN"])
+def test_b5_plain_on_every_triplet(query, bit63):
+    """All 128 triplet values in every slot, with bit 63 clear or set,
+    against literal-N queries: a corrupt triplet's c digit is 5."""
+    t = np.arange(128, dtype=np.uint64)
+    w64 = np.concatenate([(t << np.uint64(7 * j)) | (np.uint64(bit63) << np.uint64(63)) for j in range(9)])
+    rw, tw = _both(np.ascontiguousarray(w64).view(np.uint32))
+    L = 27 * w64.size
+    bits = K.match_b5_bits_stream_plain(tw, search.compile_query_b5(query), L - len(query) + 1)
+    assert np.array_equal(_np(bits), _ref_flat(ref.match_bits_b5(rw, L, query), w64.size))
+
+
+def test_b5_table_entries_by_hand():
+    """GATTACA's first step, worked out by hand: offset 0; phase 0 cares
+    for a, b, c (G A T = digits 3 0 2), phase 1 for b, c (G A), phase 2
+    for c (G)."""
+    table, look = K._b5_table(search.compile_query_b5(b"GATTACA"))
+    assert table[:8].tolist() == [3, 3, 0, 0, 0, 0, 0, 0] and look == 2
+    rep = 0x1249249
+    assert table[8:20].tolist() == [0b100_110_111 << 5, 3 * rep, 0, 2 * rep, 0, 3 * rep, 0, 0, 0, 3 * rep, 0, 0]
+    assert table[20:32].tolist() == [0x1FF << 5 | 3, 2 * rep, 0, rep, 2 * rep, 2 * rep, 0, 0, 2 * rep, 2 * rep, 0, 0]
+    assert table[32:44].tolist() == [0b111_011_001 << 5 | 6, 0, 0, 0, rep, 0, 0, 0, rep, 0, 0, 0]
+
+
+@pytest.mark.parametrize("query", [b"GATTACA", b"A", b"?", b"AC?N", b"N?" * 8, (b"ACGTACNGTT" * 5)[:45],
+                                   bytes(np.random.default_rng(7).choice(ACGTN, 1024))])
+def test_b5_table_entries(query):
+    """Every cared-for (phase, offset, digit) of compile_query_b5 is in
+    exactly one step, with its replicated digit; anchor taps (the
+    reference's prefilter) in the first part, the rest after, each part in
+    offset order; nothing else is set."""
+    qc = search.compile_query_b5(query)
+    table, look = K._b5_table(qc)
+    n_first, n_steps = int(table[0]), int(table[1])
+    assert not table[2:8].any() and table.size == 8 + 12 * n_steps
+    anchors = K._b5_anchor_taps(qc)
+    want = {(p, i, d): ((int(q8[i]) >> (3 * d)) & 7) * 0x1249249
+            for p, (q8, care8) in enumerate(qc) for i in range(len(care8)) for d in range(3)
+            if (int(care8[i]) >> (3 * d)) & 7}
+    got, offsets = {}, ([], [])
+    for k, row in enumerate(table[8:].reshape(n_steps, 12).tolist()):
+        a, kinds, sh = row[0] >> 16, (row[0] >> 5) & 0x1FF, row[0] & 31
+        assert (row[0] >> 14) & 3 == 0 and sh % 3 == 0 and sh < 27 and kinds and row[10:] == [0, 0]
+        i, part = 9 * a + sh // 3, k >= n_first
+        offsets[part].append(i)
+        for p in range(3):
+            for d in range(3):
+                if kinds >> (3 * p + d) & 1:
+                    assert (p, i, d) not in got
+                    got[(p, i, d)] = row[1 + 3 * p + d]
+                    assert part == (anchors is not None and i not in anchors[p])
+                else:
+                    assert row[1 + 3 * p + d] == 0
+    assert got == want
+    assert all(o == sorted(set(o)) for o in offsets)
+    last = max([i for _, i, _ in want] + [0])
+    assert look == -(-last // 9) + 1
+
+
 # --- batches -------------------------------------------------------------------------------
 
 @pytest.mark.parametrize("codec", ["2bit", "base5"])
