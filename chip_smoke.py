@@ -39,10 +39,12 @@ against the batch's bytes.
 
 The search path: phase 2 holds both search kernels against their plain
 versions at the word seams, with wildcards, planted hits, a poly-A query
-on a poly-A stream, a query over 8192 nt (2-bit) and every triplet value
-with and without bit 63 (base-5); phase 3 runs ``search.match_bits`` /
-``match_count`` and their ``_b5`` twins on the flattened 1-Gnt and
-1.07-Gnt batches (7 nt, 45 nt with wildcards, a planted 20-nt primer);
+on a poly-A stream, a query over 8192 nt, all-N queries, a 4800-nt query
+anchored past the lookahead #8 stages and word counts off its 8-word run
+(2-bit), and every triplet value with and without bit 63 (base-5); phase
+3 runs ``search.match_bits`` / ``match_count`` and their ``_b5`` twins on
+the flattened 1-Gnt and 1.07-Gnt batches (7 nt, 45 nt with wildcards, a
+planted 20-nt primer);
 phase 5 runs ``grep --both`` on one chr1-length record of each codec with a
 45-nt query planted on both strands, and ``grep --count --both --batch
 8192`` on the 200,000-read files, each against a numpy scan of the bytes.
@@ -157,6 +159,9 @@ SEARCH_NT_B5 = (1, 15, 16, 17, 26, 27, 28, 31, 32, 33, 54, 81, 27 * 4, 27 * 5, 2
                 27 * 129 + 13, 27 * 511, 27 * 512, 27 * 513 + 13, 27 * 1024 + 5)
 SEARCH_M = (1, 7, 16, 17, 32, 33, 45, 141)  # query lengths, nt
 LONG_QUERY, B5_MAX_QUERY = 8200, 1024
+#: 2-bit stream word counts for #8's edges, none a multiple of its 8-word
+#: run: a few words, and beside its block's 1024 words and two blocks
+SEARCH_W2 = (3, 5, 9, 1021, 1025, 2053)
 PRIMER = b"GTTCAGAGTTCTACAGTCCG"  # 20 nt
 _PK = "cute_nucleotides_tpu/ops/pallas_kernels.py"
 REPLACES = {
@@ -287,7 +292,8 @@ def phase_build():
     say(f"phase 1 build: nvcc {' '.join(_build.NVCC_FLAGS)} {os.path.relpath(_build.CSRC_DIR)}/*.cu; "
         f"build and load {time.perf_counter() - t0:.1f} s")
     _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel", "gc_b5_kernel",
-                                          "radix_hist_kernel", "radix_pass_kernel", "match_b5_kernel"))
+                                          "radix_hist_kernel", "radix_pass_kernel", "match_b5_kernel",
+                                          "match_2bit_kernel"))
 
 
 def _kernel_label(name: str, kernels):
@@ -525,9 +531,11 @@ def _planted(rng, n: int, alpha: bytes, m: int, wildcard: bytes):
 def phase_kernels_search(errors: Errors, rng) -> None:
     """Both search kernels against their plain versions at the word seams,
     every query length, wildcards and planted hits; poly-A on poly-A (every
-    anchor fires); a query over 8192 nt (2-bit); random queries with 10% '?'
-    at #9's block seams, A?A?.. on poly-A, and every triplet value with and
-    without bit 63 against literal-N queries (base-5)."""
+    anchor fires); a query over 8192 nt, all-N queries and a query anchored
+    past #8's staged lookahead at word counts off its run (2-bit); random
+    queries with 10% '?' at #9's block seams, A?A?.. on poly-A, and every
+    triplet value with and without bit 63 against literal-N queries
+    (base-5)."""
     import torch
 
     from cute_nucleotides_tpu_torch import api, interop
@@ -560,6 +568,29 @@ def phase_kernels_search(errors: Errors, rng) -> None:
             if m <= n:
                 one_2bit(w, n, b"A" * m, f"2-bit poly-A {n} nt, {m} nt")
                 check(int(search.match_count(w, n, b"A" * m)) == n - m + 1, f"2-bit poly-A {n}/{m} count")
+    # #8: all-N queries (no step: every start matches), and a 4800-nt query
+    # whose anchor is its last word (the only one without an N), so its
+    # anchor steps read 300 words past a thread's own: past the 256 that a
+    # block stages
+    long_q = bytearray(rng.choice(np.frombuffer(b"ACGT", np.uint8), 300 * 16).tobytes())
+    long_q[: 299 * 16 : 5] = b"N" * len(long_q[: 299 * 16 : 5])
+    check(K._match_table(*search.compile_query(bytes(long_q))[:2])[3] == 299,
+          "the long query's anchor is not its last word")
+    for W in SEARCH_W2:
+        n = 16 * W - 5
+        for query in (b"N", b"N" * 16, b"N" * 17, bytes(long_q)):
+            m = len(query)
+            if m <= n:
+                s = rng.choice(np.frombuffer(b"ACGT", np.uint8), n)
+                for p in (n - m, n // 3, 0):
+                    s[p : p + m] = np.frombuffer(query.replace(b"N", b"A"), np.uint8)
+                w = interop.u64_to_tensor(api.n_to_bits(s, tier="oracle"), dev)[:W]
+                one_2bit(w, n, query, f"2-bit search {W} words, {m}-nt query {query[:4]!r}..")
+                hits = search.match_positions(w, n, query)
+                check(set(hits.tolist()) >= {0, n // 3, n - m}, f"2-bit search {W} words, {m} nt: a planted hit missed")
+                if set(query) == {ord("N")}:
+                    check(hits.size == n - m + 1, f"2-bit all-N query {m} nt on {W} words: {hits.size} hits")
+                cases += 1
     for n in SEARCH_NT_B5:
         for m in SEARCH_M + (B5_MAX_QUERY,):
             if m <= n:
@@ -589,7 +620,8 @@ def phase_kernels_search(errors: Errors, rng) -> None:
     hits = set(search.match_positions_b5(w, n, b"N").tolist())
     check(not hits & corrupt, "a literal-N query matched the high digit of a corrupt triplet")
     torch.cuda.synchronize()
-    say(f"phase 2 search kernels: {cases} planted (stream, query) cases at {SEARCH_NT} nt (2-bit) and "
+    say(f"phase 2 search kernels: {cases} planted (stream, query) cases at {SEARCH_NT} nt and {SEARCH_W2} "
+        f"words (2-bit, with all-N queries and a 4800-nt query anchored in its last word) and "
         f"{SEARCH_NT_B5} nt (base-5), queries {SEARCH_M} + {LONG_QUERY} (2-bit) / {B5_MAX_QUERY} (base-5) "
         f"nt, random base-5 queries with 10% '?', poly-A against A.. and A?A?.., all 128 triplets +- bit 63: "
         f"bit-identical to the plain versions "
@@ -2171,8 +2203,9 @@ def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, planes, card: str
     (plain, kernel, kernel, plain), with its bound from those shapes and,
     for the histogram and the sort, the one PyTorch call that computes the
     same function (torch.bincount, torch.sort of the int64 key).  Returns
-    {name: (ms, plain ms, bound ms, bound by, library ms or None)} of the
-    first (the path's) variant."""
+    {name: (ms, plain ms, bound ms, bound by, library ms or None, {case:
+    ms})}: the numbers of the first (the path's) variant, then the kernel
+    time of every case."""
     import torch
 
     from cute_nucleotides_tpu_torch.ops import kernels as K, kmer, search
@@ -2342,7 +2375,8 @@ def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, planes, card: str
                 f"{k1:.4f}/{k2:.4f} vs {p1:.3f}/{p2:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
                 f"{100 * bound_ms / k_ms:.0f}% of it"
                 + (f"; library call {lib_ms:.4f} ms" if lib_ms is not None else ""))
-            times.setdefault(name, (k_ms, p_ms, bound_ms, bound_by, lib_ms))  # the default variant is first
+            times.setdefault(name, (k_ms, p_ms, bound_ms, bound_by, lib_ms, {}))  # the default variant is first
+            times[name][5][suffix] = k_ms
     say(f"  clocks after timing: {_clocks()}")
     return times
 
@@ -2435,7 +2469,8 @@ def main() -> int:
             kernels_line = json.dumps({"kernels": [
                 {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
                  "launches": own[k], "max_abs_err": errors.max[k], "ms": times[k][0], "plain_ms": times[k][1],
-                 "bound_ms": times[k][2], "bound_by": times[k][3], "library_ms": times[k][4]}
+                 "bound_ms": times[k][2], "bound_by": times[k][3], "library_ms": times[k][4],
+                 **({"ms_by_case": times[k][5]} if len(times[k][5]) > 1 else {})}
                 for k in REPLACES
             ]})
             del x, words, x5, words5, chr1_words, chr1_pairs, planes

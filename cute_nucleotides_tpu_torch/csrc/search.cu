@@ -6,9 +6,16 @@
 // 0, as the reference pads them (cute_nucleotides_tpu/ops/search.py).
 //
 // 2-bit (replaces search.py:match_bits_rows): words are u32 of 16 nt, 2 bits
-// each, LSB-first.  A start at nt 16w + s matches iff for every query word k,
-// ((funnel(x[w+k], x[w+k+1], 2s) ^ q[k]) & care[k]) == 0, where care has 0b11
-// in each concrete 2-bit field and 0b00 at an N wildcard.
+// each, LSB-first.  A start at nt 16w + s matches iff every concrete query
+// nt i = 16a + r (not an N) equals nt 16(w + a) + s + r of the stream.  The
+// host compiles the query into one step per concrete nt: its word offset a,
+// its shift 2r and its code c replicated into all 16 fields.  The window
+// funnel(x[w+a], x[w+a+1], 2r) holds nt 16(w + a) + s + r in field s for
+// every s at once, so window ^ rep(c) leaves field s zero iff start s agrees
+// at nt i: one funnel shift and one xor-or a step tests all 16 starts of a
+// word.  Zero tests commute with OR, so the steps OR into one v per word and
+// one test, ~(v | v >> 1) & 0x55555555, sets bit 2s iff start s matched;
+// four multiply-masks then gather the even bits into bits 0-15.
 //
 // Base-5 (replaces pallas_kernels.py:match_b5_bits_rows): words are u64 of 9
 // triplets t = a + 5b + 25c (7 bits each, bit 63 unused).  A block splits
@@ -38,18 +45,24 @@
 //
 // Neither kernel bakes the query in: it arrives as a small device table that
 // every thread of a warp reads at the same address (one broadcast load), so
-// one build of this file serves every query.  Long queries fold their anchor
-// taps first and the rest only where an anchor matched (anchors are chosen
-// on the host, as the reference chooses them): per thread in the 2-bit
-// kernel, per warp (__any_sync) in the base-5 one, where nearly every warp
-// has a live start after a short anchor.
+// one build of this file serves every query.  Each thread takes a run of
+// consecutive words (8 in the 2-bit kernel, 4 in the base-5 one), so a
+// step entry is read once per run.  Long queries fold their anchor steps
+// first (the query word with the most concrete nt in the 2-bit kernel,
+// taps per phase in the base-5 one; chosen on the host, as the reference
+// chooses them) and the rest only where the anchor (in the 2-bit kernel,
+// its first 10 steps) left a start alive in some lane of the warp
+// (__any_sync).
 //
 // Bound: the memory traffic is small (4 B in, 4 B out per 16 nt; 8 B in, 4 B
-// out per 27 nt); the integer pipes bound both kernels at short queries (16
-// funnel-compare-select steps per 2-bit word and query word; in the base-5
-// kernel the shifts and logic ops of the steps, the zero tests and the
-// pairs, which share the integer ALU pipe at half the dispatch rate, while the
-// splits' multiplies run on the multiply-add pipe beside it).
+// out per 27 nt).  The 2-bit kernel spends about two integer-ALU
+// instructions a word per concrete query nt and ten more a word for the
+// zero test, the tail and the loop, and its compaction's multiplies run on
+// the multiply-add pipe; at short queries that is under the bytes' time.
+// The base-5 kernel is bound by its integer-ALU work: the shifts and logic
+// ops of the steps, the zero tests and the pairs, which share the integer
+// ALU pipe at half the dispatch rate, while the splits' multiplies run on
+// the multiply-add pipe beside it.
 //
 // Every entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() after its launch.
@@ -61,56 +74,147 @@ namespace {
 
 // --- 2-bit -------------------------------------------------------------------
 
-constexpr int kThreads2 = 256;  // output words (threads) per block
-constexpr int kLook2 = 256;     // lookahead words a block stages past its own
+constexpr int kThreads2 = 128;             // threads a block
+constexpr int kRun2 = 8;                   // consecutive words a thread
+constexpr int kSpan2 = kThreads2 * kRun2;  // words a block
+constexpr int kLook2 = 256;                // lookahead words a block stages past its span
+// Steps before the live test: 10 concrete nt leave a start of random data
+// alive with odds 4^-10, so a warp's 4096 starts rarely hold one, while
+// the rest of a 15- or 16-nt anchor word would cost every word 5-6 steps.
+constexpr int kPre2 = 10;
+constexpr uint32_t kEven = 0x55555555u;    // bit 2s of each 2-bit field s
 
 __device__ __forceinline__ uint32_t word_at(const uint32_t* __restrict__ x, int64_t n_words, int64_t i) {
   return i < n_words ? __ldg(x + i) : 0u;
 }
 
-// The 16-start match mask of query word k against stream words (a, b) =
-// (x[w+k], x[w+k+1]): bit s set iff the 32-bit window at nt 16(w+k) + s
-// agrees with q on every cared-for field.
-__device__ __forceinline__ uint32_t fold_2bit(uint32_t a, uint32_t b, uint32_t q, uint32_t care) {
-  uint32_t m = 0;
-#pragma unroll
-  for (int s = 0; s < 16; ++s) {
-    const uint32_t win = __funnelshift_r(a, b, 2 * s);
-    m |= (((win ^ q) & care) == 0u ? 1u : 0u) << s;
-  }
-  return m;
+// acc | (w ^ q) as one three-input logic op (ptxas would otherwise combine
+// three of them for a word as a tree, one op more)
+__device__ __forceinline__ uint32_t or_xor(uint32_t acc, uint32_t w, uint32_t q) {
+  uint32_t r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xF6;" : "=r"(r) : "r"(acc), "r"(w), "r"(q));
+  return r;
 }
 
-// Block b covers output words 256b..256b+255.  It stages its words and up to
-// kLook2 following ones in shared memory (coalesced); a thread whose query
-// reaches past the tile reads the rest through __ldg.  table = q[wq] then
-// care[wq]; anchor is the query word with the most cared-for bits.
-__global__ void __launch_bounds__(kThreads2)
-match_2bit_kernel(const uint32_t* __restrict__ x, int64_t n_words, const uint32_t* __restrict__ table,
-                  int wq, int anchor, int64_t n_starts, uint32_t* __restrict__ out) {
-  __shared__ uint32_t tile[kThreads2 + kLook2];
-  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kThreads2;
-  const int staged = kThreads2 + min(wq + 1, kLook2);
-  for (int i = threadIdx.x; i < staged; i += kThreads2) tile[i] = word_at(x, n_words, w0 + i);
-  __syncthreads();
-  const int t = threadIdx.x;
-  const int64_t w = w0 + t;
-  if (w >= n_words) return;
-  const int in_tile = staged - t;  // words w .. w + in_tile - 1 lie in the tile
-  const uint32_t* care = table + wq;
-  int k = anchor;
-  uint32_t bits = 0xFFFFu;
-  for (int step = 0; step < wq && bits != 0u; ++step) {
-    const uint32_t a = k < in_tile ? tile[t + k] : word_at(x, n_words, w + k);
-    const uint32_t b = k + 1 < in_tile ? tile[t + k + 1] : word_at(x, n_words, w + k + 1);
-    bits &= fold_2bit(a, b, __ldg(table + k), __ldg(care + k));
-    // the anchor first, then every other word in order
-    k = step == 0 ? (anchor == 0 ? 1 : 0) : k + 1;
-    if (k == anchor) ++k;
+// Bit 2s of e (its odd bits clear) moved to bit s: four multiply-masks on
+// the multiply-add pipe, each a sum of two copies whose bits cannot overlap
+// (so no carry), then a shift.  Pairs of starts gather in bits 1-2 of each
+// nibble, quads in bits 3-6 of each byte, octets in bits 7-14 of each half,
+// and all 16 in bits 16-31.
+__device__ __forceinline__ uint32_t compact_even(uint32_t e) {
+  e = (e * 3u) & 0x66666666u;
+  e = (e * 5u) & 0x78787878u;
+  e = (e * 17u) & 0x7F807F80u;
+  return (e * 514u) >> 16;
+}
+
+// The words x[w + a .. w + a + kRun2] of the thread whose run starts at
+// tile index base: from the block's tile while they lie in it, else through
+// __ldg (zeros past the stream).
+__device__ __forceinline__ void run_words(const uint32_t* tile, int staged, const uint32_t* __restrict__ x,
+                                          int64_t n_words, int64_t w0, int base, int a,
+                                          uint32_t (&xs)[kRun2 + 1]) {
+#pragma unroll
+  for (int j = 0; j <= kRun2; ++j) {
+    const int i = base + a + j;
+    xs[j] = i < staged ? tile[i] : word_at(x, n_words, w0 + i);
   }
-  const int64_t lim = n_starts - 16 * w;
-  if (lim < 16) bits &= lim <= 0 ? 0u : (1u << lim) - 1u;
-  out[w] = bits;
+}
+
+// One step (e = a << 5 | 2r, c x 0x55555555) over a thread's words: the
+// 32-bit window at nt 16(w + k + a) + r, xor the query code replicated into
+// all 16 fields, OR-ed into v[k].  Field s of v[k] stays zero while start
+// 16(w + k) + s agrees with every step so far.  The funnel shift takes the
+// shift amount mod 32, so a needs no masking off.
+__device__ __forceinline__ void fold_step(const uint32_t (&xs)[kRun2 + 1], uint2 e, uint32_t (&v)[kRun2]) {
+#pragma unroll
+  for (int k = 0; k < kRun2; ++k) v[k] = or_xor(v[k], __funnelshift_r(xs[k], xs[k + 1], e.x), e.y);
+}
+
+// Block b covers words kSpan2 b .. kSpan2 (b + 1) - 1: thread t loads its
+// kRun2 words (16-byte loads), the block stages them and up to kLook2
+// words past its span in shared memory, and each thread folds the first
+// min(n_first, kPre2) anchor steps (query word `anchor`, steps [0,
+// n_first)) on words held in registers, then the other steps only where
+// those left a start alive in some lane of the warp, reloading its words
+// when a step's offset changes.  steps = n_steps u32 pairs (fold_step),
+// the anchor's first, then the other query words' in order; look = the
+// largest offset + 1 words.
+__global__ void __launch_bounds__(kThreads2)
+match_2bit_kernel(const uint32_t* __restrict__ x, int64_t n_words, const uint2* __restrict__ steps, int n_first,
+                  int n_steps, int look, int anchor, int64_t n_starts, uint32_t* __restrict__ out) {
+  __shared__ __align__(16) uint32_t tile[kSpan2 + kLook2];
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kSpan2;
+  const int base = kRun2 * threadIdx.x;
+  const int64_t w = w0 + base;
+  uint4 own[kRun2 / 4];
+#pragma unroll
+  for (int c = 0; c < kRun2 / 4; ++c) {
+    const int64_t wc = w + 4 * c;
+    if (wc + 4 <= n_words) {
+      own[c] = __ldg(reinterpret_cast<const uint4*>(x + wc));
+    } else {
+      own[c] = make_uint4(word_at(x, n_words, wc), word_at(x, n_words, wc + 1), word_at(x, n_words, wc + 2),
+                          word_at(x, n_words, wc + 3));
+    }
+  }
+  const int staged = kSpan2 + min(look, kLook2);
+  for (int i = kSpan2 + threadIdx.x; i < staged; i += kThreads2) tile[i] = word_at(x, n_words, w0 + i);
+#pragma unroll
+  for (int c = 0; c < kRun2 / 4; ++c) *reinterpret_cast<uint4*>(tile + base + 4 * c) = own[c];
+  __syncthreads();
+  uint32_t xs[kRun2 + 1];
+  if (anchor == 0) {
+#pragma unroll
+    for (int c = 0; c < kRun2 / 4; ++c) {
+      xs[4 * c] = own[c].x, xs[4 * c + 1] = own[c].y, xs[4 * c + 2] = own[c].z, xs[4 * c + 3] = own[c].w;
+    }
+    xs[kRun2] = tile[base + kRun2];  // look >= 1: staged
+  } else {
+    run_words(tile, staged, x, n_words, w0, base, anchor, xs);
+  }
+  uint32_t v[kRun2] = {};
+  const int n_pre = min(n_first, kPre2);
+#pragma unroll 8
+  for (int idx = 0; idx < n_pre; ++idx) fold_step(xs, __ldg(steps + idx), v);
+  if (n_pre < n_steps) {
+    uint32_t alive = 0;
+#pragma unroll
+    for (int k = 0; k < kRun2; ++k) alive |= ~(v[k] | (v[k] >> 1));
+    if (__any_sync(0xFFFFFFFFu, (alive & kEven) != 0u)) {
+      int cur = anchor;
+      for (int idx = n_pre; idx < n_steps; ++idx) {
+        const uint2 e = __ldg(steps + idx);
+        const int a = static_cast<int>(e.x >> 5);
+        if (a != cur) {
+          cur = a;
+          run_words(tile, staged, x, n_words, w0, base, a, xs);
+        }
+        fold_step(xs, e, v);
+      }
+    }
+  }
+  uint32_t bits[kRun2];
+#pragma unroll
+  for (int k = 0; k < kRun2; ++k) bits[k] = compact_even(~(v[k] | (v[k] >> 1)) & kEven);
+  if (n_starts - 16 * w < 16 * kRun2) {
+#pragma unroll
+    for (int k = 0; k < kRun2; ++k) {
+      const int64_t lim = n_starts - 16 * (w + k);
+      if (lim < 16) bits[k] &= lim <= 0 ? 0u : (1u << lim) - 1u;
+    }
+  }
+  if (w + kRun2 <= n_words) {
+#pragma unroll
+    for (int c = 0; c < kRun2; c += 4) {
+      *reinterpret_cast<uint4*>(out + w + c) = make_uint4(bits[c], bits[c + 1], bits[c + 2], bits[c + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRun2; ++k) {
+      if (w + k < n_words) out[w + k] = bits[k];
+    }
+  }
 }
 
 // --- base-5 ------------------------------------------------------------------
@@ -152,14 +256,6 @@ __device__ __forceinline__ void digit_words(uint64_t v, uint32_t (&dig)[3]) {
 // a field ((v & 3) + 3 <= 6); bits 27 and up of v are dropped.
 __device__ __forceinline__ uint32_t zero_fields(uint32_t v) {
   return ~(((v & kLow2) + kLow2) | v) & kHigh;
-}
-
-// acc | (w ^ q) as one three-input logic op (ptxas would otherwise combine
-// three of them for a word as a tree, one op more)
-__device__ __forceinline__ uint32_t or_xor(uint32_t acc, uint32_t w, uint32_t q) {
-  uint32_t r;
-  asm("lop3.b32 %0, %1, %2, %3, 0xF6;" : "=r"(r) : "r"(acc), "r"(w), "r"(q));
-  return r;
 }
 
 // lo/hi pairs of kind d for the words x[0..kRun5] (kRun5 + 1 digit words)
@@ -349,17 +445,24 @@ match_b5_kernel(const uint64_t* __restrict__ x, int64_t n_words, const uint32_t*
 
 extern "C" {
 
-// Packed 2-bit stream u32[n_words] -> match bits u32[n_words].  table (on the
-// device) holds q[wq] then care[wq]; anchor < wq; words and out 4-byte
-// aligned.
-int cn_match_2bit(const void* words, int64_t n_words, const void* table, int wq, int anchor,
-                  int64_t n_starts, void* out, void* stream) {
+// Packed 2-bit stream u32[n_words] (16-byte aligned) -> match bits
+// u32[n_words] (16-byte aligned).  table (on the device, 8-byte aligned)
+// holds n_steps u32 pairs (match_2bit_kernel); n_first, n_steps, look and
+// anchor are the head of the host's copy (kernels._match_table).  A head
+// that is not consistent (n_first > n_steps, no anchor step while there are
+// steps, look < 1, the anchor at or past look) returns cudaErrorInvalidValue
+// before any launch.
+int cn_match_2bit(const void* words, int64_t n_words, const void* table, int n_first, int n_steps, int look,
+                  int anchor, int64_t n_starts, void* out, void* stream) {
+  if (n_first < 0 || n_first > n_steps || (n_steps > 0 && n_first == 0) || look < 1 || anchor < 0 ||
+      anchor >= look) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_words == 0) return 0;
-  if (wq < 1 || anchor < 0 || anchor >= wq) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>((n_words + kThreads2 - 1) / kThreads2);
+  const unsigned blocks = static_cast<unsigned>((n_words + kSpan2 - 1) / kSpan2);
   match_2bit_kernel<<<blocks, kThreads2, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n_words, static_cast<const uint32_t*>(table), wq, anchor,
-      n_starts, static_cast<uint32_t*>(out));
+      static_cast<const uint32_t*>(words), n_words, static_cast<const uint2*>(table), n_first, n_steps, look,
+      anchor, n_starts, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "cn_decode_b5": [_vp, _vp, _vp, _i64, _int, _vp],
     "cn_encode_b5_planar": [_vp, _vp, _vp, _i64, _vp],
     "cn_decode_b5_planar": [_vp, _vp, _vp, _i64, _int, _vp],
-    "cn_match_2bit": [_vp, _i64, _vp, _int, _int, _i64, _vp, _vp],
+    "cn_match_2bit": [_vp, _i64, _vp, _int, _int, _int, _int, _i64, _vp, _vp],
     "cn_match_b5": [_vp, _i64, _vp, _int, _i64, _vp, _vp],
     "cn_kmer_codes": [_vp, _vp, _vp, _i64, _i64, _int, _vp],
     "cn_kmer_codes_pair": [_vp, _vp, _vp, _vp, _vp, _i64, _i64, _int, _vp],

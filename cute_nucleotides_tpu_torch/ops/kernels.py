@@ -566,21 +566,73 @@ def _query_words(q, care) -> tuple[np.ndarray, np.ndarray]:
     return q, care
 
 
-def match_bits_stream_plain(words: torch.Tensor, q, care, n_starts: int) -> torch.Tensor:
-    """Plain version of :func:`match_bits_stream`: per phase s, the funnel
-    window of every word on int64 lanes, compared with each query word (O(W)
-    memory)."""
+#: the 2-bit kernel's table: a head of u32[4] (n_first, n_steps, look,
+#: anchor), then two u32 a step
+_MATCH_HEAD, _MATCH_STEP = 4, 2
+
+#: a 2-bit code replicated into the 16 fields of a word, and the low bit of
+#: each field
+_REP2 = _EVEN2 = 0x55555555
+
+
+def _match_table(q, care) -> np.ndarray:
+    """The 2-bit kernel's query table (u32): one step per concrete query nt
+    i = 16 a + r (care field 0b11; 0b00 is an N and has no step), as the
+    pair ``a << 5 | 2 r`` and its code times 0x55555555 (replicated into the
+    16 fields).  The anchor word's steps come first -- the query word with
+    the most cared-for bits, the first of equals, as the reference's
+    prefilter chooses it (``search.py:_match_bits_kernel``) -- then the
+    other words' in order, each in nt order.  The head is n_first (the
+    anchor's steps), n_steps, look (the largest step offset + 1: the words
+    a thread reads past its own) and the anchor word.  Built once per query
+    and cached (a read-only array), so a repeated scan spends no Python on
+    it."""
     q, care = _query_words(q, care)
-    W, wq = words.numel(), q.size
-    x = torch.cat([eager.u32_to_i64(words), words.new_zeros(wq + 1, dtype=torch.int64)])
-    bits = torch.zeros(W, dtype=torch.int64, device=words.device)
-    for s in range(spec.NT_PER_U32_2BIT):
-        win = x if s == 0 else ((x[:-1] >> (2 * s)) | (x[1:] << (32 - 2 * s))) & eager.U32
-        diff = torch.zeros_like(bits)
-        for k in range(wq):
-            if care[k]:
-                diff |= (win[k : k + W] ^ int(q[k])) & int(care[k])
-        bits |= (diff == 0).to(torch.int64) << s
+    return _match_table_of(q.tobytes(), care.tobytes())
+
+
+@functools.lru_cache(maxsize=64)
+def _match_table_of(q_bytes: bytes, care_bytes: bytes) -> np.ndarray:
+    q, care = np.frombuffer(q_bytes, np.uint32), np.frombuffer(care_bytes, np.uint32)
+    fields = [(int(care[a]) >> (2 * r)) & 3 for a in range(q.size) for r in range(spec.NT_PER_U32_2BIT)]
+    if any(f not in (0, 3) for f in fields):
+        raise ValueError("care must hold 0b11 or 0b00 in each 2-bit field")
+    anchor = max(range(q.size), key=lambda a: bin(int(care[a])).count("1"))
+    steps = [(a << 5 | 2 * r, ((int(q[a]) >> (2 * r)) & 3) * _REP2)
+             for a in [anchor] + [a for a in range(q.size) if a != anchor]
+             for r in range(spec.NT_PER_U32_2BIT) if fields[spec.NT_PER_U32_2BIT * a + r]]
+    n_first = bin(int(care[anchor])).count("1") // 2
+    look = max((e >> 5 for e, _ in steps), default=0) + 1
+    table = np.array([n_first, len(steps), look, anchor, *(v for step in steps for v in step)], dtype=np.uint32)
+    table.flags.writeable = False
+    return table
+
+
+def _compact_even(e: torch.Tensor) -> torch.Tensor:
+    """Bit 2 s of e (odd bits clear, 32 bits) moved to bit s, by the
+    kernel's four multiply-masks (``compact_even`` in csrc/search.cu)."""
+    e = (e * 3) & 0x66666666
+    e = (e * 5) & 0x78787878
+    e = (e * 17) & 0x7F807F80
+    return ((e * 514) >> 16) & 0xFFFF
+
+
+def match_bits_stream_plain(words: torch.Tensor, q, care, n_starts: int) -> torch.Tensor:
+    """Plain version of :func:`match_bits_stream`, in the kernel's own
+    arithmetic on int64 lanes (O(W) memory): per step of
+    :func:`_match_table`, the stream's 32-bit window at the step's word
+    offset and shift, xor the step's replicated code, OR-ed into v; then
+    the zero-field test ~(v | v >> 1) & 0x55555555 and the compaction of
+    its even bits."""
+    table = _match_table(q, care)
+    W, n_steps, look = words.numel(), int(table[1]), int(table[2])
+    x = torch.cat([eager.u32_to_i64(words), words.new_zeros(look + 1, dtype=torch.int64)])
+    v = torch.zeros(W, dtype=torch.int64, device=words.device)
+    for e, c in table[_MATCH_HEAD:].reshape(n_steps, _MATCH_STEP).tolist():
+        a, sh = e >> 5, e & 31
+        win = x[a : a + W] if sh == 0 else ((x[a : a + W] >> sh) | (x[a + 1 : a + 1 + W] << (32 - sh))) & eager.U32
+        v |= win ^ c
+    bits = _compact_even(~(v | (v >> 1)) & _EVEN2)
     return eager.i64_to_u32(_clear_tail(bits, n_starts, spec.NT_PER_U32_2BIT))
 
 
@@ -593,25 +645,30 @@ def match_bits_stream(words: torch.Tensor, q, care, n_starts: int) -> torch.Tens
 
     Replaces ``cute_nucleotides_tpu/ops/search.py:match_bits_rows``, whose
     (base, halo) rows of 512 lanes and per-query compiled constants were TPU
-    artefacts.  One thread per output word: a block stages its 256 words
-    and the query's lookahead in shared memory (longer lookahead reads
-    through ``__ldg``), the query table sits on the device once per query,
-    and the word with the most cared-for bits folds first so that a thread
-    stops when its 16 starts all missed.  Bound by integer work at short
-    queries (16 funnel-compare steps per word and query word); 8 bytes move
-    per 16 nt.  Time on the H100: PERF.md.
+    artefacts.  The query becomes a device table (:func:`_match_table`, once
+    per query and device) of one step per concrete nt.  A block of 128
+    threads stages its 1024 words and up to 256 lookahead words in shared
+    memory (longer lookahead reads through ``__ldg``); each thread takes 8
+    words, and a step -- one funnel shift and one xor-or a word -- tests all
+    16 starts of a word at once.  The anchor word's steps run first, and
+    after at most 10 of them the rest run only where a start is still alive
+    in some lane of the warp.
+    One zero test per word and four multiply-masks give the 16 start bits.
+    :func:`match_bits_stream_plain` repeats this arithmetic.  About two
+    integer-ALU instructions a word per concrete query nt; 8 bytes move per
+    16 nt.  Time on the H100: PERF.md.
     """
     W = _check_stream(words, torch.uint32, 1, "packed u32[W]")
-    q, care = _query_words(q, care)
+    table = _match_table(q, care)
     if not _on_cuda(words):
         return match_bits_stream_plain(words, q, care, n_starts)
     out = torch.empty(W, dtype=torch.uint32, device=words.device)
     if W:
-        anchor = max(range(q.size), key=lambda k: bin(int(care[k])).count("1"))
-        table = _device_table(np.concatenate([q, care]).tobytes(), words.device)
+        n_first, n_steps, look, anchor = (int(v) for v in table[:_MATCH_HEAD])
+        dev_table = _device_table(table[_MATCH_HEAD:].tobytes(), words.device)
         lib = _build.load()
         with torch.cuda.device(words.device):
-            _launch(lib.cn_match_2bit, words.data_ptr(), W, table.data_ptr(), q.size, anchor,
+            _launch(lib.cn_match_2bit, words.data_ptr(), W, dev_table.data_ptr(), n_first, n_steps, look, anchor,
                     n_starts, out.data_ptr(), _stream(words))
         match_bits_stream.launches += 1
     return out

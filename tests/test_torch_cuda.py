@@ -237,6 +237,56 @@ def test_search_2bit_kernel_matches_plain(cuda_device, n):
             assert int(search.match_count(w, n, b"A" * m)) == n - m + 1
 
 
+#: 2-bit word counts off the kernel's 8-word run: a few words, and beside its
+#: block's 1024 words and two blocks
+SEARCH_W2 = (3, 5, 9, 1021, 1025, 2053)
+
+
+@pytest.mark.parametrize("W", SEARCH_W2)
+def test_search_2bit_kernel_edges(cuda_device, W):
+    """All-N queries (no step: every start matches) and a 4800-nt query
+    anchored in its last word, whose anchor steps read 300 words past a
+    thread's own, past the 256 a block stages."""
+    rng = np.random.default_rng(W)
+    long_q = bytearray(rng.choice(np.frombuffer(b"ACGT", np.uint8), 300 * 16).tobytes())
+    long_q[: 299 * 16 : 5] = b"N" * len(long_q[: 299 * 16 : 5])
+    assert K._match_table(*search.compile_query(bytes(long_q))[:2])[3] == 299
+    n = 16 * W - 5
+    for query in (b"N", b"N" * 16, b"N" * 17, b"GATTACA", bytes(long_q)):
+        m = len(query)
+        if m > n:
+            continue
+        s = rng.choice(np.frombuffer(b"ACGT", np.uint8), n)
+        for p in (n - m, n // 3, 0):
+            s[p : p + m] = np.frombuffer(query.replace(b"N", b"A"), np.uint8)
+        w = interop.u64_to_tensor(native.n_to_bits(s), cuda_device)[:W]
+        q, care, _ = search.compile_query(query)
+        for n_starts in (n - m + 1, 16 * W - 8 * 16 - 3, 16 * W):
+            got = K.match_bits_stream(w, q, care, n_starts)
+            assert _same(got, K.match_bits_stream_plain(w, q, care, n_starts)), (W, m, n_starts)
+        hits = search.match_positions(w, n, query)
+        assert {0, n // 3, n - m} <= set(hits.tolist())
+        if set(query) == {ord("N")}:
+            assert hits.size == n - m + 1
+
+
+def test_search_2bit_refuses_inconsistent_head(cuda_device):
+    """cn_match_2bit returns cudaErrorInvalidValue (1) before any launch for
+    a table head that does not hold together; a consistent one launches."""
+    from cute_nucleotides_tpu_torch.ops import _build
+
+    lib = _build.load()
+    w = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    out = torch.empty_like(w)
+    table = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    # n_first, n_steps, look, anchor
+    for head in ((2, 1, 1, 0), (0, 1, 1, 0), (1, 1, 0, 0), (1, 1, 1, 1), (-1, 0, 1, 0), (0, 0, 1, -1)):
+        assert lib.cn_match_2bit(w.data_ptr(), 64, table.data_ptr(), *head, 100, out.data_ptr(), stream) == 1, head
+    assert lib.cn_match_2bit(w.data_ptr(), 64, table.data_ptr(), 1, 1, 1, 0, 100, out.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+
+
 #: base-5 stream lengths in nt: ragged short streams, then 1, 2 and 3 words,
 #: and word counts at and one on each side of the kernel's run (4 words a
 #: thread), its block span (512 words) and two spans, some with a ragged tail

@@ -185,6 +185,152 @@ def test_tail_padding_makes_no_hits():
     assert int(search.match_count(tw, L, b"NNN")) == int(ref.match_count(rw, L, b"NNN")) == L - 2
 
 
+# --- the 2-bit kernel's table and its plain version -----------------------------------------
+
+_REP2 = 0x55555555
+
+
+def _table(query: bytes) -> np.ndarray:
+    return K._match_table(*search.compile_query(query)[:2])
+
+
+def test_match_table_gattaca_by_hand():
+    """GATTACA, worked out by hand: seven steps in word 0 at shifts 0..12,
+    codes G = 3, A = 0, T = 2, C = 1 replicated into the 16 fields."""
+    table = _table(b"GATTACA")
+    assert table[:4].tolist() == [7, 7, 1, 0]
+    codes = (3, 0, 2, 2, 0, 1, 0)
+    assert table[4:].tolist() == [v for r, c in enumerate(codes) for v in (2 * r, c * _REP2)]
+
+
+def test_match_table_n_loses_exactly_its_steps():
+    """N at nt 15 and 16 (the last field of word 0, the first of word 1):
+    exactly those two steps are gone, and nothing else changes."""
+    full = b"ACGTACGTACGTACGTACGTA"
+    holes = full[:15] + b"NN" + full[17:]
+    steps = {tuple(p) for p in _table(full)[4:].reshape(-1, 2).tolist()}
+    kept = {tuple(p) for p in _table(holes)[4:].reshape(-1, 2).tolist()}
+    assert steps - kept == {(15 * 2, 2 * _REP2), (1 << 5 | 0, 0)}  # T at (0, 15), A at (1, 0)
+    assert not kept - steps and _table(holes)[:4].tolist() == [15, 19, 2, 0]
+
+
+@pytest.mark.parametrize("query,head,order", [
+    (b"ACGTACGTACGTACGTA", [16, 17, 2, 0], [(0, r) for r in range(16)] + [(1, 0)]),
+    (b"N" * 16 + b"G", [1, 1, 2, 1], [(1, 0)]),
+    (b"N" * 15 + b"CG", [1, 2, 2, 0], [(0, 15), (1, 0)]),  # a tie: the first word anchors
+    (b"NNNNANNNNNNNNNNNCG" + b"T" * 15, [16, 18, 3, 1], [(1, r) for r in range(16)] + [(0, 4), (2, 0)]),
+])
+def test_match_table_anchor_order(query, head, order):
+    """The anchor word (most concrete nt, the first of equals) comes first,
+    then the other words in order, each in nt order."""
+    table = _table(query)
+    assert table[:4].tolist() == head
+    assert [(e >> 5, (e & 31) // 2) for e in table[4::2].tolist()] == order
+
+
+@pytest.mark.parametrize("query", [b"GATTACA", b"N", b"N" * 40, b"ACGTN" * 28 + b"A", (b"ACGTACNGTT" * 5)[:45],
+                                   b"ACGT" * 256 + b"C"])
+def test_match_table_entries(query):
+    """Every concrete nt of compile_query is in exactly one step with its
+    replicated code, anchor word first; look is the last offset + 1."""
+    q, care, m = search.compile_query(query)
+    table = K._match_table(q, care)
+    n_first, n_steps, look, anchor = table[:4].tolist()
+    assert table.size == 4 + 2 * n_steps
+    want = {(i // 16, i % 16): ((int(q[i // 16]) >> (2 * (i % 16))) & 3) * _REP2
+            for i in range(m) if query[i : i + 1] not in (b"N", b"n")}
+    got = {}
+    for k, (e, c) in enumerate(table[4:].reshape(-1, 2).tolist()):
+        a, r = e >> 5, (e & 31) // 2
+        assert e & 1 == 0 and (a, r) not in got and (k < n_first) == (a == anchor)
+        got[(a, r)] = c
+    assert got == want
+    assert look == max([a for a, _ in want] + [0]) + 1
+    assert n_first == sum(1 for a, _ in want if a == anchor)
+
+
+def test_match_table_refuses_partial_care():
+    with pytest.raises(ValueError, match="0b11 or 0b00"):
+        K._match_table(np.zeros(1, np.uint32), np.array([0b01], np.uint32))
+
+
+def _plain_vs_reference(s: np.ndarray, query: bytes, L: int | None = None) -> np.ndarray:
+    """Kernel #8's plain version on the ceil(s.size / 16) words of s, a
+    stream of length L (default s.size), against the reference's packed
+    bits (Pallas, interpret mode) and its mask; returns the mask."""
+    L = s.size if L is None else L
+    rw, tw = _both(_words(s)[: -(-s.size // 16)])
+    q, care, m = search.compile_query(query)
+    bits = K.match_bits_stream_plain(tw, q, care, L - m + 1)
+    assert bits.dtype == torch.uint32 and bits.shape == (tw.shape[0],)
+    assert np.array_equal(_np(bits), _ref_flat(ref.match_bits(rw, L, query), tw.shape[0]))
+    mask = np.asarray(ref.match_mask(rw, L, query))
+    assert np.array_equal(search._bit_positions(bits, spec.NT_PER_U32_2BIT), np.flatnonzero(mask))
+    return mask
+
+
+@pytest.mark.parametrize("m", range(1, 41))
+def test_match_plain_every_query_length(m):
+    """Every query length 1-40 with random Ns, planted at start slots 0, 9
+    and 15 and at the last start, on a ragged 12-word stream."""
+    rng = np.random.default_rng(200 + m)
+    query = bytearray(rng.choice(ACGT, m).tobytes())
+    for i in np.flatnonzero(rng.random(m) < 0.2):
+        query[i] = ord("N")
+    query = bytes(query)
+    L = 16 * 11 + 9
+    at = (0, 16 * 2 + 9, 16 * 5 + 15, L - m)
+    mask = _plain_vs_reference(_seq(rng, L, plant=query.replace(b"N", b"T"), at=at), query)
+    assert set(at) <= set(np.flatnonzero(mask).tolist())
+
+
+@pytest.mark.parametrize("slot", range(16))
+def test_match_plain_n_in_each_field_slot(slot):
+    """A 32-nt query with N in field ``slot`` of word 0 and field 15 - slot
+    of word 1, planted at start slots 0, slot and 15."""
+    rng = np.random.default_rng(300 + slot)
+    query = bytearray(rng.choice(ACGT, 32).tobytes())
+    query[slot], query[16 + 15 - slot] = ord("N"), ord("N")
+    query = bytes(query)
+    at = (16, 16 * 4 + slot, 16 * 7 + 15)
+    mask = _plain_vs_reference(_seq(rng, 16 * 10, plant=query.replace(b"N", b"G"), at=at), query)
+    assert set(at) <= set(np.flatnonzero(mask).tolist())
+
+
+@pytest.mark.parametrize("query", [b"N", b"N" * 16, b"N" * 17])
+def test_match_plain_all_n_query(query):
+    """A query of only Ns has no step: every start below n_starts matches."""
+    L = 16 * 6 + 5
+    mask = _plain_vs_reference(_seq(np.random.default_rng(len(query)), L), query)
+    assert mask.all() and mask.size == L - len(query) + 1
+
+
+@pytest.mark.parametrize("L", [15, 16, 17, 16 * 3, 16 * 4, 16 * 5 - 7, 16 * 511, 16 * 512 - 1, 16 * 513 - 9])
+def test_match_plain_stream_edges(L):
+    """Stream lengths around a word (15/16/17 nt) and W of 1, 3, 4, 5, 511,
+    512 and 513 words (a thread's 4-word run, a block's 512 words): a
+    7-nt query and a 20-nt one, planted at the last start."""
+    rng = np.random.default_rng(L)
+    for query in (b"GATNACA", b"ACGTTGCANNTGCAACGTAC"):
+        if len(query) <= L:
+            s = _seq(rng, L, plant=query.replace(b"N", b"C"), at=(0, L // 2, L - len(query)))
+            assert _plain_vs_reference(s, query)[-1]
+
+
+@pytest.mark.parametrize("last_word", [5, 6])
+def test_match_plain_n_starts_mid_run(last_word):
+    """n_starts ends inside a 4-word run (its last start in word 5 or 6 of
+    the run 4..7), with hits planted on both sides of it."""
+    m = 7
+    n_starts = 16 * last_word + 9
+    L = n_starts + m - 1
+    rng = np.random.default_rng(last_word)
+    query = b"GANTACA"
+    s = _seq(rng, 16 * 8, plant=b"GATTACA", at=(n_starts + 7, n_starts - 1, n_starts - 10, 16 * 4))
+    mask = _plain_vs_reference(s, query, L)
+    assert mask.size == n_starts and mask[n_starts - 1] and mask[16 * 4]
+
+
 # --- base-5 -------------------------------------------------------------------------------
 
 @pytest.mark.parametrize("L,query", [
