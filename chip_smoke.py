@@ -6,7 +6,8 @@ main paths of both codecs at full size through the entry points a user
 calls:
 
   2. each kernel vs its plain version at ragged shapes, all 256 bytes and
-     (base-5 decode) all 128 triplet values with and without bit 63;
+     (base-5 decode) all 128 triplet values with and without bit 63; the
+     pext encode (#4) also at its thread and block edges (``PEXT_EDGES``);
   3. ``TwoBitCodec(device="cuda")`` on a resident u8[4096, 262144] batch
      (1 Gnt): every encode variant, ``encode_checked`` and ``decode``;
      ``Base5Codec(device="cuda")`` on u8[4096, 262143] (1.07 Gnt):
@@ -111,7 +112,8 @@ and ``torch.sort``'s, and its
 bound: the least time the card could take, the larger of the bytes it must
 move at 3.35 TB/s and the integer instructions its data needs at the
 card's issue rate.  Phase 1 prints the SASS instruction mix of the sketch,
-GC, radix sort and base-5 search kernels (``cuobjdump``), the check on
+GC, radix sort, both search kernels and the pext encode (#4), with their
+registers, stack, shared and local bytes (``cuobjdump``), the check on
 those counts.
 
 All data comes from seeds.  Exits non-zero, without the final line, on any
@@ -162,6 +164,11 @@ LONG_QUERY, B5_MAX_QUERY = 8200, 1024
 #: 2-bit stream word counts for #8's edges, none a multiple of its 8-word
 #: run: a few words, and beside its block's 1024 words and two blocks
 SEARCH_W2 = (3, 5, 9, 1021, 1025, 2053)
+#: (rows, lanes) edges of #4 (2 groups of 16 nt a thread, 512 a block): odd
+#: u32 totals (a last thread with 1 group), rows of 16 and 48 nt that split a
+#: thread's groups, totals just past one, two and four blocks' span
+PEXT_EDGES = ((1, 4), (2, 4), (3, 4), (3, 12), (7, 12), (64, 4), (1, 2052), (3, 684), (41, 100), (1, 4100),
+              (1, 8204))
 PRIMER = b"GTTCAGAGTTCTACAGTCCG"  # 20 nt
 _PK = "cute_nucleotides_tpu/ops/pallas_kernels.py"
 REPLACES = {
@@ -293,7 +300,7 @@ def phase_build():
         f"build and load {time.perf_counter() - t0:.1f} s")
     _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel", "gc_b5_kernel",
                                           "radix_hist_kernel", "radix_pass_kernel", "match_b5_kernel",
-                                          "match_2bit_kernel"))
+                                          "match_2bit_kernel", "encode_2bit_pext_kernel"))
 
 
 def _kernel_label(name: str, kernels):
@@ -403,6 +410,21 @@ def phase_kernels(errors: Errors, rng) -> None:
     _, flags = K.encode_2bit_nt4_mxu(nt4, checked=True)
     got_rows = torch.nonzero(flags.view(torch.int32)).flatten().tolist()
     check(got_rows == want_rows, f"mxu checked all bytes: rows {got_rows} != {want_rows}")
+    # #4's edges, a bad byte at the first nt of rows 0, 3, ... and at the last of rows 2, 5, ...
+    for rows, lanes in PEXT_EDGES:
+        s = rng.choice(alpha, size=(rows, 4 * lanes))
+        s[::3, 0] = ord("N")
+        s[2::3, -1] = 0xFF
+        bad_rows = [r for r in range(rows) if r % 3 != 1]
+        nt4 = torch.from_numpy(s).to(dev).view(torch.uint32)
+        errors.compare("encode_2bit_nt4_mxu", K.encode_2bit_nt4_mxu(nt4),
+                       K.encode_2bit_nt4_mxu_plain(nt4), f"mxu edge {rows}x{lanes}")
+        words, flags = K.encode_2bit_nt4_mxu(nt4, checked=True)
+        pwords, pflags = K.encode_2bit_nt4_mxu_plain(nt4, checked=True)
+        errors.compare("encode_2bit_nt4_mxu", words, pwords, f"mxu checked edge {rows}x{lanes}")
+        errors.compare("encode_2bit_nt4_mxu", flags, pflags, f"mxu checked flags edge {rows}x{lanes}")
+        got_rows = torch.nonzero(flags.view(torch.int32)).flatten().tolist()
+        check(got_rows == bad_rows, f"mxu checked edge {rows}x{lanes}: rows {got_rows} != {bad_rows}")
     p = torch.arange(256, dtype=torch.uint8, device=dev).view(2, 128)
     for v in ("swar", "shuffle", "select"):
         errors.compare("decode_2bit_nt4", K.decode_2bit_nt4(p, v),

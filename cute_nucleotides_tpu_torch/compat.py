@@ -10,7 +10,7 @@ PyTorch (``tier="auto"``):
 reference name      this package
 ==================  ===========================================================
 n_to_bits_lut       host C++ oracle
-n_to_bits_pext      ``mxu``: warp bit-plane gather (``__ballot_sync`` planes)
+n_to_bits_pext      ``mxu``: in-thread bit-plane gather (multiply-mask planes)
 n_to_bits_shift     ``shift``: log-depth shift-OR tree
 n_to_bits_movemask  ``interleave``: even/odd code planes + fold
 n_to_bits_mul       ``mul``: multiply-as-bit-shuffle

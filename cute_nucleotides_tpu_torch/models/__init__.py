@@ -71,7 +71,7 @@ class CodecConfig:
       tier: "torch", "cuda" or "auto" (see the module docstring).
       encode_variant: "mul" (multiply-as-bit-shuffle), "shift" (shift-OR
         tree), "interleave" (even/odd code planes, the movemask slot),
-        "mxu" (warp bit-plane gather, the pext slot; cuda only) or "dot"
+        "mxu" (in-thread bit-plane gather, the pext slot; cuda only) or "dot"
         (integer weighted sum; torch only).  None picks the tier's default.
       decode_variant: "swar" (spread multiplies, the pdep slot), "shuffle"
         (packed-LUT shift), "select" (select tree, the clmul slot) or

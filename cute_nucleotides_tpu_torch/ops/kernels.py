@@ -207,27 +207,30 @@ encode_2bit_nt4_checked.launches = 0
 
 # --- kernel #4: the pext slot -------------------------------------------------
 
-def _spread16(x: torch.Tensor) -> torch.Tensor:
-    """Morton spread of 16-bit values: bit i moves to bit 2i."""
-    x = (x | (x << 8)) & 0x00FF00FF
-    x = (x | (x << 4)) & 0x0F0F0F0F
-    x = (x | (x << 2)) & 0x33333333
-    return (x | (x << 1)) & 0x55555555
+#: the pext slot's plane gather (``csrc/codec2bit.cu`` ``gather_planes``):
+#: each plane's bits sit at 8j of a lane; times PEXT_PLANE_LO (low plane) or
+#: PEXT_PLANE_HI (high plane) they land, carry-free, on bits 24 + 2j and
+#: 25 + 2j, so bits 24..31 of the sum are the lane's packed byte
+PEXT_PLANE_MASK = 0x01010101
+PEXT_PLANE_LO = (1 << 24) | (1 << 18) | (1 << 12) | (1 << 6)
+PEXT_PLANE_HI = PEXT_PLANE_LO << 1
 
 
 def encode_2bit_nt4_mxu_plain(x: torch.Tensor, checked: bool = False):
-    """Plain version of :func:`encode_2bit_nt4_mxu`: the same bit-plane
-    gather, 16 nt per u32 word."""
+    """Plain version of :func:`encode_2bit_nt4_mxu`, in the kernel's steps on
+    int64 lanes: per lane the two bit planes times their multipliers, byte 3
+    of the sum (the lane's packed byte), then the 4 bytes of a 16-nt group
+    placed into its u32."""
     R, C = x.shape
-    codes = (x.contiguous().view(torch.uint8).to(torch.int64) >> 1) & 3
-    codes = codes.reshape(R, C // 4, 16)
-    bit = 1 << torch.arange(16, device=x.device, dtype=torch.int64)
-    plane0 = ((codes & 1) * bit).sum(-1)
-    plane1 = ((codes >> 1) * bit).sum(-1)
-    words = eager.i64_to_u32(_spread16(plane0) | (_spread16(plane1) << 1))
+    w = eager.u32_to_i64(x)
+    lo = (w >> 1) & PEXT_PLANE_MASK
+    hi = (w >> 2) & PEXT_PLANE_MASK
+    packed = ((lo * PEXT_PLANE_LO + hi * PEXT_PLANE_HI) >> 24) & 0xFF  # int64: the u32 drops bits >= 32
+    shifts = 8 * torch.arange(4, device=x.device, dtype=torch.int64)
+    words = eager.i64_to_u32((packed.reshape(R, C // 4, 4) << shifts).sum(-1))  # disjoint bytes: sum == OR
     if not checked:
         return words
-    bad = (eager.invalid_bits(eager.u32_to_i64(x)) != 0).any(-1)
+    bad = (eager.invalid_bits(w) != 0).any(-1)
     return words, eager.i64_to_u32(bad.to(torch.int64))
 
 
@@ -239,11 +242,13 @@ def encode_2bit_nt4_mxu(x: torch.Tensor, checked: bool = False):
 
     Replaces ``cute_nucleotides_tpu/ops/pallas_kernels.py:
     encode_2bit_nt4_mxu``, whose constant matmul gathered packed bytes on
-    the TPU's matrix unit.  Here the gather is a warp bit-plane gather: lane
-    i holds nt i of a 32-nt word, two ``__ballot_sync`` calls collect the
-    codes' two bit planes, and a Morton interleave gives the u64 word.
-    Bound by memory like the encode; each warp load fills one 32-byte
-    sector.  Time on the H100: PERF.md.
+    the TPU's matrix unit.  Here the gather is a bit-plane gather inside
+    each thread: a 16-nt group (one 16-byte load) maps to one output u32,
+    and per lane of 4 nt the codes' low and high bit planes are each placed
+    on the packed byte's even and odd bits by one carry-free multiply-mask
+    (``PEXT_PLANE_LO``, ``PEXT_PLANE_HI``).  A thread takes 2 groups and
+    stores their words as one 8-byte vector.  Bound by memory like the
+    encode.  Time on the H100: PERF.md.
     """
     _check_2d(x, torch.uint32, "nt4 u32[R, C]")
     R, C = x.shape

@@ -25,6 +25,12 @@ B5_MODES = ((False, False), (True, False), (False, True))  # chars, checked, dig
 ENCODE = ("mul", "shift", "interleave")
 DECODE = ("shuffle", "select", "swar")
 RAGGED = (1, 15, 16, 17, 31, 32, 33)
+#: (rows, lanes) edges of the pext kernel (#4; 2 groups of 16 nt a thread,
+#: 512 a block): odd u32 totals (1, 3, 9, 21, a last thread with 1 group),
+#: rows of 16 and 48 nt that split a thread's groups, and totals just past
+#: one, two and four blocks' span (513, 1025, 2051)
+PEXT_EDGES = ((1, 4), (2, 4), (3, 4), (3, 12), (7, 12), (64, 4), (1, 2052), (3, 684), (41, 100), (1, 4100),
+              (1, 8204))
 
 
 @pytest.fixture
@@ -68,6 +74,23 @@ def test_kernels_match_plain(cuda_device, lanes):
     pwords, pflags = K.encode_2bit_nt4_mxu_plain(t, checked=True)
     assert _same(words, pwords) and _same(flags, pflags)
     assert interop.to_numpy(flags).nonzero()[0].tolist() == list(range(0, 33, 4))
+
+
+@pytest.mark.parametrize("rows,lanes", PEXT_EDGES)
+def test_mxu_kernel_edges(cuda_device, rows, lanes):
+    s = np.random.default_rng(70 + rows + lanes).choice(ALPHABET, size=(rows, 4 * lanes))
+    s[::3, 0] = ord("N")  # the first nt of rows 0, 3, ...
+    s[2::3, -1] = 0xFF  # the last nt of rows 2, 5, ...
+    bad_rows = [r for r in range(rows) if r % 3 != 1]
+    t = interop.to_tensor(s.view(np.uint32), cuda_device)
+    words = K.encode_2bit_nt4_mxu(t)
+    assert _same(words, K.encode_2bit_nt4_mxu_plain(t))
+    want = np.stack([native.n_to_bits(row).view(np.uint32)[:lanes // 4] for row in s])
+    assert np.array_equal(interop.to_numpy(words), want)
+    words, flags = K.encode_2bit_nt4_mxu(t, checked=True)
+    pwords, pflags = K.encode_2bit_nt4_mxu_plain(t, checked=True)
+    assert _same(words, pwords) and _same(flags, pflags)
+    assert interop.to_numpy(flags).nonzero()[0].tolist() == bad_rows
 
 
 def test_cuda_tier_matches_torch_tier(cuda_device):

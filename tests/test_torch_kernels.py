@@ -13,12 +13,17 @@ import jax.numpy as jnp
 
 from cute_nucleotides_tpu.ops import oracle, pallas_kernels as pk
 from cute_nucleotides_tpu_torch import interop
-from cute_nucleotides_tpu_torch.ops import kernels as K
+from cute_nucleotides_tpu_torch.ops import kernels as K, native
 
 ALPHABET = np.frombuffer(b"ACGTUacgtu", np.uint8)
 ENCODE = ("mul", "shift", "interleave")
 DECODE = ("shuffle", "select", "swar")
 RAGGED = (1, 15, 16, 17, 31, 32, 33)
+#: lanes per row of the pext slot's plain-version cases: rows of 16, 48, 64
+#: and 80 nt (odd u32 totals at R = 1 and 3), and the reference kernel's
+#: 512-lane tile and two of them
+PEXT_C = (4, 12, 16, 20, 512, 1024)
+INVALID = (ord("N"), ord("X"), 0, 0x80, 0xFF, ord("B"), ord("n"), ord("@"))
 
 
 def _nt4(rows: int, lanes: int, seed: int) -> np.ndarray:
@@ -101,6 +106,74 @@ def test_mxu_checked_plain_flags_match_checked(rows):
     assert flags.dtype == torch.uint32
     assert np.array_equal(interop.to_numpy(flags), interop.to_numpy(want_flags))
     assert np.array_equal(interop.to_numpy(flags), (~np.isin(rows, ALPHABET)).any(-1).astype(np.uint32))
+
+
+def _every_byte_blocks(rows: int, lanes: int, seed: int) -> list[np.ndarray]:
+    """Blocks u8[rows, 4 * lanes] in which, together, every byte value sits
+    at every byte position of a lane (lane i of the blocks laid end to end
+    holds (i + 64 p) % 256 at byte p), then one block of random bytes."""
+    n = rows * lanes
+    i = np.arange(-(-256 // n) * n).reshape(-1, 1)
+    every = ((i + 64 * np.arange(4)) % 256).astype(np.uint8).reshape(-1, rows, 4 * lanes)
+    rand = np.random.default_rng(seed).integers(0, 256, (1, rows, 4 * lanes), dtype=np.uint8)
+    return list(np.concatenate([every, rand]))
+
+
+def _oracle_words(s: np.ndarray) -> np.ndarray:
+    """The host oracle's packed words of each row of u8[R, 16 k], as u32[R, k]."""
+    return np.stack([native.n_to_bits(row).view(np.uint32)[: row.size // 16] for row in s])
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("lanes", PEXT_C)
+def test_mxu_plain_steps_match_reference(rows, lanes):
+    """The plain version's plane-gather steps, tolerance 0, against the
+    reference's Pallas kernel (interpret mode; its 512-lane tiles directly,
+    narrower rows through its padded words form) and the host oracle, on
+    every byte value at every lane position; its checked flags against the
+    checked encode's and numpy's."""
+    blocks = _every_byte_blocks(rows, lanes, 40 + lanes + rows)
+    s = np.concatenate(blocks)
+    got = np.concatenate([interop.to_numpy(K.encode_2bit_nt4_mxu_plain(interop.to_tensor(b.view(np.uint32))))
+                          for b in blocks])
+    assert got.dtype == np.uint32 and got.shape == (s.shape[0], lanes // 4)
+    assert np.array_equal(got, np.asarray(pk.encode_2bit_words_mxu(jnp.asarray(s), interpret=True)))
+    if lanes % 512 == 0:
+        want = pk.encode_2bit_nt4_mxu(jnp.asarray(s.view(np.uint32)), interpret=True)
+        assert np.array_equal(got, np.asarray(want))
+    assert np.array_equal(got, _oracle_words(s))
+    for b in blocks:
+        t = interop.to_tensor(b.view(np.uint32))
+        words, flags = K.encode_2bit_nt4_mxu_plain(t, checked=True)
+        assert np.array_equal(interop.to_numpy(words), interop.to_numpy(K.encode_2bit_nt4_mxu_plain(t)))
+        assert np.array_equal(interop.to_numpy(flags), interop.to_numpy(K.encode_2bit_nt4_checked_plain(t)[1]))
+        assert np.array_equal(interop.to_numpy(flags), (~np.isin(b, ALPHABET)).any(-1).astype(np.uint32))
+
+
+@pytest.mark.parametrize("where", ["first", "last"])
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("lanes", PEXT_C)
+def test_mxu_checked_plain_flags_first_and_last_nt(lanes, rows, where):
+    """A bad byte at the first or the last nt of row 0 (and at the other
+    end of row 2, with row 1 clean): the checked plain version flags exactly
+    those rows, as the checked encode and numpy do, and its words equal the
+    reference's."""
+    s = np.random.default_rng(60 + lanes + rows).choice(ALPHABET, size=(rows, 4 * lanes))
+    first = where == "first"
+    s[0, 0 if first else -1] = INVALID[lanes % len(INVALID)]
+    if rows == 3:
+        s[2, -1 if first else 0] = INVALID[(lanes + 1) % len(INVALID)]
+    t = interop.to_tensor(s.view(np.uint32))
+    words, flags = K.encode_2bit_nt4_mxu_plain(t, checked=True)
+    assert np.array_equal(interop.to_numpy(words), _oracle_words(s))
+    want = (~np.isin(s, ALPHABET)).any(-1).astype(np.uint32)
+    assert want.tolist() == ([1, 0, 1] if rows == 3 else [1])
+    assert np.array_equal(interop.to_numpy(flags), want)
+    assert np.array_equal(interop.to_numpy(flags), interop.to_numpy(K.encode_2bit_nt4_checked_plain(t)[1]))
+    # the wrapper on a CPU tensor runs the same plain version
+    got_words, got_flags = K.encode_2bit_nt4_mxu(t, checked=True)
+    assert np.array_equal(interop.to_numpy(got_words), interop.to_numpy(words))
+    assert np.array_equal(interop.to_numpy(got_flags), want)
 
 
 @pytest.mark.parametrize("lanes", RAGGED)
