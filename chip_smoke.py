@@ -25,8 +25,35 @@ calls:
      kernel's time beside its plain version's (CUDA events);
   7. the port's bench, ``python -m cute_nucleotides_tpu_torch bench``, in a
      child process at ``BENCH_SCALE=8 BENCH_FULL=1``: exit 0, its last line
-     shaped as the reference's, its 43 rows above 0, and its planar rows'
-     launches of #15-#17 read from its detail file.
+     shaped as the reference's, its 46 rows above 0 (the three stream rows
+     among them), and its planar rows' launches of #15-#17 read from its
+     detail file;
+  8. the stream path (run after the planar path, before the timing of
+     phase 6), with its own launch counts: #1, #2, #3, #5 and #6 must each
+     launch on it.
+
+The stream path (``parallel/runtime.py``: ``StreamingEncoder`` and
+``StreamingDecoder`` on the card, pinned copies on their own upload and
+download streams): 1,000,000 x 150-nt reads (an Illumina-style run, about
+300 MiB of FASTQ in the work directory) through ``fastq_batches`` ->
+``StreamingEncoder(validate=True).run_batches`` in batches of 8192, for
+``codec="2bit"`` and for ``"base5"`` on ACGTN reads: every sunk batch
+against a ``tier="torch"`` encode of its reads on the card, the first and
+last batch row by row against the host oracle, every kept array unchanged
+after the run; then ``StreamingDecoder`` on the sunk words (base-5 with
+``verify=True``) against the upper-case, U->T source.  The faults: a
+planted ``@`` in batch 3 raises the reference's message and nothing from
+batch 3 on is sunk; bit 63 in one base-5 entry raises ``corrupt base-5 word
+0 in record ...``; a sink that raises on its fourth batch, then a resume
+from the manifest, deliver every record index exactly once, each sunk batch
+against the torch tier.  The long-read shape of the reference bench (32,768
+x 2,048 nt, batches of 4096): the bench's unchecked encoder (#1), every
+batch against the torch tier and the first and last against the oracle;
+one encode run under ``torch.profiler`` in a fresh process (device ms and
+idle share; :func:`profile_stream_encode`, run as ``chip_smoke.py
+--profile-stream-encode FASTQ``), then the
+bench's three stream rows (``bench.run_stream_rows``: median of 3, the
+stage seconds, the same-run pinned H2D rate), with the SM clock beside them.
 
 The planar path (kernels #15-#17, the base-5 codec's planar (lo, hi)
 layout): phase 2 holds #15 against its plain version at 1, 2, 37 and 128
@@ -214,7 +241,7 @@ DEDUP_EVERY = 10  # one read in ten is planted as a duplicate of an earlier one
 PLANAR_R = (1, 2, 37, 128)  # phase-2 rows of #15-#17
 #: the bench child: scale, full table, its time limit, its rows, the keys of its last line
 BENCH_ENV = {"BENCH_SCALE": "8", "BENCH_FULL": "1"}
-BENCH_TIMEOUT_S, BENCH_ROWS = 600, 43
+BENCH_TIMEOUT_S, BENCH_ROWS = 600, 46
 BENCH_LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "gbps_per_chip", "vs_device_memcpy",
                    "vs_reference_memcpy", "chips", "champions_gibs", "detail_file")
 #: bench rows that run #15-#17, and the wrapper each must launch
@@ -229,6 +256,15 @@ MZ_W = (2, 3, 8, 9, 10, 16, 17, 33, 64, 1024, 1025)
 SKETCH_K, SKETCH_S, SKETCH_SCALE, SKETCH_CAP = 21, 1000, 1000, 1 << 19
 SENTINEL = 0xFFFFFFFF
 SORT_KERNEL_LAUNCHES = 9  # #18: the histogram kernel and eight radix passes per call
+#: the stream path: an Illumina-style run of short reads in batches of 8192,
+#: the reference bench's long-read shape (its 2048-nt reads and batch of 4096
+#: are the bench's), and the fault checks' file of 6 batches
+STREAM_SHORT_READS, STREAM_SHORT_NT, STREAM_BATCH = 1_000_000, 150, 8192
+STREAM_LONG_READS, STREAM_FAULT_BATCHES = 32768, 6
+#: the kernels the stream path must launch: 2-bit encode (#1 without and #3
+#: with validate), 2-bit decode (#2), base-5 encode (#5) and decode (#6)
+STREAM_KERNELS = ("encode_2bit_nt4", "decode_2bit_nt4", "encode_2bit_nt4_checked", "encode_b5_stream",
+                  "decode_b5_stream")
 
 
 class SmokeFailure(Exception):
@@ -2125,6 +2161,252 @@ def phase_sort_chr1(errors: Errors, chr1_words):
     return hi, lo
 
 
+# --- the stream path: StreamingEncoder and StreamingDecoder ------------------------------
+
+def _stream_reads(rng, n: int, length: int, alphabet: bytes) -> np.ndarray:
+    alpha = np.frombuffer(alphabet, np.uint8)
+    return alpha[rng.integers(0, len(alpha), (n, length), dtype=np.uint8)]
+
+
+def _entries(sunk, per: int) -> list:
+    """(name, length, u64 words) entries from sunk (words, batch) pairs."""
+    out = []
+    for w, b in sunk:
+        w64 = w.view("<u8")
+        for i in range(b.count):
+            n = int(b.lengths[i])
+            out.append((b"r%d" % int(b.indices[i]), n, w64[i, : -(-n // per)]))
+    return out
+
+
+def _same_as_torch_tier(codec: str, sunk, what: str) -> None:
+    """Every sunk (words, batch) pair against a ``tier="torch"`` codec encode
+    of the batch's reads on the card."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.models import Base5Codec, TwoBitCodec
+
+    plain = TwoBitCodec(tier="torch", device="cuda") if codec == "2bit" else Base5Codec(tier="torch", device="cuda")
+    for w, b in sunk:
+        want = plain.encode(torch.from_numpy(b.reads).to("cuda"))
+        check(torch.equal(torch.from_numpy(w.view(np.int32)), want.view(torch.int32).cpu()),
+              f"{what}: the {codec} batch of record {int(b.indices[0])} != the torch-tier encode")
+
+
+def _stream_encode_checked(codec: str, fq: str, seqs: np.ndarray, batch: int, validate: bool) -> list:
+    """``StreamingEncoder(validate=...).run_batches(fastq_batches(...))`` on
+    the card; every sunk batch against a torch-tier codec encode of its reads
+    on the card, the first and last row by row against the host oracle, and
+    every kept array unchanged after the run."""
+    from cute_nucleotides_tpu_torch.ops import native
+    from cute_nucleotides_tpu_torch.parallel import runtime
+    from cute_nucleotides_tpu_torch.utils import io as io_lib
+
+    n, length = seqs.shape
+    per = 32 if codec == "2bit" else 27
+    enc = runtime.StreamingEncoder(batch_size=batch, max_len=length, codec=codec, validate=validate)
+    check(enc.sharded.tier == "cuda" and enc.sharded.device.type == "cuda",
+          f"the default stream runs on {enc.sharded.device} ({enc.sharded.tier})")
+    kept = []
+    t0 = time.perf_counter()
+    agg = enc.run_batches(io_lib.fastq_batches(fq, batch, length, block=per),
+                          lambda w, b: kept.append((w, w.copy(), b)))
+    wall = time.perf_counter() - t0
+    check(agg["total_reads"] == n and agg["batches"] == -(-n // batch), f"{codec} stream agg {agg}")
+    check(all(np.array_equal(w, copy) for w, copy, _ in kept), f"{codec}: a kept array changed after the run")
+    sunk = [(w, b) for w, _, b in kept]
+    _same_as_torch_tier(codec, sunk, f"{length}-nt stream")
+    oracle = native.n_to_bits if codec == "2bit" else native.n_to_bits2
+    for w, b in (sunk[0], sunk[-1]):
+        for i in range(b.count):
+            idx = int(b.indices[i])
+            check(np.array_equal(w[i].view("<u8")[: -(-length // per)], oracle(seqs[idx])),
+                  f"{codec} stream record {idx} != the host oracle")
+    say(f"  {codec} encode{', validate' if validate else ''}: {n} x {length} nt in {len(kept)} batches of {batch}, "
+        f"{wall:.2f} s ({n * length / wall / 2**30:.3f} GiB/s of nt, {n / wall:,.0f} reads/s); every "
+        f"batch == the torch-tier encode, first and last == the oracle, kept arrays unchanged; stages "
+        f"{agg['stages']}")
+    return _entries(sunk, per)
+
+
+def _stream_decode(codec: str, entries: list, want: np.ndarray) -> None:
+    from cute_nucleotides_tpu_torch.parallel import runtime
+
+    got = []
+    t0 = time.perf_counter()
+    agg = runtime.StreamingDecoder(batch_size=STREAM_BATCH, codec=codec, verify=codec == "base5").run(
+        entries, sink=lambda name, seq: got.append((name, seq)))
+    wall = time.perf_counter() - t0
+    check([name for name, _ in got] == [b"r%d" % i for i in range(want.shape[0])], f"{codec} decode order")
+    check(b"".join(seq for _, seq in got) == want.tobytes(), f"{codec} stream decode != upper(input) with U->T")
+    say(f"  {codec} decode{', verify' if codec == 'base5' else ''}: {len(got)} records == upper(input) with "
+        f"U->T, {wall:.2f} s ({len(got) / wall:,.0f} reads/s); stages {agg['stages']}")
+
+
+def _raises(fn, want: str, what: str) -> None:
+    try:
+        fn()
+    except ValueError as e:
+        check(str(e) == want, f"{what}: {str(e)!r} != {want!r}")
+        return
+    raise SmokeFailure(f"{what}: no error")
+
+
+def _stream_faults(rng, workdir: str, entries5: list) -> str:
+    """The four fault checks on the card."""
+    import torch
+
+    from cute_nucleotides_tpu_torch import bench
+    from cute_nucleotides_tpu_torch.parallel import runtime
+    from cute_nucleotides_tpu_torch.utils import io as io_lib
+
+    n = STREAM_FAULT_BATCHES * STREAM_BATCH
+    seqs = _stream_reads(rng, n, STREAM_SHORT_NT, ALPHABET)
+    k, pos = 3 * STREAM_BATCH + int(rng.integers(0, STREAM_BATCH)), int(rng.integers(0, STREAM_SHORT_NT))
+    bad = seqs.copy()
+    bad[k, pos] = ord("@")
+    fq, bad_fq = os.path.join(workdir, "fault.fq"), os.path.join(workdir, "fault_bad.fq")
+    for path, data in ((fq, seqs), (bad_fq, bad)):
+        with open(path, "wb") as f:
+            f.write(bench.fastq_bytes(data))
+    # a planted '@' in record k of batch 3: raised, and nothing from batch 3 on sunk
+    firsts = []
+    _raises(lambda: runtime.StreamingEncoder(batch_size=STREAM_BATCH, max_len=STREAM_SHORT_NT, validate=True)
+            .run_batches(io_lib.fastq_batches(bad_fq, STREAM_BATCH, STREAM_SHORT_NT),
+                         lambda w, b: firsts.append(int(b.indices[0]))),
+            f"invalid byte b'@' at position {pos} of record index {k}", "planted '@'")
+    check(firsts == [0, STREAM_BATCH, 2 * STREAM_BATCH], f"planted '@': batches sunk {firsts}")
+    # bit 63 of one base-5 entry's first word: raised, its batch never sunk
+    j = 2 * STREAM_BATCH + int(rng.integers(0, STREAM_BATCH))
+    bad5 = list(entries5[: 4 * STREAM_BATCH])
+    name, length, words = bad5[j]
+    words = words.copy()
+    words[0] |= np.uint64(1) << np.uint64(63)
+    bad5[j] = (name, length, words)
+    names = []
+    _raises(lambda: runtime.StreamingDecoder(batch_size=STREAM_BATCH, codec="base5", verify=True)
+            .run(bad5, sink=lambda nm, s: names.append(nm)),
+            f"corrupt base-5 word 0 in record {name.decode()}", "bit 63 of a base-5 entry")
+    check(len(names) == 2 * STREAM_BATCH, f"bit 63: {len(names)} records sunk, want {2 * STREAM_BATCH}")
+    # a sink that raises on its fourth batch, with a manifest; the resume delivers the rest
+    manifest = os.path.join(workdir, "stream_manifest.json")
+    sunk, calls = [], [0]
+
+    class Crash(Exception):
+        pass
+
+    def crashing(w, b):
+        calls[0] += 1
+        if calls[0] == 4:
+            raise Crash()
+        sunk.append((w, b))
+
+    enc = runtime.StreamingEncoder(batch_size=STREAM_BATCH, max_len=STREAM_SHORT_NT, manifest_path=manifest)
+    try:
+        enc.run_batches(io_lib.fastq_batches(fq, STREAM_BATCH, STREAM_SHORT_NT), crashing)
+        raise SmokeFailure("the crashing sink did not stop the stream")
+    except Crash:
+        pass
+    torch.cuda.synchronize()  # a CUDA error left by the drain would raise here
+    resumed = runtime.StreamingEncoder(batch_size=STREAM_BATCH, max_len=STREAM_SHORT_NT, manifest_path=manifest)
+    agg = resumed.run_batches(io_lib.fastq_batches(fq, STREAM_BATCH, STREAM_SHORT_NT),
+                              lambda w, b: sunk.append((w, b)))
+    delivered = [int(i) for _, b in sunk for i in b.indices[: b.count]]
+    check(sorted(delivered) == list(range(n)), f"crash and resume delivered {len(delivered)} indices, "
+          f"{len(set(delivered))} distinct, want each of {n} once")
+    check(agg["batches"] == STREAM_FAULT_BATCHES - 3, f"the resume ran {agg['batches']} batches")
+    _same_as_torch_tier("2bit", sunk, "crash and resume")
+    return (f"planted '@' at record {k} raised, batches {firsts} sunk; bit 63 in {name.decode()} raised, "
+            f"{len(names)} records sunk; a sink crash at batch 4 + resume delivered {n} records once each, "
+            f"every batch == the torch-tier encode")
+
+
+PROFILE_STREAM_ENCODE = "--profile-stream-encode"
+
+
+def profile_stream_encode(fq: str) -> int:
+    """One long-read ``StreamingEncoder.run_batches`` of ``fq`` under
+    torch.profiler in this (fresh) process, after a warm run; prints its
+    breakdown line."""
+    from cute_nucleotides_tpu_torch import bench
+    from cute_nucleotides_tpu_torch.parallel import runtime
+    from cute_nucleotides_tpu_torch.utils import io as io_lib
+
+    def run():
+        enc = runtime.StreamingEncoder(batch_size=bench.STREAM_BATCH, max_len=bench.STREAM_READ_NT)
+        return enc.run_batches(io_lib.fastq_batches(fq, bench.STREAM_BATCH, bench.STREAM_READ_NT))
+
+    try:
+        run()
+        agg, wall, dev = _profiled(run)
+        check(agg["total_reads"] == STREAM_LONG_READS, f"long-read encode agg {agg}")
+        say(f"  long reads, one encode run_batches under the profiler (fresh process; {STREAM_LONG_READS} x "
+            f"{bench.STREAM_READ_NT} nt, batch {bench.STREAM_BATCH}): {_breakdown(wall, dev)}; stages "
+            f"{agg['stages']}")
+    except Exception:
+        traceback.print_exc()
+        return 1
+    return 0
+
+
+def phase_stream(rng, workdir: str) -> None:
+    """The streaming runtime on the card at full width: 1,000,000 x 150-nt
+    reads (an Illumina-style run) through StreamingEncoder (validate, both
+    codecs) and back through StreamingDecoder (verify on base-5); the
+    reference bench's long-read shape through the bench's own encoder
+    (unchecked, kernel #1) against the torch tier, then profiled and timed;
+    and the fault checks."""
+    import torch
+
+    from cute_nucleotides_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    entries = {}
+    for codec, alphabet in (("2bit", ALPHABET), ("base5", ALPHABET_N)):
+        seqs = _stream_reads(rng, STREAM_SHORT_READS, STREAM_SHORT_NT, alphabet)
+        fq = os.path.join(workdir, f"stream_{codec}.fq")
+        with open(fq, "wb") as f:
+            f.write(bench.fastq_bytes(seqs))
+        say(f"phase 8 stream, short reads ({codec}): FASTQ {os.path.getsize(fq) / 2**20:.1f} MiB")
+        entries[codec] = _stream_encode_checked(codec, fq, seqs, STREAM_BATCH, validate=True)
+        _stream_decode(codec, entries[codec], _upper_t_np(seqs))
+        os.remove(fq)
+        del seqs
+    faults = _stream_faults(rng, workdir, entries["base5"])
+    del entries
+    say(f"  faults: {faults}")
+    # the long-read shape: the bench's unchecked encode held against the torch
+    # tier, then one encode profiled in a fresh process (this one has run
+    # large profiles, after which the profiler loses short calls' device
+    # events), then the bench's stream rows
+    fq = os.path.join(workdir, "stream_long.fq")
+    seqs = _stream_reads(rng, STREAM_LONG_READS, bench.STREAM_READ_NT, ALPHABET)
+    with open(fq, "wb") as f:
+        f.write(bench.fastq_bytes(seqs))
+    _stream_encode_checked("2bit", fq, seqs, bench.STREAM_BATCH, validate=False)
+    del seqs
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), PROFILE_STREAM_ENCODE, fq],
+                           capture_output=True, text=True, timeout=600)
+    for line in child.stdout.splitlines():
+        say(line)
+    check(child.returncode == 0, f"the stream encode profile exited {child.returncode}: {child.stderr[-2000:]}")
+    os.remove(fq)
+    say(f"  clocks before the stream timing: {_clocks()}")
+    results = bench.Results()
+    bench.run_stream_rows(results, "cuda")
+    for name in bench.STREAM_ROWS:
+        row = results.stream[name]
+        check(results.gibs[name] > 0 and row["total_reads"] == STREAM_LONG_READS, f"{name}: {row}")
+        say(f"  {name}: {results.gibs[name]:.3f} GiB/s of nt, {row['reads_per_s']:,.0f} reads/s, median "
+            f"{results.ms[name]:.1f} ms of {row['runs']} runs; {row['link_saturation']:.3f}x the pinned H2D "
+            f"rate (range {row['link_saturation_range'][0]:.3f}-{row['link_saturation_range'][1]:.3f}); "
+            f"launches {row['launches']}; stages {row['stages']}")
+    say(f"  pinned H2D (8 MiB, CUDA events): {results.stream['link_h2d_mib_s']:.1f} MiB/s; clocks after: "
+        f"{_clocks()}")
+    torch.cuda.synchronize()
+    say(f"phase 8 stream done ({time.perf_counter() - t0:.1f} s with the checks)")
+
+
 # --- the planar path: phase 3 ------------------------------------------------------
 
 def phase_planar(x5, words5):
@@ -2486,6 +2768,13 @@ def main() -> int:
             say(f"phase 6 launches by the planar path (phase 3): {launches['planar']}")
             own = {k: launches[PATH_OF[k]][k] for k in REPLACES}
             check(all(n > 0 for n in own.values()), f"a kernel of its path never launched: {own}")
+            K.reset_launch_counts()
+            phase_stream(rng, workdir)
+            torch.cuda.synchronize()
+            launches["stream"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+            say(f"phase 8 launches by the stream path: {launches['stream']}")
+            check(all(launches["stream"][k] > 0 for k in STREAM_KERNELS),
+                  f"a kernel of the stream path never launched: {launches['stream']}")
             torch.cuda.empty_cache()
             times = phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, planes, card)
             kernels_line = json.dumps({"kernels": [
@@ -2509,4 +2798,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(profile_sketch_chr1() if sys.argv[1:] == [PROFILE_SKETCH_CHR1] else main())
+    args = sys.argv[1:]
+    if args == [PROFILE_SKETCH_CHR1]:
+        sys.exit(profile_sketch_chr1())
+    if len(args) == 2 and args[0] == PROFILE_STREAM_ENCODE:
+        sys.exit(profile_stream_encode(args[1]))
+    sys.exit(main())

@@ -17,7 +17,7 @@ __version__ = "0.1.0"
 #: free of torch, so that the CLI's --help imports no torch
 TIERS = ("oracle", "torch", "cuda", "auto")
 
-_LAZY = ("api", "cli", "compat", "interop", "models", "ops")
+_LAZY = ("api", "cli", "compat", "interop", "models", "ops", "parallel")
 
 
 def __getattr__(name):

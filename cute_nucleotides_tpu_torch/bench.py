@@ -8,8 +8,8 @@ the row count), base-5 rows of 3456 nt, the torch-tier twins at 1/8 of it,
 all made from ``np.random.default_rng(0xC0DEC)``.  Every row keeps its
 reference name with the tier swapped (``pallas`` -> ``cuda``, ``xla`` ->
 ``torch``), its denominator (ASCII nt, or the reference's bytes) and its
-byte model.  Rows whose functions the port does not have yet (streaming,
-distance, alignment) are left out.
+byte model.  Rows whose functions the port does not have yet (distance,
+alignment) are left out.
 
 Timing: CUDA events on the current stream.  Each row makes one warm-up
 call, then ``TRIALS`` runs of k calls between two events (k is the
@@ -21,6 +21,17 @@ call ending in ``torch.cuda.synchronize()``, less its event time.  Inputs
 that fit in the 50 MB L2 (the k-mer, sketch and ``kmer_counts`` rows) are
 read warm, as the reference's chains read them.  Host rows time the host
 oracle with a host clock (median of 5).
+
+The stream rows (:func:`run_stream_rows`) time the streaming runtime end to
+end, host parse to sink, on the reference's workload: 32768 reads x 2048 nt
+(``BENCH_SCALE`` divides the reads) as a FASTQ file, batches of 4096, median
+of 3 runs (host clock) with the min-max range.  The file lives in a
+temporary directory under the build directory (the reference used
+``/dev/shm``; the code writes nothing outside its checkout, and a file of
+this size stays in the page cache).  In place of the reference's probe of
+its relayed link, the bench times a pinned 8 MiB H2D copy with CUDA events
+in the same run; ``link_saturation`` is a row's nt rate over that copy
+rate.
 
 Each row's bound is :class:`.utils.profiling.Roofline` at the card's peaks;
 ``sort`` rows (the reference's tag) and rows bound by integer work that the
@@ -49,6 +60,7 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from typing import Callable
@@ -72,6 +84,11 @@ KMER_K = 8
 #: calls per timed run: the reference's k_hi - k_lo per row
 K_CORE, K_SLOW, K_SORT = 32, 16, 6
 SECTIONS = ("core", "torch", "packed", "stream", "host")
+#: the stream rows' workload (reference bench.py:544-558): reads of 2048 nt
+#: in batches of 4096, the median of 3 timed runs
+STREAM_READ_NT, STREAM_BATCH, STREAM_REPS = 2048, 4096, 3
+STREAM_ROWS = ("stream_encode_e2e", "stream_encode_records", "stream_decode_e2e")
+LINK_PROBE_BYTES = 8 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,10 +324,12 @@ class Results:
     latency_ms: dict = dataclasses.field(default_factory=dict)
     launches: dict = dataclasses.field(default_factory=dict)
     failed: list = dataclasses.field(default_factory=list)
+    #: the stream rows' fields, and the same-run H2D rate
+    stream: dict = dataclasses.field(default_factory=dict)
 
     def detail(self) -> dict:
         return {"detail": dict(self.gibs), "ms": dict(self.ms), "sol_frac": dict(self.sol),
-                "bound": dict(self.bound), "dispatch_latency_ms": dict(self.latency_ms), "stream": {},
+                "bound": dict(self.bound), "dispatch_latency_ms": dict(self.latency_ms), "stream": dict(self.stream),
                 "device": dict(self.device), "launches": dict(self.launches)}
 
 
@@ -357,6 +376,152 @@ def run_rows(rows: list[Row], timer, results: Results, *, sections=frozenset(), 
                 extra = f"  {results.sol[row.name] * 100:5.1f}% SoL" + ("" if kind == "bytes" else f" [{kind}]")
         print(f"{row.name:30s} {dt * 1e3:9.3f} ms   {gibs:9.2f} GiB/s{extra}", file=sys.stderr, flush=True)
     return results
+
+
+# --- the stream rows -----------------------------------------------------------
+
+def h2d_mib_s(device) -> float | None:
+    """MiB/s of a pinned 8 MiB host-to-device copy, CUDA events around one
+    copy, the median of 3 after a warm one; None off the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    src = torch.from_numpy(np.random.default_rng(1).integers(0, 255, LINK_PROBE_BYTES, np.uint8)).pin_memory()
+    dst = torch.empty(LINK_PROBE_BYTES, dtype=torch.uint8, device=device)
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(3):
+        start.record()
+        dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return LINK_PROBE_BYTES / (float(np.median(ms)) / 1e3) / 2**20
+
+
+def fastq_bytes(seqs: np.ndarray, start: int = 0) -> bytes:
+    """FASTQ of the rows of u8[N, L]: names ``r%08d`` from ``start``,
+    qualities all 'I' (fixed-width records, built in one numpy pass)."""
+    n, length = seqs.shape
+    digits = 8
+    if start + n > 10**digits:
+        raise ValueError(f"{start + n} records do not fit {digits}-digit names")
+    rec = np.empty((n, 2 + digits + 1 + length + 3 + length + 1), np.uint8)
+    rec[:, :2] = np.frombuffer(b"@r", np.uint8)
+    idx = start + np.arange(n)
+    for d in range(digits):
+        rec[:, 2 + d] = ord("0") + (idx // 10 ** (digits - 1 - d)) % 10
+    o = 2 + digits
+    rec[:, o] = ord("\n")
+    rec[:, o + 1 : o + 1 + length] = seqs
+    o += 1 + length
+    rec[:, o : o + 3] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, o + 3 : o + 3 + length] = ord("I")
+    rec[:, -1] = ord("\n")
+    return rec.tobytes()
+
+
+def _write_fastq(path: str, n_reads: int, rng) -> None:
+    alphabet = np.frombuffer(b"ACGTUacgtu", np.uint8)
+    with open(path, "wb") as f:
+        for lo in range(0, n_reads, 4096):
+            f.write(fastq_bytes(rng.choice(alphabet, size=(min(4096, n_reads - lo), STREAM_READ_NT)), lo))
+
+
+def run_stream_rows(results: Results, device, *, scale: int = 1) -> None:
+    """The three stream rows into ``results``: ``stream_encode_e2e``
+    (``fastq_batches`` -> ``StreamingEncoder.run_batches``),
+    ``stream_encode_records`` (``open_reads`` -> ``StreamingEncoder.run``)
+    and ``stream_decode_e2e`` (the encoded entries -> ``StreamingDecoder``).
+    Each row's GiB/s of nt and ms are its median run's; its fields in
+    ``results.stream`` hold reads/s, the stage seconds, the kernel launches
+    of the median run, and the nt rate over the same-run pinned H2D rate.
+    On a CUDA device the codec kernels run; on the CPU the torch tier does,
+    and no H2D rate exists.  The FASTQ file lives in a temporary directory
+    under the build directory."""
+    from .ops import spec as spec_lib
+    from .parallel import runtime as rt
+    from .utils import io as io_lib
+
+    device = torch.device(device)
+    n_reads = bench_rows(scale)  # the reference's read count, here of 2048 nt
+    nt = n_reads * STREAM_READ_NT
+    cfg = rt.StreamConfig(batch_size=STREAM_BATCH, max_len=STREAM_READ_NT, device=device)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        fq = os.path.join(d, "stream_reads.fastq")
+        _write_fastq(fq, n_reads, np.random.default_rng(0xC0DEC))
+        link = h2d_mib_s(device)
+        results.stream["link_h2d_mib_s"] = link
+        if link is not None:
+            print(f"pinned H2D (8 MiB, CUDA events): {link:.1f} MiB/s", file=sys.stderr)
+
+        def timed(name, make, runner):
+            runs = []
+            for _ in range(STREAM_REPS):
+                sunk = [0]
+                worker = make()
+                before = _counts()
+                t0 = time.perf_counter()
+                agg = runner(worker, sunk)
+                dt = time.perf_counter() - t0
+                runs.append((dt, agg, sunk[0], {k: n - before[k] for k, n in _counts().items() if n > before[k]}))
+            runs.sort(key=lambda r: r[0])
+            dt, agg, sunk_bytes, launches = runs[len(runs) // 2]
+            dts = [r[0] for r in runs]
+            results.gibs[name], results.ms[name], results.launches[name] = nt / dt / 2**30, dt * 1e3, launches
+            sat = None if link is None else (nt / dt / 2**20) / link
+            results.stream[name] = {
+                **{k: v for k, v in agg.items() if isinstance(v, (int, float))},  # the logger's figures, then the wall's
+                "gbp_s": nt / dt / 1e9,
+                "reads_per_s": n_reads / dt,
+                "ms_per_batch": dt * 1e3 * STREAM_BATCH / n_reads,
+                "sunk_bytes": sunk_bytes,
+                "link_saturation": sat,
+                "runs": len(dts),
+                "link_saturation_range": None if link is None else [(nt / max(dts) / 2**20) / link,
+                                                                   (nt / min(dts) / 2**20) / link],
+                "stages": agg["stages"],
+                "launches": launches,
+            }
+            print(f"{name:30s} {dt * 1e3:9.1f} ms   {results.gibs[name]:9.2f} GiB/s-nt  ({n_reads / dt:,.0f} reads/s"
+                  + ("" if sat is None else f", {sat:.2f}x the pinned H2D rate") + f", median of {len(dts)})",
+                  file=sys.stderr, flush=True)
+
+        def encoder():
+            enc = rt.StreamingEncoder(cfg)
+            warm = enc.sharded.shard(np.full((STREAM_BATCH, STREAM_READ_NT), ord("A"), np.uint8))
+            enc.sharded.fetch(enc.sharded.encode(warm))
+            enc.sharded.synchronize()  # the kernels are built and loaded outside the timer
+            return enc
+
+        def sink_bytes(sunk):
+            return lambda w, b: sunk.__setitem__(0, sunk[0] + w.nbytes)
+
+        timed("stream_encode_e2e", encoder, lambda enc, sunk: enc.run_batches(
+            io_lib.fastq_batches(fq, STREAM_BATCH, STREAM_READ_NT), sink_bytes(sunk)))
+        timed("stream_encode_records", encoder, lambda enc, sunk: enc.run(io_lib.open_reads(fq), sink_bytes(sunk)))
+
+        entries = []
+
+        def collect(w, b):
+            for i in range(b.count):
+                n = int(b.lengths[i])
+                entries.append((b"r%d" % int(b.indices[i]), n, spec_lib.u32_pairs_to_u64(w[i])[: -(-n // 32)]))
+
+        rt.StreamingEncoder(cfg).run_batches(io_lib.fastq_batches(fq, STREAM_BATCH, STREAM_READ_NT), collect)
+
+        def decoder():
+            dec = rt.StreamingDecoder(cfg)
+            warm = dec.sharded.shard(io_lib.pack_words_batch(entries[:STREAM_BATCH], STREAM_BATCH))
+            dec.sharded.fetch(dec.sharded.decode(warm))
+            dec.sharded.synchronize()
+            return dec
+
+        timed("stream_decode_e2e", decoder, lambda dec, sunk: dec.run(
+            iter(entries), sink=lambda n, seq: sunk.__setitem__(0, sunk[0] + len(seq))))
 
 
 def headline(results: Results, detail_path: str) -> str:
@@ -458,6 +623,16 @@ def main(env=None) -> int:
     signal.signal(signal.SIGTERM, on_term)
     rows = build_rows("cuda", scale=cfg.scale, full=cfg.full)
     run_rows(rows, cuda_timer, results, sections=cfg.sections, budget_s=cfg.budget_s, t_start=t_start)
+    if (not cfg.sections or "stream" in cfg.sections) and time.time() - t_start < cfg.budget_s:
+        try:
+            run_stream_rows(results, "cuda", scale=cfg.scale)
+        except Exception as e:  # as a failed row: the other rows still print
+            traceback.print_exc()
+            for name in STREAM_ROWS:
+                if name not in results.gibs:
+                    print(f"{name:30s} FAILED: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+                    results.gibs[name] = 0.0
+                    results.failed.append(name)
     results.device["clocks_after"] = _smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
     print(f"clocks_after: {results.device['clocks_after']}", file=sys.stderr)
     _summary(results)

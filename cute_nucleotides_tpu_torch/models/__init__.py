@@ -21,7 +21,8 @@ import torch
 
 from ..ops import eager, kernels, seqops, spec, validate
 
-__all__ = ["Base5Codec", "CodecConfig", "TwoBitCodec", "pad_batch", "resolve_device", "resolve_tier"]
+__all__ = ["Base5Codec", "CodecConfig", "TwoBitCodec", "default_decode_variant", "default_encode_variant", "pad_batch",
+           "resolve_device", "resolve_tier"]
 
 TIERS = ("torch", "cuda", "auto")
 
@@ -29,6 +30,25 @@ TIERS = ("torch", "cuda", "auto")
 #: forms need no bitcast; the kernels default to mul and swar
 DEFAULT_ENCODE_VARIANT = {"torch": "dot", "cuda": "mul"}
 DEFAULT_DECODE_VARIANT = {"torch": "broadcast", "cuda": "swar"}
+
+
+def _auto_tier(tier: str) -> str:
+    if tier == "auto":
+        return "cuda" if torch.cuda.is_available() else "torch"
+    return tier
+
+
+def default_encode_variant(tier: str) -> str:
+    """The default 2-bit encode variant of a tier ("auto": the card's if
+    there is one)."""
+    return DEFAULT_ENCODE_VARIANT[_auto_tier(tier)]
+
+
+def default_decode_variant(tier: str) -> str:
+    """The default 2-bit decode variant of a tier ("auto": the card's if
+    there is one)."""
+    return DEFAULT_DECODE_VARIANT[_auto_tier(tier)]
+
 
 #: variants that exist on one tier only
 _CUDA_ONLY_ENCODE = ("mxu",)
@@ -93,10 +113,10 @@ class CodecConfig:
         return resolve_tier(self.tier, self.resolved_device())
 
     def resolved_encode_variant(self) -> str:
-        return self.encode_variant or DEFAULT_ENCODE_VARIANT[self.resolved_tier()]
+        return self.encode_variant or default_encode_variant(self.resolved_tier())
 
     def resolved_decode_variant(self) -> str:
-        return self.decode_variant or DEFAULT_DECODE_VARIANT[self.resolved_tier()]
+        return self.decode_variant or default_decode_variant(self.resolved_tier())
 
 
 def pad_batch(

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "cutenuc_fill_rows": ([_u8p, _i64p, _i64p, _size, _u8p, _size, _size], None),
     "cutenuc_memcpy": ([_u8p, _size, _u8p], None),
     "cutenuc_depad_nt4": ([_u8p, _size, _u8p], None),
+    "cutenuc_fastq_scan": ([_u8p, _size, _i64p, _i64p, _size, _i64p], ctypes.c_longlong),
 }
 
 

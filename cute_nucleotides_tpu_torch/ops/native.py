@@ -2,7 +2,8 @@
 
 The port's copy of the codec half of ``cute_nucleotides_tpu/ops/native.py``
 (same signatures and results): the practical host oracle for checking
-device output at scale, and the row fill of the batch assembly.  Falls back
+device output at scale, and the FASTQ scan and row fill of the batch
+assembly.  Falls back
 to the NumPy oracle when the C++ toolchain is unavailable (``available()``
 reports which path is active).  This is host code, not the device path.
 """
@@ -24,6 +25,7 @@ __all__ = [
     "bits_to_n2",
     "find_invalid",
     "fill_rows",
+    "fastq_scan",
     "memcpy",
     "depad_nt4",
 ]
@@ -149,6 +151,33 @@ def fill_rows(buf: np.ndarray, starts: np.ndarray, lens: np.ndarray, out_rows: n
         buf.ctypes.data_as(_u8p), starts64.ctypes.data_as(_i64p), lens64.ctypes.data_as(_i64p),
         cnt, out_rows.ctypes.data_as(_u8p), rows, width,
     )
+
+
+def fastq_scan(buf: np.ndarray):
+    """Parse complete 4-line FASTQ records from a chunk buffer.
+
+    Returns ``(starts i64[n], lens i64[n], consumed)``: sequence-line spans
+    (CR already stripped) and the offset past the last complete record (the
+    caller carries the rest), or ``None`` without the C++ library (callers
+    then take the NumPy newline-indexing parser).  Raises ``ValueError`` on
+    a malformed record, as the NumPy path's framing check does.
+    """
+    lib = _lib()
+    if lib is None:
+        return None
+    if buf.dtype != np.uint8 or buf.ndim != 1:
+        raise TypeError("expected a 1-D uint8 chunk buffer")
+    cap = buf.size // 6 + 1  # the shortest well-formed record is 6 bytes
+    starts = np.empty(cap, np.int64)
+    lens = np.empty(cap, np.int64)
+    consumed = ctypes.c_int64(0)
+    n = lib.cutenuc_fastq_scan(
+        buf.ctypes.data_as(_u8p), buf.size, starts.ctypes.data_as(_i64p), lens.ctypes.data_as(_i64p),
+        cap, ctypes.byref(consumed),
+    )
+    if n < 0:
+        raise ValueError("malformed FASTQ record")
+    return starts[:n], lens[:n], int(consumed.value)
 
 
 def memcpy(seq) -> np.ndarray:

@@ -21,9 +21,10 @@ from cute_nucleotides_tpu_torch import bench, interop
 from cute_nucleotides_tpu_torch.ops import eager, kernels as K
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
+#: rows of the reference that run outside the row table (``run_stream_rows``)
+STREAM = {"stream_encode_e2e", "stream_encode_records", "stream_decode_e2e"}
 #: rows of the reference whose functions the port does not have yet
-NOT_PORTED = {"stream_encode_e2e", "stream_encode_records", "stream_decode_e2e", "hamming_packed",
-              "pairwise_hamming_4096", "pairwise_hamming_packed_4096", "edit_distance_m128_n2048",
+NOT_PORTED = {"hamming_packed", "pairwise_hamming_4096", "pairwise_hamming_packed_4096", "edit_distance_m128_n2048",
               "approx_stream_m21", "host_myers_m128"}
 
 
@@ -95,7 +96,8 @@ def test_row_names_are_the_reference_table_with_the_tier_swapped(table):
     with open(REPO / "BENCH_DETAIL.json") as f:
         ref = list(json.load(f)["detail"])
     assert len(ref) == 51
-    want = [_port_name(n) for n in ref if n not in NOT_PORTED]
+    want = [_port_name(n) for n in ref if n not in NOT_PORTED | STREAM]
+    assert STREAM <= set(ref) and set(bench.STREAM_ROWS) == STREAM
     want.insert(want.index("decode_b5_cuda_checked") + 1, "decode_b5_cuda_u8")  # BENCH_FULL's extra row
     assert [r.name for r in table] == want and len(want) == 43
     short = [r.name for r in bench.build_rows("cpu", scale=4096)]
@@ -188,6 +190,36 @@ def test_headline_and_detail_file(tmp_path, capsys):
         detail = json.load(f)
     assert {"detail", "sol_frac", "bound", "dispatch_latency_ms", "stream", "device", "launches"} <= set(detail)
     assert detail["stream"] == {} and detail["device"] == {"name": "card"}
+
+
+def test_stream_rows_on_the_cpu_tier():
+    """The stream rows at scale 4096 (8 reads of 2048 nt, one batch of 4096
+    rows) on the CPU tier: every field of each row, the sunk bytes, the
+    counts, the stage keys; no H2D rate and no kernel launch off the card;
+    the headline's stream champions become numbers."""
+    from cute_nucleotides_tpu_torch.ops import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    before = set(os.listdir(_build.BUILD_DIR))
+    results = bench.Results()
+    bench.run_stream_rows(results, "cpu", scale=4096)
+    assert results.stream["link_h2d_mib_s"] is None and not results.failed
+    assert set(os.listdir(_build.BUILD_DIR)) <= before  # the FASTQ file went with its directory
+    stages = {"prep_wait_s", "dispatch_s", "backpressure_s", "finish_s", "readback_s", "sink_s", "manifest_s",
+              "wall_s"}
+    for name in bench.STREAM_ROWS:
+        row = results.stream[name]
+        assert results.gibs[name] > 0 and results.ms[name] > 0 and results.launches[name] == {}
+        assert row["gbp_s"] == pytest.approx(results.gibs[name] * 2**30 / 1e9)
+        assert row["reads_per_s"] == pytest.approx(8 / (results.ms[name] / 1e3))
+        assert (row["total_reads"], row["total_nt"], row["batches"], row["runs"]) == (8, 8 * 2048, 1, 3)
+        assert row["link_saturation"] is row["link_saturation_range"] is None
+        assert set(row["stages"]) == stages and row["launches"] == {}
+        assert row["sunk_bytes"] == (8 * 2048 if name == "stream_decode_e2e" else 4096 * 128 * 4)
+    line = json.loads(bench.headline(results, "d.json"))
+    assert line["champions_gibs"]["stream_encode"] == round(results.gibs["stream_encode_e2e"], 3)
+    assert line["champions_gibs"]["stream_decode"] == round(results.gibs["stream_decode_e2e"], 3)
+    assert bench.h2d_mib_s("cpu") is None
 
 
 def test_config_from_env():

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from cute_nucleotides_tpu_torch import api, interop, models
+from cute_nucleotides_tpu_torch import api, bench, interop, models
 from cute_nucleotides_tpu_torch.ops import kernels as K, native, search
 
 pytestmark = pytest.mark.cuda
@@ -718,3 +718,98 @@ def test_bench_table_on_the_card(cuda_device):
     assert results.launches["decode_b5_cuda_u8"] == {"decode_b5_panels": calls}
     assert results.launches["memcpy_device"] == {} and results.launches["encode_2bit_torch_mul"] == {}
     assert all(s > 0 for s in results.sol.values())
+
+
+# --- the streaming runtime on the card ---------------------------------------------
+
+def _stream_fastq(path, n: int, length: int, seed: int, alphabet=ALPHABET) -> np.ndarray:
+    seqs = np.random.default_rng(seed).choice(alphabet, size=(n, length))
+    with open(path, "wb") as f:
+        f.write(bench.fastq_bytes(seqs))
+    return seqs
+
+
+@pytest.mark.parametrize("codec,validate", (("2bit", False), ("2bit", True), ("base5", True)))
+def test_stream_pipeline_matches_a_synchronous_encode(cuda_device, tmp_path, codec, validate):
+    """The three-stream encoder gives, batch for batch, the words of a
+    synchronous encode of the same reads on the default stream; the decoder
+    gives the reads back; each batch launched exactly one codec kernel."""
+    from cute_nucleotides_tpu_torch.parallel import ShardedCodec, runtime
+    from cute_nucleotides_tpu_torch.utils import io as io_lib
+
+    fq = tmp_path / "r.fq"
+    seqs = _stream_fastq(fq, 5000, 333, 1, ALPHABET if codec == "2bit" else ALPHABET_N)
+    block = 32 if codec == "2bit" else 27
+    enc = runtime.StreamingEncoder(batch_size=512, max_len=333, codec=codec, validate=validate)
+    sc = enc.sharded
+    assert sc.tier == "cuda" and len({sc.upload, sc.compute, sc.download, torch.cuda.current_stream()}) == 4
+    sunk = []
+    K.reset_launch_counts()
+    agg = enc.run_batches(io_lib.fastq_batches(str(fq), 512, 333, block=block), lambda w, b: sunk.append((w, b)))
+    kernel = {("2bit", False): K.encode_2bit_nt4, ("2bit", True): K.encode_2bit_nt4_checked,
+              ("base5", True): K.encode_b5_stream}[codec, validate]
+    assert agg["batches"] == len(sunk) == 10 and kernel.launches == 10
+    assert sum(fn.launches for fn in K.WRAPPERS) == 10
+    model = models.TwoBitCodec(device=cuda_device) if codec == "2bit" else models.Base5Codec(device=cuda_device)
+    for w, b in sunk:
+        want = model.encode(torch.from_numpy(b.reads).to(cuda_device))
+        assert np.array_equal(w, interop.to_numpy(want))
+    per = block
+    entries = [(b"r%d" % int(b.indices[i]), int(b.lengths[i]), w.view("<u8")[i, : -(-int(b.lengths[i]) // per)])
+               for w, b in sunk for i in range(b.count)]
+    got = []
+    runtime.StreamingDecoder(batch_size=512, codec=codec, verify=codec == "base5").run(
+        entries, lambda name, s: got.append(s))
+    upper = seqs & 0xDF
+    upper[upper == ord("U")] = ord("T")
+    assert b"".join(got) == upper.tobytes()
+    assert isinstance(sc, ShardedCodec)
+
+
+def test_stream_sunk_arrays_stay_valid_after_later_batches(cuda_device, tmp_path):
+    """A sink that keeps every batch's words (32 batches, one in flight at a
+    time behind it) finds each unchanged after the run."""
+    from cute_nucleotides_tpu_torch.parallel import runtime
+    from cute_nucleotides_tpu_torch.utils import io as io_lib
+
+    fq = tmp_path / "r.fq"
+    _stream_fastq(fq, 8192, 2048, 2)
+    kept = []
+    runtime.StreamingEncoder(batch_size=256, max_len=2048, readback_depth=1).run_batches(
+        io_lib.fastq_batches(str(fq), 256, 2048), lambda w, b: kept.append((w, w.copy())))
+    assert len(kept) == 32 and all(np.array_equal(w, copy) for w, copy in kept)
+    assert len({w.ctypes.data for w, _ in kept}) == 32  # every batch its own host buffer
+
+
+def test_stream_sink_exception_drains_without_a_cuda_error(cuda_device, tmp_path):
+    """A sink that raises on its third batch while later uploads, kernels and
+    downloads are in flight: the error reaches the caller, the streams are
+    drained, and the next stream on the card runs and is right."""
+    from cute_nucleotides_tpu_torch.parallel import runtime
+    from cute_nucleotides_tpu_torch.utils import io as io_lib
+
+    fq = tmp_path / "r.fq"
+    _stream_fastq(fq, 4096, 2048, 3)
+
+    class Boom(Exception):
+        pass
+
+    calls = [0]
+
+    def sink(w, b):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise Boom()
+
+    enc = runtime.StreamingEncoder(batch_size=256, max_len=2048, prefetch_depth=4, readback_depth=4)
+    with pytest.raises(Boom):
+        enc.run_batches(io_lib.fastq_batches(str(fq), 256, 2048), sink)
+    assert all(s.query() for s in (enc.sharded.upload, enc.sharded.compute, enc.sharded.download))
+    torch.cuda.synchronize()  # raises if the drain left a CUDA error
+    sunk = []
+    agg = runtime.StreamingEncoder(batch_size=256, max_len=2048).run_batches(
+        io_lib.fastq_batches(str(fq), 256, 2048), lambda w, b: sunk.append((w, b)))
+    assert agg["batches"] == 16
+    w, b = sunk[-1]
+    want = models.TwoBitCodec(device=cuda_device).encode(torch.from_numpy(b.reads).to(cuda_device))
+    assert np.array_equal(w, interop.to_numpy(want))

@@ -1,9 +1,11 @@
 """The port's own copies of the reference's host layers against the
 originals: ``ops/spec.py``, ``ops/oracle.py``, the C++ oracle
-(``native/codec.cpp`` and ``ops/native.py``, with the bench's ``memcpy``
-and the de-pad copy), ``utils/io.py``, the ``.nup`` container (``nup.py``,
-with its random access by name) and the byte models of
-``utils/profiling.py``.  The port
+(``native/codec.cpp`` and ``ops/native.py``, with the bench's ``memcpy``,
+the de-pad copy and the FASTQ scan), ``utils/io.py`` (with the stream's
+``shard_records``, ``BatchStream(skip=, truncate=)`` and
+``fastq_batches``), ``utils/metrics.py``, ``utils/checkpoint.py``, the
+``.nup`` container (``nup.py``, with its random access by name) and the
+byte models of ``utils/profiling.py``.  The port
 imports none of the reference, so these tests keep the copies honest: the
 same constants, the same words, the same bytes on disk, the same records
 and the same errors."""
@@ -11,6 +13,7 @@ and the same errors."""
 import gzip
 import io
 import os
+import time
 
 import numpy as np
 import pytest
@@ -19,10 +22,11 @@ from cute_nucleotides_tpu import cli as ref_cli
 from cute_nucleotides_tpu.native import __file__ as ref_native_init
 from cute_nucleotides_tpu.ops import native as ref_native, oracle as ref_oracle, pallas_kernels as ref_pk
 from cute_nucleotides_tpu.ops import spec as ref_spec
-from cute_nucleotides_tpu.utils import io as ref_io, profiling as ref_profiling
+from cute_nucleotides_tpu.utils import checkpoint as ref_checkpoint, io as ref_io, metrics as ref_metrics
+from cute_nucleotides_tpu.utils import profiling as ref_profiling
 from cute_nucleotides_tpu_torch import native as port_native_build, nup
 from cute_nucleotides_tpu_torch.ops import kernels, native, oracle, spec
-from cute_nucleotides_tpu_torch.utils import io as port_io, profiling
+from cute_nucleotides_tpu_torch.utils import checkpoint, io as port_io, metrics, profiling
 
 LENGTHS = (0, 1, 26, 27, 28, 31, 32, 33, 1000, 4099)
 
@@ -250,3 +254,72 @@ def test_batch_stream_and_word_batches_equal_reference(tmp_path):
         list(port_io.BatchStream(records, batch_size=2, max_len=64))
     entries = [(b"a", 5, np.arange(1, dtype=np.uint64)), (b"b", 70, np.arange(3, dtype=np.uint64)), (b"c", 0, np.zeros(0, np.uint64))]
     assert np.array_equal(port_io.pack_words_batch(entries, 4), ref_io.pack_words_batch(entries, 4))
+
+
+def test_metrics_is_the_reference_source():
+    with open(metrics.__file__, "rb") as a, open(ref_metrics.__file__, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_manifest_files_equal_reference(tmp_path, monkeypatch):
+    """The same advances and saves write the same bytes and read back the
+    same positions (the port's lock file aside)."""
+    monkeypatch.setattr(time, "time", lambda: 1234.5)
+    files = {}
+    for name, mod in (("port", checkpoint), ("ref", ref_checkpoint)):
+        p = tmp_path / f"{name}.json"
+        m = mod.Manifest(p)
+        m.advance(0, batches=3, records=100)
+        m.advance(1, batches=2, records=64)
+        m.save()
+        m2 = mod.Manifest(p)
+        m2.advance(2)
+        m2.advance(0, records=5)
+        m2.save()
+        m3 = mod.Manifest(p)
+        files[name] = (p.read_bytes(), [(m3.batches_done(h), m3.records_done(h)) for h in range(4)])
+    assert files["port"] == files["ref"]
+    assert files["port"][1] == [(4, 105), (2, 64), (1, 0), (0, 0)]
+
+
+def test_stream_batches_equal_reference(tmp_path):
+    """fastq_batches, and BatchStream over sharded records, with skip and
+    truncate, on the reads files (the tail file ends without a newline)."""
+    paths = _reads_files(tmp_path)
+    for name in ("a.fq", "tail.fastq"):
+        for kwargs in ({}, {"skip": 1}, {"truncate": True, "block": 27}, {"chunk_bytes": 64}):
+            got = list(port_io.fastq_batches(paths[name], 2, 100 if "truncate" in kwargs else 333, **kwargs))
+            want = list(ref_io.fastq_batches(paths[name], 2, 100 if "truncate" in kwargs else 333, **kwargs))
+            assert len(got) == len(want) > 0
+            for g, w in zip(got, want):
+                assert g.count == w.count
+                for f in ("reads", "lengths", "indices"):
+                    assert np.array_equal(getattr(g, f), getattr(w, f))
+    records = list(ref_io.open_reads(paths["a.fq"]))
+    for max_len, kwargs in ((333, {"skip": 1}), (80, {"truncate": True}), (80, {"skip": 1, "truncate": True})):
+        got = list(port_io.BatchStream(port_io.shard_records(records, 0, 2), 2, max_len, **kwargs))
+        want = list(ref_io.BatchStream(ref_io.shard_records(records, 0, 2), 2, max_len, **kwargs))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.count == w.count
+            for f in ("reads", "lengths", "indices"):
+                assert np.array_equal(getattr(g, f), getattr(w, f))
+
+
+@pytest.mark.parametrize("crlf", (False, True))
+def test_fastq_scan_equals_reference_on_chunks_that_split_a_record(crlf):
+    rng = np.random.default_rng(8)
+    end = b"\r\n" if crlf else b"\n"
+    recs = [b"@r%d%s%s%s+%sI%s" % (i, end, b"ACGT" * int(n), end, end, end) for i, n in enumerate(rng.integers(0, 9, 12))]
+    data = np.frombuffer(b"".join(recs), np.uint8)
+    for cut in (0, 1, 5, len(recs[0]), len(recs[0]) + 3, data.size // 2, data.size - 1, data.size):
+        chunk = data[:cut].copy()
+        got, want = native.fastq_scan(chunk), ref_native.fastq_scan(chunk)
+        assert got[2] == want[2] and np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+        assert got[2] <= cut and (got[0].size == 0 or got[0][-1] + got[1][-1] < got[2])
+    bad = np.frombuffer(b"@r0\nACGT\n-\nIIII\n", np.uint8)
+    for fn in (native.fastq_scan, ref_native.fastq_scan):
+        with pytest.raises(ValueError, match="malformed FASTQ record"):
+            fn(bad)
+    with pytest.raises(TypeError):
+        native.fastq_scan(data.view(np.int8))

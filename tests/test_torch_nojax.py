@@ -310,3 +310,44 @@ def test_chip_smoke_holds_search_plain_versions_only_as_references():
     assert len(calls) >= 6
     for i in calls:
         assert "lambda" in lines[i] or "errors.compare(" in lines[i - 1] + lines[i], lines[i]
+
+
+def test_stream_runtime_loads_neither_jax_nor_the_reference(tmp_path):
+    """The streaming runtime and its host layers (``parallel``,
+    ``utils/metrics.py``, ``utils/checkpoint.py``, ``fastq_batches``) driven
+    on the CPU tier in one process: both codecs through FASTQ -> encoder ->
+    decoder with a manifest; afterwards no jax and no cute_nucleotides_tpu
+    module is loaded, and without CUDA the default stream raises."""
+    code = f"""
+import sys
+from cute_nucleotides_tpu_torch.parallel import runtime
+from cute_nucleotides_tpu_torch.ops import spec
+from cute_nucleotides_tpu_torch.utils import io
+d = {str(tmp_path)!r}
+seqs = [b"ACGTNACGTTGCA" * (i % 7 + 1) for i in range(40)]
+with open(d + "/r.fq", "wb") as f:
+    f.write(b"".join(b"@r%d\\n%s\\n+\\n%s\\n" % (i, s, b"I" * len(s)) for i, s in enumerate(seqs)))
+for codec, per in (("2bit", 32), ("base5", 27)):
+    entries = []
+    def keep(w, b):
+        for i in range(b.count):
+            n = int(b.lengths[i])
+            entries.append((b"r%d" % b.indices[i], n, spec.u32_pairs_to_u64(w[i])[: -(-n // per)]))
+    enc = runtime.StreamingEncoder(batch_size=8, max_len=96, codec=codec, device="cpu",
+                                   manifest_path=d + "/" + codec + ".json")
+    agg = enc.run_batches(io.fastq_batches(d + "/r.fq", 8, 96, block=per), keep)
+    assert agg["total_reads"] == 40, agg
+    got = {{}}
+    runtime.StreamingDecoder(batch_size=8, codec=codec, tier="torch").run(entries, lambda n, s: got.__setitem__(n, s))
+    want = {{b"r%d" % i: (s if codec == "base5" else s.replace(b"N", b"G")) for i, s in enumerate(seqs)}}
+    assert got == want
+try:
+    runtime.StreamingEncoder()
+except RuntimeError as e:
+    print("raised", e)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cute_nucleotides_tpu"))
+print("LOADED", loaded)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout and "raised device cuda requested but CUDA is not available" in proc.stdout
