@@ -20,14 +20,15 @@ calls:
      and for ``--codec base5`` (decode with ``--verify-stream``, and a
      corrupted copy refused);
   6. launch counts of phases 3-5, read per path (each codec's path, the
-     search path, the k-mer path, the sketch path, the seqops, sort and
-     planar paths run with the counts set to 0 just before them), then each
-     kernel's time beside its plain version's (CUDA events);
+     search path, the k-mer path, the sketch path, the seqops, sort, planar
+     and align paths run with the counts set to 0 just before them), then
+     each kernel's time beside its plain version's (CUDA events);
   7. the port's bench, ``python -m cute_nucleotides_tpu_torch bench``, in a
      child process at ``BENCH_SCALE=8 BENCH_FULL=1``: exit 0, its last line
-     shaped as the reference's, its 46 rows above 0 (the three stream rows
-     among them), and its planar rows' launches of #15-#17 read from its
-     detail file;
+     shaped as the reference's with ``edit_distance_gcups`` above 0, its 52
+     rows above 0 (the three stream rows among them), and its planar rows'
+     launches of #15-#17 and its Myers rows' of #19 read from its detail
+     file;
   8. the stream path (run after the planar path, before the timing of
      phase 6), with its own launch counts: #1, #2, #3, #5 and #6 must each
      launch on it.
@@ -54,6 +55,29 @@ idle share; :func:`profile_stream_encode`, run as ``chip_smoke.py
 --profile-stream-encode FASTQ``), then the
 bench's three stream rows (``bench.run_stream_rows``: median of 3, the
 stage seconds, the same-run pinned H2D rate), with the SM clock beside them.
+
+The align path (kernel #19, the Myers bit-vector scan, and the ``approx``
+command; its data from its own seed): phase 2 holds #19 against its plain
+version in both alphabets and every mode (global, semiglobal, prefix and,
+2-bit, every end within a threshold) on 37 pairs at m in {1, 2, 31, 32, 33,
+63, 64, 65, 150, 300} against ragged 0..700-nt texts, with N / ? wildcards,
+base-5 triplets 125..127 in texts and queries, max_errors 0, 2 and
+INT32_MAX, a stride-0 Peq, and stream rows whose halo spans several rows;
+phase 3 runs ``edit_distance_packed`` and ``best_match_packed`` at the
+bench's shape (8192 pairs of 128 x 2048 nt) against the host Myers scan
+(``native.edit_distance`` / ``native.best_match``) on every pair; phase 4
+runs ``best_match_stream`` on the chr1-length 2-bit stream with a 21-nt
+query (a substring with 2 edits) against ``native.best_match`` on the
+decoded stream, and ``best_match_stream_b5`` on the same sequence encoded
+base-5, which must agree; phase 5 runs ``approx`` on the 200,000 phase-5
+reads of each codec with PRIMER planted with 0-2 edits in every tenth
+(``--both``, ``--both --max-errors 2``, ``--both --cigar``, and ``--all
+--max-errors 1``, which base-5 refuses), against ``native.best_match`` per
+record and strand (2-bit), the DP oracle on a sample (base-5), a numpy DP
+of every end (``--all``), and each CIGAR applied to its window.  The timing
+phase takes #19 at the bench's shape beside its bound, and beside its plain
+version at a phase-2 size (the plain version would take hundreds of
+thousands of launches at the bench's).
 
 The planar path (kernels #15-#17, the base-5 codec's planar (lo, hi)
 layout): phase 2 holds #15 against its plain version at 1, 2, 37 and 128
@@ -85,7 +109,7 @@ canonical=True)`` on the 1-Gnt batch's words u32[4096, 16384]; phase 4
 runs ``kmer_histogram(k=8)``, ``kmer_counts(k=15)`` and ``kmer_counts(k=21,
 canonical=True)`` on a chr1-length stream, each against the same function
 built from the plain versions; phase 5 runs ``stats`` on a chr1-length
-FASTA (``-k 8 --canonical --top 10``), a 20,000-read ``.nup`` (``-k 8``)
+FASTA (``-k 8 --canonical --top 10``), a 5,000-read ``.nup`` (``-k 8``)
 and a 4-Mnt record (``-k 21 --canonical --top 10``), each stdout against a
 numpy count of the bytes.
 
@@ -166,7 +190,7 @@ import traceback
 import numpy as np
 
 # the card's peaks and the bound rule, shared with the port's bench
-from cute_nucleotides_tpu_torch.utils.profiling import HBM_BYTES_PER_S, bound as _bound
+from cute_nucleotides_tpu_torch.utils.profiling import HBM_BYTES_PER_S, bound as _bound, myers_ops
 
 SEED = 0x5EED
 ALPHABET = b"ACGTUacgtu"
@@ -197,6 +221,20 @@ SEARCH_W2 = (3, 5, 9, 1021, 1025, 2053)
 PEXT_EDGES = ((1, 4), (2, 4), (3, 4), (3, 12), (7, 12), (64, 4), (1, 2052), (3, 684), (41, 100), (1, 4100),
               (1, 8204))
 PRIMER = b"GTTCAGAGTTCTACAGTCCG"  # 20 nt
+#: the align path: phase 2 of #19 holds ALIGN_PAIRS pairs at each query
+#: length of ALIGN_M; phase 3 runs the bench's edit_distance_m128_n2048 shape
+#: (ALIGN_B pairs of ALIGN_QM x ALIGN_TN nt); phase 4 a query of
+#: ALIGN_STREAM_M nt over the chr1-length stream; phase 5 plants PRIMER in
+#: every APPROX_EVERY-th read and holds base-5 lines to the DP oracle on
+#: every APPROX_B5_EVERY-th record
+ALIGN_M = (1, 2, 20, 21, 31, 32, 33, 63, 64, 65, 128, 150, 300)
+ALIGN_PAIRS, ALIGN_B, ALIGN_QM, ALIGN_TN, ALIGN_STREAM_M = 37, 8192, 128, 2048, 21
+APPROX_EVERY, APPROX_B5_EVERY = 10, 997
+#: phase 2's rows of the approx CLI's shape: reads of APPROX_NT nt in rows of
+#: 16 u32 (2-bit) or 6 u32 pairs (base-5), PRIMER's 20 nt as one broadcast Peq
+APPROX_ROWS, APPROX_NT = 4096, 150
+#: rows of the chr1-length stream held to #19's plain version at each end
+STREAM_CHECK_ROWS = 256
 _PK = "cute_nucleotides_tpu/ops/pallas_kernels.py"
 REPLACES = {
     "encode_2bit_nt4": f"{_PK}:216",
@@ -217,7 +255,12 @@ REPLACES = {
     "encode_b5_planar": f"{_PK}:898",
     "decode_b5_nt4_panels": f"{_PK}:2087",
     "decode_b5_panels": f"{_PK}:607",
+    # not a Pallas kernel: the lax.scan Myers scans (2-bit :336, base-5 :385)
+    "myers_scan": "cute_nucleotides_tpu/ops/align.py:336",
 }
+#: what a kernel line's "replaces" points at, where it is no Pallas kernel
+NOT_PALLAS = {"myers_scan": "lax.scan word scans _myers_scan_words (align.py:336) and _myers_scan_words_b5 "
+                            "(align.py:385), not Pallas kernels"}
 B5_KERNELS = ("encode_b5_stream", "decode_b5_stream", "match_b5_bits_stream")
 PLANAR_KERNELS = ("encode_b5_planar", "decode_b5_nt4_panels", "decode_b5_panels")
 SEARCH_KERNELS = ("match_bits_stream", "match_b5_bits_stream")
@@ -225,8 +268,10 @@ KMER_KERNELS = ("kmer_codes_planar", "kmer_codes_planar_pair", "hist_codes")
 SKETCH_KERNELS = ("kmer_hashes_planar_pair", "minimizer_bits_stream")
 SEQOPS_KERNELS = ("gc_b5_stream",)
 SORT_KERNELS = ("sort_pairs_bitonic",)
+ALIGN_KERNELS = ("myers_scan",)
 #: (kernels, source file, path) in the order a kernel's first group wins
 _GROUPS = ((PLANAR_KERNELS, "codec_b5.cu", "planar"), (SORT_KERNELS, "sort.cu", "sort"),
+           (ALIGN_KERNELS, "align.cu", "align"),
            (SEQOPS_KERNELS, "seqops.cu", "seqops"),
            (SKETCH_KERNELS, "sketch.cu", "sketch"), (KMER_KERNELS, "kmer.cu", "k-mer"),
            (SEARCH_KERNELS, "search.cu", "search"), (B5_KERNELS, "codec_b5.cu", "base-5"))
@@ -241,14 +286,16 @@ DEDUP_EVERY = 10  # one read in ten is planted as a duplicate of an earlier one
 PLANAR_R = (1, 2, 37, 128)  # phase-2 rows of #15-#17
 #: the bench child: scale, full table, its time limit, its rows, the keys of its last line
 BENCH_ENV = {"BENCH_SCALE": "8", "BENCH_FULL": "1"}
-BENCH_TIMEOUT_S, BENCH_ROWS = 600, 46
+BENCH_TIMEOUT_S, BENCH_ROWS = 600, 52
 BENCH_LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "gbps_per_chip", "vs_device_memcpy",
                    "vs_reference_memcpy", "chips", "champions_gibs", "detail_file")
 #: bench rows that run #15-#17, and the wrapper each must launch
 BENCH_PLANAR_ROWS = {"encode_b5_cuda_planar": "encode_b5_planar", "decode_b5_cuda_nt4": "decode_b5_nt4_panels",
                      "decode_b5_cuda_nt4_padded": "decode_b5_nt4_panels", "decode_b5_cuda_u8": "decode_b5_panels"}
+#: bench rows that run #19
+BENCH_ALIGN_ROWS = {"edit_distance_m128_n2048": "myers_scan", "approx_stream_m21": "myers_scan"}
 KMER_W = (1, 511, 512, 513)  # word lanes per row in phase 2; 37 rows, a multiple of no block
-STATS_READS, STATS_REC_NT = 20_000, 4_000_000
+STATS_READS, STATS_REC_NT = 5_000, 4_000_000
 MZ_NT = (16384 + 5, 32768, 100_003)  # stream lengths of the minimizer kernel's phase-2 cases, nt
 #: its windows: powers of two and their neighbours move the doubling's last
 #: offset; 2049 - k (the largest) is added per k
@@ -336,7 +383,7 @@ def phase_build():
         f"build and load {time.perf_counter() - t0:.1f} s")
     _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel", "gc_b5_kernel",
                                           "radix_hist_kernel", "radix_pass_kernel", "match_b5_kernel",
-                                          "match_2bit_kernel", "encode_2bit_pext_kernel"))
+                                          "match_2bit_kernel", "encode_2bit_pext_kernel", "myers_kernel"))
 
 
 def _kernel_label(name: str, kernels):
@@ -348,6 +395,27 @@ def _kernel_label(name: str, kernels):
     args = ", ".join(("true" if v == "1" else "false") if t == "b" else v
                      for t, v in re.findall(r"L([a-z]+)([0-9]+)E", targs.group(1))) if targs else ""
     return (f"{hit}<{args}>" if args else hit) if hit else None
+
+
+def _myers_floor_check(mixes: dict) -> None:
+    """#19's register forms unroll one text word (16 nt, or 27 base-5) with
+    no loop inside it, so a nt runs at most its static instructions over
+    that count; a floor (utils.profiling.myers_ops) above that would be no
+    floor.  Prints both for each instance and fails if so."""
+    out = []
+    for fn, mix in sorted(mixes.items()):
+        m = re.fullmatch(r"myers_kernel<(\d+), (true|false)>", fn)
+        if not m or m.group(1) == "0":
+            continue
+        nb, b5 = int(m.group(1)), m.group(2) == "true"
+        unroll = 27 if b5 else 16
+        per_nt = sum(mix.values()) / unroll
+        floor = myers_ops(unroll, nb, b5=b5, mode="semiglobal") / unroll  # the mode with the most work a nt
+        out.append(f"{fn} {per_nt:.1f} vs {floor:.1f}")
+        check(floor <= per_nt, f"{fn}: floor {floor:.1f} instructions a nt above its static {per_nt:.1f}")
+    if out:
+        say(f"phase 1 SASS #19 floor check (static instructions a nt of the unrolled word vs the floor a nt, "
+            f"utils.profiling.myers_ops): {'; '.join(out)}")
 
 
 def _sass_mix(nvcc: str, path: str, kernels) -> None:
@@ -378,6 +446,7 @@ def _sass_mix(nvcc: str, path: str, kernels) -> None:
     for fn, mix in sorted(mixes.items()):
         top = sorted(mix.items(), key=lambda kv: -kv[1])
         say(f"phase 1 SASS {fn}: {sum(mix.values())} instructions: {dict(top)}")
+    _myers_floor_check(mixes)
     for name, usage in re.findall(r"Function (\S+?):\s*(REG:[^\n]*)", res.stdout):
         fn = _kernel_label(name, kernels)
         if fn:
@@ -1227,7 +1296,7 @@ def _profiled(fn):
     the wall seconds, and the device ms of the port's kernels, of copies
     (memcpy) and of other device work, summed over the profiler's raw
     device events (``key_averages()`` would build a Python object per event,
-    minutes for the 20,000-read ``stats``), with the five largest device
+    minutes for the 20,000-read ``stats`` of earlier runs), with the five largest device
     event names by total under "top".  The port's kernel events are counted
     against the launches its wrappers counted during the call: a profile
     that saw fewer (the profiler loses events in a long process, PERF.md)
@@ -1254,7 +1323,7 @@ def _profiled(fn):
             continue
         key, ms = ev.name(), ev.duration_ns() / 1e6
         if any(tag in key for tag in ("_2bit_", "_b5_", "kmer_codes", "hist_codes", "kmer_hashes",
-                                      "minimizer_kernel", "radix_")):
+                                      "minimizer_kernel", "radix_", "myers_kernel")):
             kind = "kernels"
             seen += 1
         else:
@@ -1681,7 +1750,7 @@ def _chr1_fasta(rng, workdir: str) -> np.ndarray:
 def phase_stats(rng, workdir: str, reads2: list, chr1: np.ndarray) -> None:
     """``stats`` through the CLI, under torch.profiler, each stdout against
     :func:`_stats_expected`: the chr1-length FASTA record ``chr1`` (-k 8
-    --canonical --top 10), the first 20,000 phase-5 reads as a .nup (-k 8),
+    --canonical --top 10), the first STATS_READS phase-5 reads as a .nup (-k 8),
     and a 4-Mnt record with a planted 30-nt repeat (-k 21 --canonical --top
     10)."""
     from cute_nucleotides_tpu_torch import api, cli
@@ -2444,6 +2513,378 @@ def phase_planar(x5, words5):
     return lo, hi
 
 
+# --- the align path: kernel #19, the Myers scan ----------------------------------------
+
+def _myers_ascii(rng, n: int, alpha: bytes = b"ACGT") -> bytes:
+    return rng.choice(np.frombuffer(alpha, np.uint8), n).tobytes()
+
+
+def _mutate(rng, seq: bytes, edits: int, alpha: bytes = b"ACGT") -> bytes:
+    """``seq`` with ``edits`` random substitutions, insertions or deletions."""
+    s = bytearray(seq)
+    for _ in range(edits):
+        at, kind = int(rng.integers(0, len(s))), int(rng.integers(0, 3))
+        if kind == 0:
+            s[at] = alpha[(alpha.index(s[at]) + 1 + int(rng.integers(0, len(alpha) - 1))) % len(alpha)]
+        elif kind == 1:
+            s.insert(at, alpha[int(rng.integers(0, len(alpha)))])
+        elif len(s) > 1:
+            del s[at]
+    return bytes(s)
+
+
+def _myers_rows(seqs, b5: bool, width_u32: int) -> np.ndarray:
+    """ASCII rows -> packed u32[len(seqs), width_u32] by the host oracle."""
+    from cute_nucleotides_tpu_torch.ops import native
+
+    out = np.zeros((len(seqs), width_u32), np.uint32)
+    for i, s in enumerate(seqs):
+        w = np.ascontiguousarray((native.n_to_bits2 if b5 else native.n_to_bits)(s)).view(np.uint32)[:width_u32]
+        out[i, : w.size] = w
+    return out
+
+
+def _corrupt_b5(rng, words: np.ndarray, every: int) -> np.ndarray:
+    """Triplet 125, 126 or 127 in one word of every ``every``-th row."""
+    out = words.copy()
+    pairs = out.view(np.uint64)
+    for r in range(0, out.shape[0], every):
+        t = int(rng.integers(125, 128))
+        pairs[r, int(rng.integers(0, pairs.shape[1]))] |= np.uint64(t << (7 * int(rng.integers(0, 9))))
+    return out
+
+
+def _myers_compare(errors: Errors, got, want, what: str) -> None:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        errors.compare("myers_scan", g, w, what)
+
+
+def _myers_case(errors: Errors, peq, ql, words, tl, stride: int, length: int, mode: str, b5: bool, errs,
+                what: str) -> None:
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    args = dict(mode=mode, b5=b5, max_errors=errs if mode == "ends" else None)
+    _myers_compare(errors, K.myers_scan(peq, ql, words, tl, stride, length, **args),
+                   K.myers_scan_plain(peq, ql, words, tl, stride, length, **args), what)
+
+
+def phase_kernels_align(errors: Errors, rng) -> None:
+    """#19 against its plain version on the card, bit for bit: both
+    alphabets and every mode, ALIGN_PAIRS pairs at each m in ALIGN_M,
+    ragged texts of 0..700 nt (tlens below the row capacity), wildcard
+    queries (N, ?), base-5 triplets 125..127 in texts and queries,
+    max_errors 0, 2 and INT32_MAX, a stride-0 Peq, and stream rows whose
+    halo spans several rows."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import align
+
+    dev = "cuda"
+    cases = 0
+    for b5 in (False, True):
+        alpha, wild = (b"ACGTN", b"?") if b5 else (b"ACGT", b"N")
+        cap_u32 = 2 * 26 if b5 else 44  # 702 / 704 nt a row
+        modes = ("global", "semiglobal", "prefix") + (() if b5 else ("ends",))
+        for m in ALIGN_M:
+            queries = []
+            for i in range(ALIGN_PAIRS):
+                q = bytearray(_myers_ascii(rng, m, alpha))
+                if i % 4 == 1:
+                    q[int(rng.integers(0, m))] = wild[0]
+                queries.append(bytes(q))
+            texts = [_myers_ascii(rng, int(rng.integers(0, 701)), alpha) for _ in range(ALIGN_PAIRS)]
+            for i in range(0, ALIGN_PAIRS, 3):  # a near copy of the query in a third of the texts
+                if len(texts[i]) > m + 4:
+                    at = int(rng.integers(0, len(texts[i]) - m - 2))
+                    near = _mutate(rng, queries[i].replace(wild, alpha[:1]), 2, alpha)
+                    texts[i] = (texts[i][:at] + near + texts[i][at:])[: len(texts[i])]
+            tw = _myers_rows(texts, b5, cap_u32)
+            if b5:
+                tw = _corrupt_b5(rng, tw, 3)
+            build = align.peq_from_bytes_b5 if b5 else align.peq_from_bytes
+            peq = np.stack([build(q)[0] for q in queries])
+            if b5:  # a third of the queries from packed words with a corrupt triplet (digit 5 matches nothing)
+                qw = _corrupt_b5(rng, _myers_rows([q.replace(b"?", b"A") for q in queries], True,
+                                                  2 * -(-m // 27)), 1)
+                coded = align._peq_b5(torch.from_numpy(qw), [m] * ALIGN_PAIRS)[:, :, : peq.shape[2]].numpy()
+                peq[::3] = coded[::3]
+            tl = np.array([len(t) for t in texts], np.int32)
+            tl[1::5] = np.maximum(tl[1::5] - 9, 0)
+            errs = np.array([(0, 2, 2**31 - 1)[i % 3] for i in range(ALIGN_PAIRS)], np.int32)
+            ql = np.full(ALIGN_PAIRS, m, np.int32)
+            ql[-1] = 0
+            t = [torch.from_numpy(a).to(dev) for a in (peq, ql, tw.reshape(-1), tl, errs)]
+            wide = torch.from_numpy(peq[:1]).to(dev).expand(ALIGN_PAIRS, *peq.shape[1:])  # stride 0
+            for mode in modes:
+                _myers_case(errors, t[0], t[1], t[2], t[3], cap_u32, cap_u32, mode, b5, t[4],
+                            f"#19 {'b5' if b5 else '2bit'} m={m} {mode}")
+                cases += 1
+                if mode in ("semiglobal", "ends"):  # the modes the CLI runs with one broadcast Peq
+                    _myers_case(errors, wide, t[1], t[2], t[3], cap_u32, cap_u32, mode, b5, t[4],
+                                f"#19 {'b5' if b5 else '2bit'} m={m} {mode} stride-0 Peq")
+                    cases += 1
+        # stream rows: 4 u32 a row (2 pairs), the halo of a 150-nt query spans about 5 rows
+        m, stride = 150, 4
+        halo = (2 * -(-(2 * m - 2) // 27)) if b5 else -(-(2 * m - 2) // 16)
+        n_u32 = 2 * 61 if b5 else 101
+        words = torch.from_numpy(_corrupt_b5(rng, rng.integers(0, 2**32, (1, n_u32), dtype=np.uint32), 1)[0]
+                                 if b5 else rng.integers(0, 2**32, n_u32, dtype=np.uint32)).to(dev)
+        R = -(-n_u32 // stride)
+        peq = torch.from_numpy((align.peq_from_bytes_b5 if b5 else align.peq_from_bytes)(
+            _myers_ascii(rng, m, alpha))[0]).to(dev)
+        ql = torch.full((R,), m, dtype=torch.int32, device=dev)
+        tl = torch.full((R,), 10**6, dtype=torch.int32, device=dev)
+        for mode in ("semiglobal", "prefix", "global"):
+            _myers_case(errors, peq[None].expand(R, *peq.shape), ql, words, tl, stride, stride + halo, mode, b5,
+                        None, f"#19 {'b5' if b5 else '2bit'} stream rows, halo {halo} u32 over rows of {stride}")
+            cases += 1
+        # the approx CLI's shape: reads in rows of 16 u32, PRIMER (m = 20) as one broadcast Peq, a share of
+        # the reads holding it with 0-2 edits and one in seven cut short
+        reads = [_myers_ascii(rng, APPROX_NT, alpha) for _ in range(APPROX_ROWS)]
+        for i in range(0, APPROX_ROWS, APPROX_EVERY):
+            p = _mutate(rng, PRIMER, int(rng.integers(0, 3)))
+            at = int(rng.integers(0, APPROX_NT - len(p)))
+            reads[i] = (reads[i][:at] + p + reads[i][at:])[:APPROX_NT]
+        tl = np.full(APPROX_ROWS, APPROX_NT, np.int32)
+        tl[::7] = rng.integers(0, APPROX_NT, tl[::7].size)
+        peq = torch.from_numpy((align.peq_from_bytes_b5 if b5 else align.peq_from_bytes)(PRIMER)[0]).to(dev)
+        args = (peq[None].expand(APPROX_ROWS, *peq.shape),
+                torch.full((APPROX_ROWS,), len(PRIMER), dtype=torch.int32, device=dev),
+                torch.from_numpy(_myers_rows(reads, b5, 16).reshape(-1)).to(dev), torch.from_numpy(tl).to(dev), 16, 16)
+        for mode in ("semiglobal",) + (() if b5 else ("ends",)):
+            _myers_case(errors, *args, mode, b5, torch.full((APPROX_ROWS,), 2, dtype=torch.int32, device=dev),
+                        f"#19 {'b5' if b5 else '2bit'} approx shape, {APPROX_ROWS} x {APPROX_NT} nt, m = 20")
+            cases += 1
+    torch.cuda.synchronize()
+    say(f"phase 2 align kernel: #19 in {cases} cases (both alphabets, every mode, {ALIGN_PAIRS} pairs at m in "
+        f"{ALIGN_M}, ragged texts of 0..700 nt, N/? wildcards, base-5 triplets 125..127 in texts and queries, "
+        f"max_errors 0/2/INT32_MAX, stride-0 Peq, stream rows with a halo over several rows, the approx CLI's "
+        f"{APPROX_ROWS} rows of 16 u32 with PRIMER): bit-identical "
+        f"to the plain version ({errors.count} comparisons in phase 2; max abs err {errors.max['myers_scan']})")
+
+
+def _align_batch(rng):
+    """The bench's shape, ALIGN_B pairs of an ALIGN_QM-nt query and an
+    ALIGN_TN-nt text (random ACGT; a near copy of the query in every other
+    text), packed on the host: (queries, texts, qw, tw) with the words on
+    the card."""
+    from cute_nucleotides_tpu_torch import interop
+    from cute_nucleotides_tpu_torch.ops import native
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    qs = rng.choice(acgt, (ALIGN_B, ALIGN_QM))
+    ts = rng.choice(acgt, (ALIGN_B, ALIGN_TN))
+    for i in range(0, ALIGN_B, 2):
+        near = np.frombuffer(_mutate(rng, qs[i].tobytes(), int(rng.integers(0, 6))), np.uint8)[: ALIGN_TN // 2]
+        at = int(rng.integers(0, ALIGN_TN - near.size))
+        ts[i, at : at + near.size] = near
+    # rows of 128 and 2048 nt are whole u64 words, so one encode of the flat bytes packs every row
+    qw = interop.u64_to_tensor(native.n_to_bits(qs.reshape(-1)).reshape(ALIGN_B, -1), "cuda")
+    tw = interop.u64_to_tensor(native.n_to_bits(ts.reshape(-1)).reshape(ALIGN_B, -1), "cuda")
+    return qs, ts, qw, tw
+
+
+def phase_align_batch(rng):
+    """``edit_distance_packed`` and ``best_match_packed`` at the bench's
+    shape through kernel #19, under torch.profiler, each pair held to the
+    host Myers scan (``native.edit_distance`` / ``native.best_match``);
+    returns the packed words for the timing phase."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import align, native
+
+    t0 = time.perf_counter()
+    qs, ts, qw, tw = _align_batch(rng)
+    ql = torch.full((ALIGN_B,), ALIGN_QM, dtype=torch.int32, device="cuda")
+    tl = torch.full((ALIGN_B,), ALIGN_TN, dtype=torch.int32, device="cuda")
+    dist, d_wall, d_dev = _profiled(lambda: align.edit_distance_packed(qw, ql, tw, tl))
+    (best, end), b_wall, b_dev = _profiled(lambda: align.best_match_packed(qw, ql, tw, tl))
+    dist, best, end = (x.cpu().numpy() for x in (dist, best, end))
+    for i in range(ALIGN_B):
+        q, t = qs[i].tobytes(), ts[i].tobytes()
+        check(int(dist[i]) == native.edit_distance(q, t), f"edit_distance_packed pair {i}: {dist[i]} != host Myers")
+        check((int(best[i]), int(end[i])) == native.best_match(q, t),
+              f"best_match_packed pair {i}: {(best[i], end[i])} != host {native.best_match(q, t)}")
+    say(f"phase 3 align batch: edit_distance_packed and best_match_packed on {ALIGN_B} pairs of {ALIGN_QM} x "
+        f"{ALIGN_TN} nt == the host Myers scan on every pair (median distance {int(np.median(dist))}, best "
+        f"{int(best.min())}..{int(best.max())}; {time.perf_counter() - t0:.1f} s with the checks)")
+    say(f"  edit_distance_packed, {ALIGN_B} x {ALIGN_QM} x {ALIGN_TN}: {_breakdown(d_wall, d_dev)}")
+    say(f"  best_match_packed, {ALIGN_B} x {ALIGN_QM} x {ALIGN_TN}: {_breakdown(b_wall, b_dev)}")
+    return qw, tw
+
+
+def phase_align_stream(rng, chr1_words) -> None:
+    """``best_match_stream`` on the chr1-length 2-bit stream with a 21-nt
+    query (a substring of it with 2 edits), under torch.profiler, against
+    one ``native.best_match`` over the decoded stream; then
+    ``best_match_stream_b5`` on the same sequence encoded base-5 must give
+    the same (dist, end)."""
+    import torch
+
+    from cute_nucleotides_tpu_torch import api, interop
+    from cute_nucleotides_tpu_torch.ops import align, native
+
+    t0 = time.perf_counter()
+    w = chr1_words.view(torch.int32)
+    w64 = interop.tensor_to_u64(torch.cat([w, w.new_zeros(w.numel() % 2)]).view(torch.uint32))
+    seq = native.bits_to_n(w64, CHR1_NT)
+    at = int(rng.integers(0, CHR1_NT - 40))
+    query = seq[at : at + ALIGN_STREAM_M].tobytes()
+    while True:  # two edits that keep 21 nt (two substitutions, or an insertion and a deletion)
+        edited = _mutate(rng, query, 2)
+        if len(edited) == ALIGN_STREAM_M and edited != query:
+            break
+    (d, e), wall, dev = _profiled(lambda: align.best_match_stream(chr1_words, CHR1_NT, edited))
+    t_host = time.perf_counter()
+    want = native.best_match(edited, seq)
+    t_host = time.perf_counter() - t_host
+    check((d, e) == want and d <= 2, f"best_match_stream chr1: {(d, e)} != host {want}")
+    w5 = interop.u64_to_tensor(api.n_to_bits2(seq, tier="auto"), "cuda")
+    del seq
+    (d5, e5), wall5, dev5 = _profiled(lambda: align.best_match_stream_b5(w5, CHR1_NT, edited))
+    check((d5, e5) == (d, e), f"best_match_stream_b5 chr1: {(d5, e5)} != the 2-bit scan's {(d, e)}")
+    del w5
+    torch.cuda.empty_cache()
+    say(f"phase 4 align stream: best_match_stream of a {ALIGN_STREAM_M}-nt query (the stream at {at} with 2 "
+        f"edits) over {CHR1_NT} nt == (dist, end) {(d, e)} of native.best_match on the decoded stream "
+        f"({t_host:.2f} s on the host); best_match_stream_b5 of the same sequence gives the same "
+        f"({time.perf_counter() - t0:.1f} s with the checks)")
+    say(f"  best_match_stream, chr1 length: {_breakdown(wall, dev)}; top device events (ms) {dev['top']}")
+    say(f"  best_match_stream_b5, chr1 length: {_breakdown(wall5, dev5)}; top device events (ms) {dev5['top']}")
+
+
+def _approx_reads(rng, records: list) -> tuple[list, list]:
+    """The phase-5 reads with PRIMER (or its reverse complement, half the
+    time) planted with 0-2 edits in every APPROX_EVERY-th read: (names,
+    upper-case U->T sequences)."""
+    names, seqs = [], []
+    for i, (name, s) in enumerate(records):
+        s = bytes(_upper_t_np(np.frombuffer(s, np.uint8).copy()))
+        if i % APPROX_EVERY == 0:
+            p = _mutate(rng, PRIMER if rng.integers(0, 2) else _revcomp(PRIMER), int(rng.integers(0, 3)))
+            at = int(rng.integers(0, len(s) - len(p)))
+            s = s[:at] + p + s[at + len(p):]
+        names.append(name)
+        seqs.append(s)
+    return names, seqs
+
+
+def _cigar_edits(cigar: str, q: bytes, window: bytes) -> tuple[int, int, int]:
+    """(edits, query nt, window nt) of a SAM CIGAR applied to q and window."""
+    edits = qi = ti = 0
+    for n, op in re.findall(r"(\d+)([MID])", cigar):
+        n = int(n)
+        if op == "M":
+            edits += sum(a != b for a, b in zip(q[qi : qi + n], window[ti : ti + n]))
+            qi, ti = qi + n, ti + n
+        elif op == "I":
+            edits, qi = edits + n, qi + n
+        else:
+            edits, ti = edits + n, ti + n
+    return edits, qi, ti
+
+
+def _ends_np(seqs: list, query: bytes, max_errors: int) -> list:
+    """Every end (1-based) within max_errors of query in each read, by a
+    semiglobal DP vectorized over the reads (codes (b >> 1) & 3)."""
+    n = len(seqs[0])
+    t = (np.frombuffer(b"".join(seqs), np.uint8).reshape(len(seqs), n) >> 1) & 3
+    cq = (np.frombuffer(query, np.uint8) >> 1) & 3
+    m = len(query)
+    col = np.tile(np.arange(m + 1, dtype=np.int32), (len(seqs), 1))  # D[:, 0] = i
+    hits = np.zeros((len(seqs), n), bool)
+    for j in range(n):
+        new = np.empty_like(col)
+        new[:, 0] = 0
+        sub = (t[:, j : j + 1] != cq[None, :]).astype(np.int32)
+        new[:, 1:] = np.minimum(col[:, :-1] + sub, col[:, 1:] + 1)
+        for i in range(1, m + 1):
+            np.minimum(new[:, i], new[:, i - 1] + 1, out=new[:, i])
+        col = new
+        hits[:, j] = col[:, m] <= max_errors
+    return [np.nonzero(h)[0] + 1 for h in hits]
+
+
+def phase_approx(rng, workdir: str, reads2: list, reads5: list) -> None:
+    """``approx`` through the CLI on the phase-5 reads of both codecs, with
+    PRIMER planted in a share of them: ``--both``, ``--both --max-errors
+    2``, ``--all --max-errors 1`` (2-bit; base-5 must refuse it with exit 1)
+    and ``--both --cigar``.  2-bit lines against ``native.best_match`` per
+    record and strand (``--all`` against a numpy DP of every end); base-5
+    against the port's DP oracle on a sample; each CIGAR applied to its
+    window must give the line's distance."""
+    from cute_nucleotides_tpu_torch import cli
+    from cute_nucleotides_tpu_torch.ops import align, native
+
+    rc_primer = _revcomp(PRIMER)
+    for label, codec, records, encode in (("2-bit", "2bit", reads2, native.n_to_bits),
+                                          ("base-5", "base5", reads5, native.n_to_bits2)):
+        t0 = time.perf_counter()
+        names, seqs = _approx_reads(rng, records)
+        nup = os.path.join(workdir, f"approx_{codec}.nup")
+        cli.write_nup(nup, names, [encode(s) for s in seqs], [len(s) for s in seqs], codec)
+        if codec == "2bit":
+            want = []
+            for s in seqs:
+                f, r = native.best_match(PRIMER, s), native.best_match(rc_primer, s)
+                want.append((*r, "-") if r[0] < f[0] else (*f, "+"))
+            sample = range(len(seqs))
+        else:
+            sample = range(0, len(seqs), APPROX_B5_EVERY)
+            want = {}
+            for i in sample:
+                f = align.best_match_reference_b5(PRIMER, seqs[i])
+                r = align.best_match_reference_b5(rc_primer, seqs[i])
+                want[i] = (*r, "-") if r[0] < f[0] else (*f, "+")
+        rc, text, wall, dev = _run_cli(["approx", nup, PRIMER.decode(), "--both"])
+        got = [json.loads(line) for line in text.splitlines()]
+        check(rc == 0 and [g["record"] for g in got] == [n.decode() for n in names],
+              f"{label} approx --both: exit {rc}, {len(got)} lines")
+        for i in sample:
+            check((got[i]["dist"], got[i]["end"], got[i]["strand"]) == tuple(want[i]),
+                  f"{label} approx --both record {i}: {got[i]} != {want[i]}")
+        planted = sum(g["dist"] <= 2 for g in got)
+        say(f"phase 5 approx {label}: --both on {len(got)} x {CLI_READ_NT} nt, PRIMER in every {APPROX_EVERY}th "
+            f"read with 0-2 edits: dist/end/strand == {'native.best_match on every record' if codec == '2bit' else f'the DP oracle on {len(sample)} records'} "
+            f"({planted} within 2 edits; {time.perf_counter() - t0:.1f} s with the checks)")
+        say(f"  approx --both, {label}: {_breakdown(wall, dev)}; top device events (ms) {dev['top']}")
+        rc, text, wall2, _ = _run_cli(["approx", nup, PRIMER.decode(), "--both", "--max-errors", "2"])
+        kept = [json.loads(line) for line in text.splitlines()]
+        check(rc == 0 and kept == [g for g in got if g["dist"] <= 2],
+              f"{label} approx --both --max-errors 2: exit {rc}, {len(kept)} lines")
+        rc, text, wall3, _ = _run_cli(["approx", nup, PRIMER.decode(), "--both", "--cigar"])
+        lines = [json.loads(line) for line in text.splitlines()]
+        check(rc == 0 and [{k: g[k] for k in ("record", "dist", "end", "strand")} for g in lines] == got,
+              f"{label} approx --both --cigar: exit {rc}, lines differ from --both")
+        for i, g in enumerate(lines):
+            if g["end"] == 0:
+                check("cigar" not in g, f"{label} --cigar line {i} with end 0 has a CIGAR")
+                continue
+            q = PRIMER if g["strand"] == "+" else rc_primer
+            edits, qn, tn = _cigar_edits(g["cigar"], q, seqs[i][g["start"] : g["end"]])
+            check((edits, qn, tn) == (g["dist"], len(q), g["end"] - g["start"]),
+                  f"{label} --cigar line {i}: {g} applies as {edits} edits over {qn} and {tn} nt")
+        say(f"phase 5 approx {label}: --both --max-errors 2 kept {len(kept)} records ({wall2:.2f} s); --both "
+            f"--cigar ({wall3:.2f} s): every CIGAR applied to its window gives the line's distance")
+        if codec == "2bit":
+            rc, text, wall4, _ = _run_cli(["approx", nup, PRIMER.decode(), "--all", "--max-errors", "1"])
+            want_all = [{"record": names[k].decode(), "end": int(e), "strand": "+"}
+                        for k, ends in enumerate(_ends_np(seqs, PRIMER, 1)) for e in ends]
+            check(rc == 0 and [json.loads(line) for line in text.splitlines()] == want_all,
+                  f"2-bit approx --all --max-errors 1: exit {rc}, output != numpy DP of every end")
+            say(f"phase 5 approx 2-bit: --all --max-errors 1: {len(want_all)} ends == a numpy DP of every end "
+                f"({wall4:.2f} s)")
+        else:
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["approx", nup, PRIMER.decode(), "--all", "--max-errors", "1"])
+            check(rc == 1 and err.getvalue().startswith("error: --all is 2-bit only"),
+                  f"base-5 approx --all: exit {rc}, {err.getvalue()!r}")
+            say("phase 5 approx base-5: --all exits 1 (2-bit only)")
+
+
 # --- the bench: phase 7 -------------------------------------------------------------
 
 def phase_bench(workdir: str) -> None:
@@ -2469,12 +2910,16 @@ def phase_bench(workdir: str) -> None:
     gibs = detail["detail"]
     check(len(gibs) == BENCH_ROWS and all(v > 0 for v in gibs.values()),
           f"bench rows: {len(gibs)}, at 0: {[k for k, v in gibs.items() if not v > 0]}")
-    for row, fn in BENCH_PLANAR_ROWS.items():
+    for row, fn in {**BENCH_PLANAR_ROWS, **BENCH_ALIGN_ROWS}.items():
         check(detail["launches"].get(row, {}).get(fn, 0) > 0, f"bench row {row} launched no {fn}: "
               f"{detail['launches'].get(row)}")
+    gcups = line["champions_gibs"]["edit_distance_gcups"]
+    check(gcups is not None and gcups > 0, f"bench edit_distance_gcups {gcups}")
     say(f"phase 7 bench ({' '.join(f'{k}={v}' for k, v in BENCH_ENV.items())}): {len(gibs)} rows in {wall:.1f} s "
         f"wall; planar rows (GiB/s of nt): "
         + ", ".join(f"{row} {gibs[row]:.1f} ({detail['launches'][row]})" for row in BENCH_PLANAR_ROWS))
+    say(f"  bench align rows: " + ", ".join(f"{row} {detail['ms'][row]:.4f} ms ({gibs[row]:.1f} GiB/s)"
+                                            for row in BENCH_ALIGN_ROWS))
     say(f"  bench headline: {json.dumps(line)}")
 
 
@@ -2502,14 +2947,104 @@ def _clocks() -> str:
     return smi.stdout.strip() if smi.returncode == 0 else f"nvidia-smi failed: {smi.stderr.strip()}"
 
 
-def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, planes, card: str) -> dict:
+def _plain_once(fn) -> tuple:
+    """One call of a plain version between two CUDA events: (its output, ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _time_myers(errors: Errors, align_words, chr1_words) -> tuple:
+    """#19 at the bench's shape (the path's largest call: global mode on the
+    phase-3 pairs) in turns with its plain version on the same inputs, which
+    must agree with it, as must its semiglobal (best_match) form; on the
+    chr1-length stream as ``best_match_stream`` cuts it (a 21-nt query),
+    STREAM_CHECK_ROWS rows at each end of it held to the plain version;
+    and at a phase-2 size beside the plain version.  Each beside its bound
+    (utils.profiling.myers_ops) but the last.  Returns phase_timing's
+    tuple."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import align, kernels as K
+
+    qw, tw = align_words
+    B, wt = tw.shape
+    ql = torch.full((B,), ALIGN_QM, dtype=torch.int32, device="cuda")
+    tl = torch.full((B,), ALIGN_TN, dtype=torch.int32, device="cuda")
+    peq, flat = align.peq_from_packed(qw, ql), tw.reshape(-1)
+    nb = peq.shape[2]
+
+    def bench(fn, mode="global"):
+        return lambda: fn(peq, ql, flat, tl, wt, wt, mode=mode)
+
+    want, p1 = _plain_once(bench(K.myers_scan_plain))
+    k1 = _time_ms(bench(K.myers_scan), 10)
+    k2 = _time_ms(bench(K.myers_scan), 10)
+    _, p2 = _plain_once(bench(K.myers_scan_plain))
+    _myers_compare(errors, bench(K.myers_scan)(), want, f"#19 bench shape {B} x {ALIGN_QM} x {ALIGN_TN}, global")
+    _myers_compare(errors, bench(K.myers_scan, "semiglobal")(), bench(K.myers_scan_plain, "semiglobal")(),
+                   f"#19 bench shape {B} x {ALIGN_QM} x {ALIGN_TN}, semiglobal")
+    k_big, p_big = min(k1, k2), min(p1, p2)
+    # the bound at the bench shape: read the words, write the scores; the floor of integer instructions
+    bound_ms, bound_by = _bound(4 * (qw.numel() + tw.numel()) + 4 * B, myers_ops(B * ALIGN_TN, nb))
+    # the chr1-length stream in best_match_stream's rows (the reduction over rows left out)
+    rng = np.random.default_rng(SEED + 190)
+    speq1, m1 = align.peq_from_bytes(_myers_ascii(rng, ALIGN_STREAM_M))
+    R, wrb, H = align.stream_rows_plan(chr1_words.numel(), m1)
+    rows_tl = (CHR1_NT - 16 * wrb * torch.arange(R, device="cuda")).clamp(0, 16 * (wrb + H)).to(torch.int32)
+    speq_rows = torch.from_numpy(speq1).cuda()[None].expand(R, *speq1.shape)
+    ql1 = torch.full((R,), m1, dtype=torch.int32, device="cuda")
+    stream_args = (speq_rows, ql1, chr1_words, rows_tl, wrb, wrb + H)
+    k_stream = min(_time_ms(lambda: K.myers_scan(*stream_args, mode="semiglobal"), 5) for _ in range(2))
+    for r0 in (0, R - STREAM_CHECK_ROWS):  # the first rows, and the last (past the stream's end)
+        # the words these rows start in (the last one's halo reads zeros past them, in both versions)
+        rows = slice(r0, r0 + STREAM_CHECK_ROWS)
+        sub = (speq_rows[rows], ql1[rows], chr1_words[r0 * wrb : (r0 + STREAM_CHECK_ROWS) * wrb], rows_tl[rows],
+               wrb, wrb + H)
+        _myers_compare(errors, K.myers_scan(*sub, mode="semiglobal"), K.myers_scan_plain(*sub, mode="semiglobal"),
+                       f"#19 chr1 stream rows {r0}..{r0 + STREAM_CHECK_ROWS - 1} of {R}")
+    stream_nt = int(rows_tl.sum())
+    stream_bound, stream_by = _bound(4 * chr1_words.numel() + 8 * R,
+                                     myers_ops(stream_nt, speq1.shape[1], mode="semiglobal"))
+    say(f"  myers_scan[bench {B} x {ALIGN_QM} x {ALIGN_TN}, global]: kernel {k_big:.4f} ms "
+        f"({B * ALIGN_QM * ALIGN_TN / (k_big / 1e3) / 1e9:.1f} GCUPS); plain {p_big:.3f} ms; runs "
+        f"{k1:.4f}/{k2:.4f} vs {p1:.3f}/{p2:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{100 * bound_ms / k_big:.0f}% of it; == the plain version on every pair, global and semiglobal")
+    say(f"  myers_scan[chr1 stream, {R} rows of {wrb} + {H} words, m = {m1}]: kernel {k_stream:.4f} ms "
+        f"({stream_nt * m1 / (k_stream / 1e3) / 1e9:.1f} GCUPS); bound {stream_bound:.4f} ms ({stream_by}), "
+        f"{100 * stream_bound / k_stream:.0f}% of it; {STREAM_CHECK_ROWS} rows at each end == the plain version")
+    # a phase-2 size in turns with the plain version: ALIGN_PAIRS pairs of a 150-nt query and 700-nt texts
+    m, n = 150, 700
+    speq = torch.from_numpy(np.stack([align.peq_from_bytes(_myers_ascii(rng, m))[0] for _ in range(ALIGN_PAIRS)]))
+    small_args = (speq.cuda(), torch.full((ALIGN_PAIRS,), m, dtype=torch.int32, device="cuda"),
+                  torch.from_numpy(rng.integers(0, 2**32, ALIGN_PAIRS * 44, dtype=np.uint32)).cuda(),
+                  torch.full((ALIGN_PAIRS,), n, dtype=torch.int32, device="cuda"), 44, 44)
+    _, ps1 = _plain_once(lambda: K.myers_scan_plain(*small_args, mode="semiglobal"))
+    k_small = min(_time_ms(lambda: K.myers_scan(*small_args, mode="semiglobal"), 20) for _ in range(2))
+    _, ps2 = _plain_once(lambda: K.myers_scan_plain(*small_args, mode="semiglobal"))
+    small_case = f"{ALIGN_PAIRS} pairs, m = {m}, {n}-nt texts"
+    say(f"  myers_scan[{small_case}, semiglobal]: kernel {k_small:.4f} ms; plain {min(ps1, ps2):.3f} ms; runs "
+        f"{ps1:.3f}/{ps2:.3f} ms")
+    return k_big, p_big, bound_ms, bound_by, None, {f"[bench {B} x {ALIGN_QM} x {ALIGN_TN}]": k_big,
+                                                     f"[chr1 stream, m = {m1}]": k_stream, f"[{small_case}]": k_small}
+
+
+def phase_timing(errors: Errors, x, words, x5, words5, chr1_words, chr1_pairs, planes, align_words,
+                 card: str) -> dict:
     """Each kernel and its plain version at its path's shapes, in turns
     (plain, kernel, kernel, plain), with its bound from those shapes and,
     for the histogram and the sort, the one PyTorch call that computes the
     same function (torch.bincount, torch.sort of the int64 key).  Returns
     {name: (ms, plain ms, bound ms, bound by, library ms or None, {case:
     ms})}: the numbers of the first (the path's) variant, then the kernel
-    time of every case."""
+    time of every case.  #19's timing also holds it to its plain version at
+    the path's two largest shapes (into ``errors``)."""
     import torch
 
     from cute_nucleotides_tpu_torch.ops import kernels as K, kmer, search
@@ -2681,6 +3216,7 @@ def phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, planes, card: str
                 + (f"; library call {lib_ms:.4f} ms" if lib_ms is not None else ""))
             times.setdefault(name, (k_ms, p_ms, bound_ms, bound_by, lib_ms, {}))  # the default variant is first
             times[name][5][suffix] = k_ms
+    times["myers_scan"] = _time_myers(errors, align_words, chr1_words)
     say(f"  clocks after timing: {_clocks()}")
     return times
 
@@ -2705,6 +3241,9 @@ def main() -> int:
         phase_kernels_sketch(errors, rng)
         phase_kernels_seqops(errors, rng)
         phase_kernels_planar(errors, rng)
+        # the align path draws from its own seed, so the earlier paths' data stay as they were
+        align_rng = np.random.default_rng(SEED + 19)
+        phase_kernels_align(errors, align_rng)
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
         # each path (2-bit, base-5, search, k-mer, sketch, seqops, sort, planar) runs
         # with the counts set to 0 just before it and read just after; each
@@ -2766,6 +3305,13 @@ def main() -> int:
             torch.cuda.synchronize()
             launches["planar"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
             say(f"phase 6 launches by the planar path (phase 3): {launches['planar']}")
+            K.reset_launch_counts()
+            align_words = phase_align_batch(align_rng)
+            phase_align_stream(align_rng, chr1_words)
+            phase_approx(align_rng, workdir, reads2, reads5)
+            torch.cuda.synchronize()
+            launches["align"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+            say(f"phase 6 launches by the align path (phases 3-5): {launches['align']}")
             own = {k: launches[PATH_OF[k]][k] for k in REPLACES}
             check(all(n > 0 for n in own.values()), f"a kernel of its path never launched: {own}")
             K.reset_launch_counts()
@@ -2776,15 +3322,16 @@ def main() -> int:
             check(all(launches["stream"][k] > 0 for k in STREAM_KERNELS),
                   f"a kernel of the stream path never launched: {launches['stream']}")
             torch.cuda.empty_cache()
-            times = phase_timing(x, words, x5, words5, chr1_words, chr1_pairs, planes, card)
+            times = phase_timing(errors, x, words, x5, words5, chr1_words, chr1_pairs, planes, align_words, card)
             kernels_line = json.dumps({"kernels": [
                 {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
                  "launches": own[k], "max_abs_err": errors.max[k], "ms": times[k][0], "plain_ms": times[k][1],
                  "bound_ms": times[k][2], "bound_by": times[k][3], "library_ms": times[k][4],
-                 **({"ms_by_case": times[k][5]} if len(times[k][5]) > 1 else {})}
+                 **({"ms_by_case": times[k][5]} if len(times[k][5]) > 1 else {}),
+                 **({"note": NOT_PALLAS[k]} if k in NOT_PALLAS else {})}
                 for k in REPLACES
             ]})
-            del x, words, x5, words5, chr1_words, chr1_pairs, planes
+            del x, words, x5, words5, chr1_words, chr1_pairs, planes, align_words
             torch.cuda.empty_cache()
             phase_bench(workdir)
         say(kernels_line)

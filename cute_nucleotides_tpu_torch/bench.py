@@ -8,8 +8,7 @@ the row count), base-5 rows of 3456 nt, the torch-tier twins at 1/8 of it,
 all made from ``np.random.default_rng(0xC0DEC)``.  Every row keeps its
 reference name with the tier swapped (``pallas`` -> ``cuda``, ``xla`` ->
 ``torch``), its denominator (ASCII nt, or the reference's bytes) and its
-byte model.  Rows whose functions the port does not have yet (distance,
-alignment) are left out.
+byte model: all 51 rows, the three stream rows among them.
 
 Timing: CUDA events on the current stream.  Each row makes one warm-up
 call, then ``TRIALS`` runs of k calls between two events (k is the
@@ -35,7 +34,12 @@ rate.
 
 Each row's bound is :class:`.utils.profiling.Roofline` at the card's peaks;
 ``sort`` rows (the reference's tag) and rows bound by integer work that the
-port does not count (``operations``) get no share.  Each row's launches of
+port does not count (``operations``) get no share.  The Myers rows count the
+least integer instructions kernel #19 needs for the text nt they scan
+(:func:`.utils.profiling.myers_ops`), and their GiB/s column reads Gcells/s
+(DP cells, the reference's denominators; the headline's
+``edit_distance_gcups``); the all-pairs rows count int8 tensor-core
+operations.  Each row's launches of
 every kernel wrapper are counted around it.
 
 Output: one line per row and the summary on stderr; a detail file
@@ -68,7 +72,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .ops import _build, eager, kernels as K, kmer, native, search, seqops, sketch, spec
+from .ops import _build, align, distance, eager, kernels as K, kmer, native, search, seqops, sketch, spec
 from .utils import profiling
 from .utils.profiling import Roofline
 
@@ -83,6 +87,7 @@ TRIALS = 3
 KMER_K = 8
 #: calls per timed run: the reference's k_hi - k_lo per row
 K_CORE, K_SLOW, K_SORT = 32, 16, 6
+K_PAIRWISE, K_ALIGN = 8, 6
 SECTIONS = ("core", "torch", "packed", "stream", "host")
 #: the stream rows' workload (reference bench.py:544-558): reads of 2048 nt
 #: in batches of 4096, the median of 3 timed runs
@@ -264,6 +269,7 @@ def build_rows(device, *, scale: int = 1, full: bool = False) -> list[Row]:
         R(4 * n5, 4 * gc_rows, 3 * 9 * (n5 // 2)))
     row("revcomp_packed_b5", "packed", lambda: seqops.revcomp_packed_b5(w_b5, (n5 // 2) * 27 - 5), (n5 // 2) * 27,
         R(4 * n5, 4 * n5), bound_override="operations")
+    out.extend(_distance_align_rows(device, x, packed, words_flat))
 
     # --- host: the C++ oracle ----------------------------------------------------
     if native.available():
@@ -272,7 +278,62 @@ def build_rows(device, *, scale: int = 1, full: bool = False) -> list[Row]:
         row("host_memcpy", "host", lambda: native.memcpy(hb), hb.size)
         row("host_oracle_encode", "host", lambda: native.n_to_bits(hb), hb.size)
         row("host_oracle_decode", "host", lambda: native.bits_to_n(hw, hb.size), hb.size)
+        # the host Myers scan (one thread, u64 blocks): DP cells, the
+        # comparator of the device GCUPS rows
+        hm_q, hm_t = bytes(host_u8[0, :128]), bytes(hb[: 1 << 20])
+        row("host_myers_m128", "host", lambda: native.best_match(hm_q, hm_t), len(hm_q) * len(hm_t))
     return out
+
+
+#: the Myers rows' shapes (reference bench.py:1056-1093): pairs of a 128-nt
+#: query and a 2048-nt text, and a 21-nt query over the first 4 Mi words
+ALIGN_B, ALIGN_M, ALIGN_N = 8192, 128, 2048
+APPROX_QUERY, APPROX_WORDS = b"GATTACAGATTACAGATTACA", 4 << 20
+
+
+def stream_chars(length: int, plan: tuple[int, int, int]) -> int:
+    """Text nt the stream scan's rows read: row r scans from nt 16 wrb r to
+    the stream's end, at most its 16 (wrb + H) nt."""
+    R, wrb, H = plan
+    return sum(min(max(length - 16 * wrb * r, 0), 16 * (wrb + H)) for r in range(R))
+
+
+def _distance_align_rows(device, x, packed, words_flat) -> list[Row]:
+    """The distance and Myers rows, in the reference's order: Hamming on
+    packed words, all-pairs on 4096 reads (bytes, then words), batched edit
+    distance (kernel #19) and the one-stream approximate search."""
+    R = Roofline
+    rows = x.shape[0]
+    wa = packed.view(torch.uint32)  # u32[rows, 512]
+    wa_rolled = torch.roll(wa.view(torch.int32), 1, 0).view(torch.uint32)
+    ph_b = min(4096, rows)  # all-pairs rows: at most 4096 reads
+    pair_ops = 2 * ph_b * ph_b * 4 * NT_PER_ROW  # int8 multiply-adds of the one-hot products, two ops each
+    al_b = min(ALIGN_B, rows)
+    al_q, al_t = wa[:al_b, : ALIGN_M // 16].contiguous(), wa[:al_b, : ALIGN_N // 16].contiguous()
+    al_ql = torch.full((al_b,), ALIGN_M, dtype=torch.int32, device=device)
+    al_tl = torch.full((al_b,), ALIGN_N, dtype=torch.int32, device=device)
+    ap_peq, ap_m = align.peq_from_bytes(APPROX_QUERY)
+    ap_peq_dev = torch.from_numpy(ap_peq).to(device)
+    ap_w = words_flat[: min(words_flat.numel(), APPROX_WORDS)]
+    ap_plan = align.stream_rows_plan(ap_w.numel(), ap_m)
+    al_ops = profiling.myers_ops(al_b * ALIGN_N, ALIGN_M // 32)
+    ap_ops = profiling.myers_ops(stream_chars(16 * ap_w.numel(), ap_plan), ap_peq.shape[1], mode="semiglobal")
+    wph = wa[:ph_b]
+    return [
+        Row("hamming_packed", "packed", lambda: distance.hamming_packed(wa, wa_rolled), 16 * wa.numel(),
+            R(8 * wa.numel(), 4 * rows)),
+        Row("pairwise_hamming_4096", "packed", lambda: distance.pairwise_hamming(x[:ph_b]), ph_b * NT_PER_ROW,
+            R(ph_b * NT_PER_ROW, 4 * ph_b * ph_b, tensor_ops=pair_ops), K_PAIRWISE),
+        Row("edit_distance_m128_n2048", "packed", lambda: align.edit_distance_packed(al_q, al_ql, al_t, al_tl),
+            al_b * ALIGN_M * ALIGN_N,
+            R(4 * (al_q.numel() + al_t.numel()), 4 * al_b, al_ops), K_ALIGN),
+        Row("approx_stream_m21", "packed",
+            lambda: torch.stack(align._best_match_stream_impl(ap_peq_dev, ap_w, 16 * ap_w.numel(), ap_m, ap_plan)),
+            16 * ap_w.numel() * ap_m,
+            R(4 * ap_w.numel(), 8, ap_ops), K_ALIGN),
+        Row("pairwise_hamming_packed_4096", "packed", lambda: distance.pairwise_hamming_packed(wph),
+            ph_b * NT_PER_ROW, R(4 * wph.numel(), 4 * ph_b * ph_b, tensor_ops=pair_ops), K_PAIRWISE),
+    ]
 
 
 # --- timing ---------------------------------------------------------------------

@@ -1,11 +1,11 @@
 """Command-line interface of the port: encode / decode / parity / region /
-grep / translate / dedup / stats / sketch / bench.
+grep / approx / translate / dedup / stats / sketch / bench.
 
-Counterpart of those commands of ``cute_nucleotides_tpu/cli.py`` (all of
-its commands but ``approx``); it reads and writes the same
+Counterpart of the commands of ``cute_nucleotides_tpu/cli.py`` (all 11 of
+them); it reads and writes the same
 ``.nup`` container (:mod:`.nup`), so files are byte-identical between the
-two packages, and ``region``, ``grep``, ``translate``, ``dedup``, ``stats``
-and ``sketch`` print the same bytes::
+two packages, and ``region``, ``grep``, ``approx``, ``translate``,
+``dedup``, ``stats`` and ``sketch`` print the same bytes::
 
     python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --batch 8192 --validate
     python -m cute_nucleotides_tpu_torch encode reads.fq out.nup --codec base5 --batch 8192 --validate
@@ -13,6 +13,7 @@ and ``sketch`` print the same bytes::
     python -m cute_nucleotides_tpu_torch parity --tiers torch,auto
     python -m cute_nucleotides_tpu_torch region chr.nup chr1:1000-2000 chr2:0-500 -o win.fa
     python -m cute_nucleotides_tpu_torch grep out.nup GATTACA --both
+    python -m cute_nucleotides_tpu_torch approx out.nup GTTCAGAGTTCTACAGTCCG --both --max-errors 2 --cigar
     python -m cute_nucleotides_tpu_torch translate out.nup prot.fa --frames all
     python -m cute_nucleotides_tpu_torch dedup out.nup unique.nup
     python -m cute_nucleotides_tpu_torch stats chr1.fa -k 21 --canonical --top 10
@@ -22,9 +23,10 @@ and ``sketch`` print the same bytes::
 ``--batch N`` is the production path: batches of N reads as resident
 tensors through :class:`.models.TwoBitCodec` or :class:`.models.Base5Codec`.
 Without it each record goes through :mod:`.api` on its own.  The codec of
-``decode``, ``region``, ``grep``, ``translate`` and ``dedup`` is the one the
-``.nup`` names; ``grep``, ``translate``, ``dedup``, ``stats`` and ``sketch``
-work on the card when there is one (the ``auto`` tier's device), and
+``decode``, ``region``, ``grep``, ``approx``, ``translate`` and ``dedup`` is
+the one the ``.nup`` names; ``grep``, ``approx``, ``translate``, ``dedup``,
+``stats`` and ``sketch`` work on the card when there is one (the ``auto``
+tier's device), and
 ``region`` on its ``--tier``'s device.  ``bench`` (:mod:`.bench`) measures
 the card, and without CUDA it refuses to run.
 
@@ -358,6 +360,130 @@ def cmd_grep(args) -> int:
         else:
             _print_hits(name, sorted(hits))
     return 0 if total or args.count else 1
+
+
+def _approx_refusal(args, is_b5: bool) -> str | None:
+    """The reference's error line for a flag combination ``approx`` refuses."""
+    if not args.all:
+        return None
+    if args.max_errors < 0:
+        return "--all requires --max-errors"
+    if args.cigar:
+        return ("--all and --cigar are mutually exclusive (the all-ends scan has no single match to trace "
+                "back)")
+    if is_b5:
+        return "--all is 2-bit only (the base-5 scan does not emit per-position scores)"
+    return None
+
+
+def _approx_cigars(lines: list, is_b5: bool) -> None:
+    """Add the match start and SAM CIGAR to each ``(line, query, words)``:
+    a host DP on the <= 2m - 1 nt window ending at the reported end
+    (forward-strand coordinates for either strand, the SAM convention), one
+    batched DP for all of them."""
+    from .ops import align, native, oracle, spec
+
+    nt_w = spec.NT_PER_WORD_B5 if is_b5 else spec.NT_PER_WORD_2BIT
+    # the reference decodes with its numpy oracle; the C++ one writes the same
+    # 2-bit bytes, but a corrupt base-5 word decodes differently there
+    decode = oracle.bits_to_n2_lut if is_b5 else native.bits_to_n
+    pairs, offsets = [], []
+    for line, qb, words in lines:
+        end = line["end"]
+        e_lo = max(0, end - (2 * len(qb) - 1))
+        a = (e_lo // nt_w) * nt_w
+        pairs.append((qb, bytes(decode(np.ascontiguousarray(words[a // nt_w :]), end - a))[e_lo - a :]))
+        offsets.append(e_lo)
+    for (line, _, _), e_lo, (_, start, _, cigar) in zip(lines, offsets, align.semiglobal_tracebacks(pairs, is_b5)):
+        line["start"] = e_lo + start
+        line["cigar"] = cigar
+
+
+def cmd_approx(args) -> int:
+    """Best approximate occurrence of a pattern in every record of a .nup:
+    the Myers scan on the packed words (kernel #19 on the card, no decode).
+    2-bit: ``N`` in the pattern matches any base; base-5: ``N`` is a literal
+    and ``?`` the wildcard.  One JSON line per record (edit distance, end,
+    strand; the better strand with ``--both``); ``--max-errors E`` keeps the
+    records within E (exit 1 when none), ``--all`` prints every end within
+    E (2-bit), ``--cigar`` adds the start and a CIGAR."""
+    import torch
+
+    from . import interop
+    from .models import resolve_device
+    from .ops import align, spec
+
+    codec, entries = read_nup(args.input)
+    is_b5 = codec != "2bit"
+    refusal = _approx_refusal(args, is_b5)
+    if refusal:
+        print(f"error: {refusal}", file=sys.stderr)
+        return 1
+    compile_q = align.peq_from_bytes_b5 if is_b5 else align.peq_from_bytes
+    best_peq = align.best_match_peq_b5 if is_b5 else align.best_match_peq
+    raw = args.pattern.encode()
+    try:
+        strands = [(compile_q(raw), "+", raw)]
+        if args.both:
+            rc = _revcomp_pattern(raw, is_b5)
+            if rc != raw.upper().replace(b"U", b"T"):
+                strands.append((compile_q(rc), "-", rc))
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    qbytes_by_strand = {strand: qb for _, strand, qb in strands}
+    device = resolve_device("auto")
+    chunk = max(args.batch, 1)
+    # one Peq per strand, broadcast to the batch (stride 0, no copy)
+    dev_strands = [(interop.to_tensor(peq, device)[None].expand(chunk, *peq.shape),
+                    torch.full((chunk,), m, dtype=torch.int32, device=device), strand)
+                   for (peq, m), strand, _ in strands]
+    words_for = spec.num_words_b5 if is_b5 else spec.num_words_2bit
+    shown = 0
+    for lo in range(0, len(entries), chunk):
+        part = entries[lo : lo + chunk]
+        lens = np.array([length for _, length, _ in part], np.int64)
+        # the u32 row width: the next power of two (even, >= 2), as the reference buckets it
+        need = max(2, int(2 * words_for(int(lens.max(initial=1)))))
+        width = 2
+        while width < need:
+            width *= 2
+        mat = np.zeros((chunk, width), np.uint32)
+        for i, (_, _, words) in enumerate(part):
+            mat[i, : 2 * len(words)] = spec.u64_to_u32_pairs(np.ascontiguousarray(words)).reshape(-1)
+        tl = np.zeros(chunk, np.int32)
+        tl[: len(part)] = lens
+        tw_dev, tl_dev = interop.to_tensor(mat, device), interop.to_tensor(tl, device)
+        if args.all:
+            errs = torch.full((chunk,), args.max_errors, dtype=torch.int32, device=device)
+            for peq_dev, ql_dev, strand in dev_strands:
+                ends = interop.to_numpy(align.match_ends_peq(peq_dev, ql_dev, tw_dev, tl_dev, errs))
+                for i, (name, _, _) in enumerate(part):
+                    rec = name.decode(errors="replace")
+                    for j in np.nonzero(ends[i])[0]:
+                        shown += 1
+                        print(json.dumps({"record": rec, "end": int(j) + 1, "strand": strand}))
+            continue
+        results = [(*(interop.to_numpy(x) for x in best_peq(peq_dev, ql_dev, tw_dev, tl_dev)), strand)
+                   for peq_dev, ql_dev, strand in dev_strands]
+        lines, traced = [], []
+        for i, (name, _, words) in enumerate(part):
+            best = None
+            for d, e, strand in results:
+                if best is None or int(d[i]) < best[0]:
+                    best = (int(d[i]), int(e[i]), strand)
+            dist, end, strand = best
+            if 0 <= args.max_errors < dist:
+                continue
+            line = {"record": name.decode(errors="replace"), "dist": dist, "end": end, "strand": strand}
+            lines.append(line)
+            if args.cigar and end > 0:
+                traced.append((line, qbytes_by_strand[strand], words))
+        _approx_cigars(traced, is_b5)
+        for line in lines:
+            print(json.dumps(line))
+        shown += len(lines)
+    return 1 if args.max_errors >= 0 and shown == 0 else 0
 
 
 def cmd_stats(args) -> int:
@@ -802,6 +928,22 @@ def main(argv=None) -> int:
     pg.add_argument("--batch", type=int, default=0, metavar="N",
                     help="scan N records per device call (fixed-shape batches)")
     pg.set_defaults(fn=cmd_grep)
+
+    pa = sub.add_parser("approx", help="best approximate occurrence of a query per record (Myers bit-parallel "
+                        "edit distance on packed words; N in query = any)")
+    pa.add_argument("input", help=".nup container (either codec)")
+    pa.add_argument("pattern", help="query (2-bit: N = any base; base-5: N literal, ? = any)")
+    pa.add_argument("--both", action="store_true", help="also align the reverse strand; report each record's best")
+    pa.add_argument("--max-errors", type=int, default=-1, metavar="E",
+                    help="only report records with edit distance <= E (exit 1 if none)")
+    pa.add_argument("--all", action="store_true",
+                    help="report EVERY end position within --max-errors, not just each record's best (2-bit "
+                    "containers)")
+    pa.add_argument("--cigar", action="store_true",
+                    help="add match start + SAM CIGAR (host DP on the <= 2m-1 nt window around each reported "
+                    "end; reverse-strand hits stay in forward coordinates)")
+    pa.add_argument("--batch", type=int, default=128, metavar="N", help="records per device call (fixed-shape batches)")
+    pa.set_defaults(fn=cmd_approx)
 
     pt = sub.add_parser("translate", help="translate .nup records to protein FASTA (packed-domain codons)")
     pt.add_argument("input")

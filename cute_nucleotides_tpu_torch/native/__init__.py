@@ -45,6 +45,9 @@ _SIGNATURES = {
     "cutenuc_memcpy": ([_u8p, _size, _u8p], None),
     "cutenuc_depad_nt4": ([_u8p, _size, _u8p], None),
     "cutenuc_fastq_scan": ([_u8p, _size, _i64p, _i64p, _size, _i64p], ctypes.c_longlong),
+    "cutenuc_edit_distance": ([_u8p, _size, _u8p, _size], ctypes.c_longlong),
+    "cutenuc_best_match": ([_u8p, _size, _u8p, _size, _i64p, _i64p], None),
+    "cutenuc_prefix_match": ([_u8p, _size, _u8p, _size, _i64p, _i64p], None),
 }
 
 

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "cn_minimizer_bits": [_vp, _i64, _i64, _int, _int, _int, _vp, _vp],
     "cn_gc_b5": [_vp, _i64, _vp, _vp],
     "cn_sort_pairs_radix": [_vp, _vp, _vp, _vp, _vp, _i64, _vp, _vp, _i64, _vp],
+    "cn_myers": [_vp, _i64, _int, _vp, _vp, _i64, _i64, _i64, _vp, _vp, _int, _int, _i64, _vp, _vp, _vp, _vp, _vp,
+                 _vp],
 }
 
 

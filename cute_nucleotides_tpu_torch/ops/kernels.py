@@ -1,7 +1,7 @@
 """The ``cuda`` tier: wrappers of the hand-written Hopper kernels in
 ``csrc/codec2bit.cu``, ``csrc/codec_b5.cu``, ``csrc/search.cu``,
-``csrc/kmer.cu``, ``csrc/sketch.cu``, ``csrc/seqops.cu`` and
-``csrc/sort.cu``, each beside its plain PyTorch version.
+``csrc/kmer.cu``, ``csrc/sketch.cu``, ``csrc/seqops.cu``, ``csrc/sort.cu``
+and ``csrc/align.cu``, each beside its plain PyTorch version.
 
 A wrapper runs its plain version only for a tensor on the CPU; for a CUDA
 tensor it launches its kernel (building the library on first use) or raises.
@@ -34,7 +34,9 @@ The sketch kernels take a flat 2-bit stream: the planar k-mer hashes for
 the packed (w, k)-minimizer bits for k <= 15 (u32[ceil(n/16)]).
 
 The base-5 GC kernel takes a flat base-5 stream and returns one int32; the
-pair sort takes two u32[n] key planes and returns them sorted.
+pair sort takes two u32[n] key planes and returns them sorted.  The Myers
+scan takes query bitmasks (Peq) and text rows cut from one flat packed
+stream of either codec, and returns scores, best ends or an ends mask.
 
 Every codec kernel is bound by device memory: the 2-bit encoders read 4
 bytes and write 1 per 4 nt, the decoder the reverse (5 bytes moved per 4
@@ -46,7 +48,8 @@ reading the codes, the hash kernel by its writes (4 B per position).  The
 minimizer kernel reads and writes little and is bound by its integer work
 (a hash and 2 floor(log2 w) + 2 doubling passes per position).  The GC
 kernel is bound by reading its stream, the radix sort by its passes over
-the keys.  Times on the H100 beside the plain versions' are in PERF.md.
+the keys, the Myers scan by its integer work (about 40 instructions per
+32-row block and text nt).  Times on the H100 beside the plain versions' are in PERF.md.
 """
 
 from __future__ import annotations
@@ -1311,11 +1314,230 @@ def sort_pairs_bitonic(hi: torch.Tensor, lo: torch.Tensor) -> tuple[torch.Tensor
 
 sort_pairs_bitonic.launches = 0
 
+# --- kernel #19: the Myers bit-vector scan ---------------------------------------
+
+#: the scan's modes, as csrc/align.cu numbers them
+MYERS_MODES = {"global": 0, "semiglobal": 1, "prefix": 2, "ends": 3}
+#: query rows per Peq block
+MYERS_BLOCK = 32
+#: the largest Peq block count held in registers (longer queries keep PV
+#: and MV in a global scratch)
+MYERS_REG_BLOCKS = 8
+#: text positions whose Eq the plain version gathers at once
+_MYERS_PLAIN_SPAN = 256
+
+
+def overlap_rows(flat: torch.Tensor, R: int, wrb: int, H: int) -> torch.Tensor:
+    """Overlapping row panels u32[R, wrb + H] of a flat stream: row ``r`` is
+    ``flat[r*wrb : r*wrb + wrb + H]``, zeros past the stream.  The reference's
+    ``_overlap_rows`` (``ops/align.py:706``): no gather, and a halo that spans
+    more rows than exist takes an all-``R`` zero block."""
+    flat = flat.view(torch.int32).reshape(-1)  # zeros and copies on the int32 view: the card's uint32 has few ops
+    pad = R * wrb - flat.numel()
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    b = flat.reshape(R, wrb)
+    parts = [b]
+    h, k = H, 1
+    while h > 0:  # a halo wider than a row spans successive successors
+        take = min(wrb, h)
+        parts.append(torch.cat([b[k:, :take], b.new_zeros(min(k, R), take)]))
+        h -= take
+        k += 1
+    return torch.cat(parts, 1).view(torch.uint32)
+
+
+def text_codes(rows: torch.Tensor, b5: bool) -> torch.Tensor:
+    """Text rows u32[R, L] -> int64 codes [R, n]: 2-bit, 16 codes a u32
+    (LSB first); base-5, 27 digits a u32 pair (9 triplets of 7 bits, each
+    split by t * 205 >> 10 and t * 41 >> 10, so a corrupt triplet's high
+    digit is 5)."""
+    R, L = rows.shape
+    if not b5:
+        w = eager.u32_to_i64(rows)
+        return ((w[..., None] >> (2 * torch.arange(16, device=w.device))) & 3).reshape(R, 16 * L)
+    t = (seqops._b5_words(rows)[..., None] >> (7 * torch.arange(9, device=rows.device))) & 0x7F
+    return torch.stack(seqops._b5_digits(t), -1).reshape(R, 27 * (L // 2))
+
+
+def _check_myers(peq, qlens, words, tlens, row_stride: int, row_len: int, mode: str, b5: bool,
+                 max_errors) -> tuple[int, int, int]:
+    if mode not in MYERS_MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {tuple(MYERS_MODES)}")
+    if peq.dtype != torch.uint32 or peq.ndim != 3:
+        raise TypeError(f"expected Peq u32[R, A, NB], got {peq.dtype}{tuple(peq.shape)}")
+    R, A, nb = peq.shape
+    if A != (5 if b5 else 4):
+        raise ValueError(f"expected {5 if b5 else 4} Peq planes, got {A}")
+    if mode == "ends" and b5:
+        raise ValueError("the base-5 scan has no ends mode")
+    lens = (("qlens", qlens), ("tlens", tlens)) + ((("max_errors", max_errors),) if mode == "ends" else ())
+    for name, t in lens:
+        if t is None or t.dtype != torch.int32 or tuple(t.shape) != (R,):
+            raise TypeError(f"expected {name} i32[{R}], got {None if t is None else (t.dtype, tuple(t.shape))}")
+    if words.dtype != torch.uint32 or words.ndim != 1:
+        raise TypeError(f"expected a flat u32 text stream, got {words.dtype}{tuple(words.shape)}")
+    if b5 and (row_stride % 2 or row_len % 2):
+        raise ValueError("base-5 text rows must hold whole u32 pairs")
+    if not 0 <= row_stride <= row_len or R * row_stride < words.numel():
+        raise ValueError(f"{R} rows of {row_len} u32 every {row_stride} do not cover {words.numel()} u32")
+    return R, A, nb
+
+
+def myers_scan_plain(peq, qlens, words, tlens, row_stride: int, row_len: int, *, mode: str, b5: bool = False,
+                     max_errors=None):
+    """Plain version of :func:`myers_scan`: the reference's char step
+    (``ops/align.py:_scan_setup``) over (R,) vectors on int64 lanes, masked
+    to 32 bits after each operation, one text position at a time, every
+    row's state frozen past its ``tlens`` -- a few dozen tensor operations a
+    position.  The rows come from :func:`overlap_rows`, Eq is a gather of
+    the code's plane (digit 5 takes plane 0)."""
+    R, A, nb = _check_myers(peq, qlens, words, tlens, row_stride, row_len, mode, b5, max_errors)
+    dev, M = words.device, eager.U32
+    codes = text_codes(overlap_rows(words, R, row_stride, row_len - row_stride), b5)
+    codes = torch.where(codes < A, codes, 0)  # a corrupt base-5 digit 5 selects plane 0
+    P = eager.u32_to_i64(peq)
+    ql, tl = qlens.to(torch.int64), tlens.to(torch.int64)
+    m1 = ql.clamp(min=1) - 1
+    # the score reads bit m1 % 32 of block m1 // 32 (no block when the query outruns them)
+    hmask = torch.where(torch.arange(nb, device=dev) == (m1 // MYERS_BLOCK)[:, None], 1 << (m1 % MYERS_BLOCK)[:, None], 0)
+    pv = torch.full((R, nb), M, dtype=torch.int64, device=dev)
+    mv = torch.zeros_like(pv)
+    score, best = ql.clone(), ql.clone()
+    best_end = torch.zeros_like(ql)
+    phin0 = torch.full((R, 1), 0 if mode in ("semiglobal", "ends") else 1, dtype=torch.int64, device=dev)
+    track, emit = mode in ("semiglobal", "prefix"), mode == "ends"
+    rows = torch.arange(R, device=dev)[:, None]
+    cols = []
+    n = min(codes.shape[1], max(int(tl.max()), 0) if R else 0)
+    for j0 in range(0, n, _MYERS_PLAIN_SPAN):  # Eq and validity a span of positions at a time
+        eqs = P[rows, codes[:, j0 : j0 + _MYERS_PLAIN_SPAN]]  # (R, span, NB)
+        valids = (j0 + torch.arange(eqs.shape[1], device=dev)) < tl[:, None]
+        for k in range(eqs.shape[1]):
+            e, valid, j = eqs[:, k], valids[:, k], j0 + k
+            a = e & pv
+            if nb == 1:
+                s = (a + pv) & M
+            else:
+                s = torch.empty_like(a)
+                cin = 0
+                for b in range(nb):  # the adder's carry runs up the blocks
+                    t = a[:, b] + pv[:, b] + cin
+                    s[:, b], cin = t & M, t >> 32
+            xv = e | mv
+            xh = (s ^ pv) | e
+            ph = mv | (~(xh | pv) & M)
+            mh = pv & xh
+            new_score = score + ((ph & hmask) != 0).sum(1) - ((mh & hmask) != 0).sum(1)
+            ps = ((ph << 1) & M) | torch.cat([phin0, ph[:, :-1] >> 31], 1)
+            ms = ((mh << 1) & M) | torch.cat([torch.zeros_like(phin0), mh[:, :-1] >> 31], 1)
+            pv = torch.where(valid[:, None], ms | (~(xv | ps) & M), pv)
+            mv = torch.where(valid[:, None], ps & xv, mv)
+            score = torch.where(valid, new_score, score)
+            if track:
+                better = valid & (score < best)
+                best = torch.where(better, score, best)
+                best_end = torch.where(better, j + 1, best_end)
+            if emit:
+                cols.append(valid & (score <= max_errors))
+    if emit:
+        out = torch.zeros((R, 16 * row_len), dtype=torch.bool, device=dev)
+        if cols:
+            out[:, : len(cols)] = torch.stack(cols, 1)
+        return out
+    if mode == "global":
+        return score.to(torch.int32)
+    return best.to(torch.int32), best_end.to(torch.int32)
+
+
+def _myers_on_cuda(peq: torch.Tensor, *rest: torch.Tensor) -> bool:
+    """False when every input lies on the CPU; True when all lie on one
+    CUDA device in a layout the kernel reads: Peq's planes contiguous per
+    row (any row stride, 0 for one query broadcast by ``expand``), the rest
+    contiguous.  Raises for anything else; nothing is copied."""
+    dev = peq.device
+    if any(t.device != dev for t in rest):
+        raise ValueError(f"inputs on {sorted({str(t.device) for t in (peq, *rest)})}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    _, A, nb = peq.shape
+    if (nb > 1 and peq.stride(2) != 1) or (A > 1 and peq.stride(1) != nb) or peq.stride(0) < 0:
+        raise ValueError(f"Peq planes must be contiguous per row, got strides {peq.stride()}")
+    for t in rest:
+        if not t.is_contiguous():
+            raise ValueError("kernel input must be contiguous")
+    return True
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def myers_scan(peq, qlens, words, tlens, row_stride: int, row_len: int, *, mode: str, b5: bool = False,
+               max_errors=None):
+    """Myers bit-vector scan of R (query, text) pairs.  Row r's query is
+    ``peq[r]`` (u32[A, NB]: bit i of block i // 32 of plane c is set where
+    query nt i matches code c; A = 4 codes, or 5 digits with ``b5``) of
+    length ``qlens[r]``; its text is ``row_len`` u32 from u32 ``r *
+    row_stride`` of the flat stream ``words`` (zeros past its end: 16 2-bit
+    codes a u32, or 27 base-5 digits a u32 pair), of which the first
+    ``tlens[r]`` nt count.  Returns, by ``mode``:
+
+    * ``"global"``: the score D[m][n] (row 0's input +1), i32[R];
+    * ``"semiglobal"``: (best, first end) over end positions with row 0's
+      input 0, i32[R] each; ``"prefix"``: the same with input +1;
+    * ``"ends"`` (2-bit): bool[R, 16 row_len], position j set where j <
+      tlens[r] and the semiglobal score ending at j + 1 is <= max_errors[r].
+
+    A batch u32[R, Wt] is ``words = twords.view(-1)``, ``row_stride =
+    row_len = Wt``; a long stream in rows with a halo is ``row_stride =
+    wrb``, ``row_len = wrb + H``.
+
+    Replaces the word scans of ``cute_nucleotides_tpu/ops/align.py``
+    (``_myers_scan_words`` :336, ``_myers_scan_words_b5`` :385), which are
+    ``lax.scan`` loops and not Pallas kernels.  One pair per thread, PV and
+    MV in registers for queries up to 256 nt (longer ones in a global
+    scratch), the text decoded in the thread, Eq an A-way select, each row
+    stopped at its own text length.  Bound by integer issue: at least 11
+    NB + 5 to 8 instructions per text nt (``utils.profiling.myers_ops``).
+    Time on the H100: PERF.md.
+    """
+    R, A, nb = _check_myers(peq, qlens, words, tlens, row_stride, row_len, mode, b5, max_errors)
+    rest = (qlens, words, tlens) + ((max_errors,) if mode == "ends" else ())
+    if not _myers_on_cuda(peq, *rest):
+        return myers_scan_plain(peq, qlens, words, tlens, row_stride, row_len, mode=mode, b5=b5,
+                                max_errors=max_errors)
+    dev = words.device
+    score = best = best_end = ends = scratch = None
+    if mode == "global":
+        score = torch.empty(R, dtype=torch.int32, device=dev)
+    elif mode == "ends":
+        ends = torch.zeros((R, 16 * row_len), dtype=torch.bool, device=dev)
+    else:
+        best, best_end = torch.empty(R, dtype=torch.int32, device=dev), torch.empty(R, dtype=torch.int32, device=dev)
+    if nb > MYERS_REG_BLOCKS:
+        scratch = torch.empty(2 * nb * R, dtype=torch.uint32, device=dev)
+    if R:
+        lib = _build.load()
+        with torch.cuda.device(dev):
+            _launch(lib.cn_myers, peq.data_ptr(), peq.stride(0), nb, qlens.data_ptr(), words.data_ptr(),
+                    words.numel(), row_stride, row_len, tlens.data_ptr(), _ptr(max_errors), MYERS_MODES[mode],
+                    int(b5), R, _ptr(score), _ptr(best), _ptr(best_end), _ptr(ends), _ptr(scratch), _stream(words))
+        myers_scan.launches += 1
+    if mode == "global":
+        return score
+    return ends if mode == "ends" else (best, best_end)
+
+
+myers_scan.launches = 0
+
 WRAPPERS = (encode_2bit_nt4, decode_2bit_nt4, encode_2bit_nt4_checked, encode_2bit_nt4_mxu,
             encode_b5_stream, decode_b5_stream, match_bits_stream, match_b5_bits_stream,
             kmer_codes_planar, kmer_codes_planar_pair, hist_codes, kmer_hashes_planar_pair,
             minimizer_bits_stream, gc_b5_stream, sort_pairs_bitonic, encode_b5_planar, decode_b5_nt4_panels,
-            decode_b5_panels)
+            decode_b5_panels, myers_scan)
 
 
 def reset_launch_counts() -> None:

@@ -2,10 +2,12 @@
 
 The port's copy of the codec half of ``cute_nucleotides_tpu/ops/native.py``
 (same signatures and results): the practical host oracle for checking
-device output at scale, and the FASTQ scan and row fill of the batch
-assembly.  Falls back
-to the NumPy oracle when the C++ toolchain is unavailable (``available()``
-reports which path is active).  This is host code, not the device path.
+device output at scale, the FASTQ scan and row fill of the batch assembly,
+and the host Myers scan (:func:`edit_distance`, :func:`best_match`,
+:func:`prefix_match`: the latency path for one pair, and the oracle of the
+device scan).  Falls back to the NumPy oracles when the C++ toolchain is
+unavailable (``available()`` reports which path is active).  This is host
+code, not the device path.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ __all__ = [
     "fastq_scan",
     "memcpy",
     "depad_nt4",
+    "edit_distance",
+    "best_match",
+    "prefix_match",
 ]
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -206,3 +211,47 @@ def depad_nt4(panels: np.ndarray) -> np.ndarray:
         return out
     lib.cutenuc_depad_nt4(raw.ctypes.data_as(_u8p), rows, out.ctypes.data_as(_u8p))
     return out
+
+
+def edit_distance(query, text) -> int:
+    """Global Levenshtein distance over normalized codes (the C++ Myers
+    scan, u64 blocks); ``N``/``n`` in the *query* matches any base, as on
+    the device."""
+    q, t = _as_u8(query), _as_u8(text)
+    lib = _lib()
+    if lib is None:
+        from . import align
+
+        return align.edit_distance_reference(bytes(q), bytes(t))
+    return int(lib.cutenuc_edit_distance(q.ctypes.data_as(_u8p), q.size, t.ctypes.data_as(_u8p), t.size))
+
+
+def _match(fn, q: np.ndarray, t: np.ndarray) -> tuple[int, int]:
+    d, e = ctypes.c_int64(), ctypes.c_int64()
+    fn(q.ctypes.data_as(_u8p), q.size, t.ctypes.data_as(_u8p), t.size, ctypes.byref(d), ctypes.byref(e))
+    return int(d.value), int(e.value)
+
+
+def best_match(query, text) -> tuple[int, int]:
+    """Semiglobal best occurrence ``(dist, end)``, the host mirror of
+    ``align.best_match_packed`` (``(m, 0)`` when nothing beats the empty
+    alignment)."""
+    q, t = _as_u8(query), _as_u8(text)
+    lib = _lib()
+    if lib is None:
+        from . import align
+
+        return align.best_match_reference(bytes(q), bytes(t))
+    return _match(lib.cutenuc_best_match, q, t)
+
+
+def prefix_match(query, text) -> tuple[int, int]:
+    """Prefix (SHW) mode ``(dist, end)``: the whole query against the best
+    text PREFIX, the host mirror of ``align.prefix_distance_packed``."""
+    q, t = _as_u8(query), _as_u8(text)
+    lib = _lib()
+    if lib is None:
+        from . import align
+
+        return (0, 0) if q.size == 0 else align.prefix_distance_reference(bytes(q), bytes(t))
+    return _match(lib.cutenuc_prefix_match, q, t)

@@ -23,9 +23,6 @@ from cute_nucleotides_tpu_torch.ops import eager, kernels as K
 REPO = pathlib.Path(__file__).resolve().parents[1]
 #: rows of the reference that run outside the row table (``run_stream_rows``)
 STREAM = {"stream_encode_e2e", "stream_encode_records", "stream_decode_e2e"}
-#: rows of the reference whose functions the port does not have yet
-NOT_PORTED = {"hamming_packed", "pairwise_hamming_4096", "pairwise_hamming_packed_4096", "edit_distance_m128_n2048",
-              "approx_stream_m21", "host_myers_m128"}
 
 
 def _port_name(ref: str) -> str:
@@ -36,7 +33,7 @@ def _reference_rows(scale: int, full: bool) -> dict:
     """{port name: (denominator, read bytes, write bytes, bound tag)} as the
     reference's bench.py:382-1151 computes them (no roofline for host rows;
     its "vpu" tag is the port's "operations" where the port counts no
-    instructions)."""
+    instructions; the Myers rows count them, with no tag)."""
     rows = max(32768 // scale, 8)
     nt = rows * 8192
     rows_b5 = rows * 8208 // 3456
@@ -81,9 +78,18 @@ def _reference_rows(scale: int, full: bool) -> dict:
     t["search_b5_7nt"] = t["search_b5_45nt"] = (4 * n5, 5 * n5, 2 * n5, None)
     t["gc_content_packed_b5"] = ((n5 // 2) * 27, 4 * n5, 4 * -(-n5 // 256), None)
     t["revcomp_packed_b5"] = ((n5 // 2) * 27, 4 * n5, 4 * n5, "operations")
+    t["hamming_packed"] = (16 * words, 8 * words, 4 * rows, None)
+    ph = min(4096, rows)
+    t["pairwise_hamming_4096"] = (ph * 8192, ph * 8192, 4 * ph * ph, None)
+    t["pairwise_hamming_packed_4096"] = (ph * 8192, 4 * ph * 512, 4 * ph * ph, None)
+    al = min(8192, rows)
+    t["edit_distance_m128_n2048"] = (al * 128 * 2048, 4 * (al * 8 + al * 128), 4 * al, None)
+    ap = min(words, 4 << 20)
+    t["approx_stream_m21"] = (16 * ap * 21, 4 * ap, 8, None)
     hb = min(rows, 4096) * 8192
     for name in ("host_memcpy", "host_oracle_encode", "host_oracle_decode"):
         t[name] = (hb, None, None, None)
+    t["host_myers_m128"] = (128 * min(hb, 1 << 20), None, None, None)
     return {_port_name(k): v for k, v in t.items()}
 
 
@@ -96,12 +102,12 @@ def test_row_names_are_the_reference_table_with_the_tier_swapped(table):
     with open(REPO / "BENCH_DETAIL.json") as f:
         ref = list(json.load(f)["detail"])
     assert len(ref) == 51
-    want = [_port_name(n) for n in ref if n not in NOT_PORTED | STREAM]
+    want = [_port_name(n) for n in ref if n not in STREAM]
     assert STREAM <= set(ref) and set(bench.STREAM_ROWS) == STREAM
     want.insert(want.index("decode_b5_cuda_checked") + 1, "decode_b5_cuda_u8")  # BENCH_FULL's extra row
-    assert [r.name for r in table] == want and len(want) == 43
+    assert [r.name for r in table] == want and len(want) == 49
     short = [r.name for r in bench.build_rows("cpu", scale=4096)]
-    assert short == [n for n in want if n != "decode_b5_cuda_u8"] and len(short) == 42
+    assert short == [n for n in want if n != "decode_b5_cuda_u8"] and len(short) == 48
 
 
 @pytest.mark.parametrize("scale, full", ((4096, True), (1024, False)))
@@ -126,6 +132,42 @@ def test_rows_calls_per_run_are_the_reference_chain_lengths(table):
     assert k["kmer_counts_k21"] == k["sketch_bottom1k_k21"] == 6
     assert k["encode_b5_torch"] == 32  # BENCH_FULL: the twins run the core chains
     assert {r.name: r.k for r in bench.build_rows("cpu", scale=4096)}["encode_b5_torch"] == 16
+    assert k["hamming_packed"] == 32 and k["pairwise_hamming_4096"] == k["pairwise_hamming_packed_4096"] == 8
+    assert k["edit_distance_m128_n2048"] == k["approx_stream_m21"] == 6
+
+
+@pytest.mark.parametrize("scale", (4096, 64))
+def test_myers_and_pairwise_rows_count_the_reference_work(scale):
+    """The GCUPS rows keep the reference's DP-cell denominators (B m n,
+    16 W m) and count the least integer instructions kernel #19 needs for
+    the text nt they scan: 11 nb + 5 a nt (global) over B n, 11 nb + 8
+    (semiglobal) over the nt of the reference's own row plan, each row
+    clamped at the stream's end; the all-pairs rows count their int8
+    multiply-adds at two operations each, and their steps return what the
+    reference's do."""
+    from cute_nucleotides_tpu.ops import align as ref_align
+
+    rows = {r.name: r for r in bench.build_rows("cpu", scale=scale)}
+    n_rows = max(32768 // scale, 8)
+    al = min(8192, n_rows)
+    assert rows["edit_distance_m128_n2048"].denom == al * 128 * 2048
+    assert rows["edit_distance_m128_n2048"].roofline.int_ops == al * 2048 * (11 * 4 + 5)
+    W = min(n_rows * 512, 4 << 20)
+    R, wrb, H = ref_align.stream_rows_plan(W, 21)
+    nt = sum(min(max(16 * W - 16 * wrb * r, 0), 16 * (wrb + H)) for r in range(R))
+    assert 16 * W <= nt <= R * 16 * (wrb + H)
+    assert rows["approx_stream_m21"].denom == 16 * W * 21
+    assert rows["approx_stream_m21"].roofline.int_ops == nt * (11 * 1 + 8)
+    ph = min(4096, n_rows)
+    for name in ("pairwise_hamming_4096", "pairwise_hamming_packed_4096"):
+        assert rows[name].roofline.tensor_ops == 2 * ph * ph * 4 * 8192 and rows[name].roofline.int_ops == 0
+    if scale == 4096:  # the bench's batch, remade from its seed: the stream row's (dist, end)
+        from cute_nucleotides_tpu_torch.ops import native
+
+        reads = np.random.default_rng(0xC0DEC).choice(np.frombuffer(b"ACGTUacgtu", np.uint8), (n_rows, 8192))
+        words = np.ascontiguousarray(native.n_to_bits(reads.reshape(-1))).view(np.uint32)
+        want = ref_align.best_match_stream(words, 16 * words.size, bench.APPROX_QUERY)
+        assert tuple(rows["approx_stream_m21"].step().tolist()) == want
 
 
 def test_every_step_runs_once_through_the_timer(table, capsys):
@@ -303,3 +345,44 @@ def test_torch_twins_and_planar_plain_versions_avoid_the_missing_ops():
             got = call()
         assert torch.equal(got.view(torch.int32) if got.dtype == torch.uint32 else got,
                            want.view(torch.int32) if want.dtype == torch.uint32 else want), label
+
+
+def test_align_and_distance_paths_avoid_the_missing_ops():
+    """#19's plain version (both alphabets, every mode, batch and stream
+    rows), the Peq constructors, the stream forms and the distance functions,
+    all of which chip_smoke.py and the bench run on the card, under the
+    guard: each equals its unguarded result."""
+    from cute_nucleotides_tpu_torch.ops import align, distance
+
+    rng = np.random.default_rng(2)
+    words = interop.to_tensor(rng.integers(0, 2**32, 40, dtype=np.uint32))
+    q2 = interop.to_tensor(rng.integers(0, 2**32, (4, 3), dtype=np.uint32))
+    lens = torch.tensor([48, 20, 0, 33], dtype=torch.int32)
+    peq4 = align.peq_from_packed(q2, lens)
+    peq5 = align._peq_b5(q2[:, :2].contiguous(), [27, 20, 0, 5])
+    reads = interop.to_tensor(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(5, 70)))
+    calls = {"peq 2-bit": lambda: align.peq_from_packed(q2, lens),
+             "peq b5": lambda: align._peq_b5(q2[:, :2].contiguous(), [27, 20, 0, 5]),
+             "stream 2-bit": lambda: torch.tensor(align.best_match_stream(words, 600, b"GATNACA")),
+             "stream b5": lambda: torch.tensor(align.best_match_stream_b5(words, 500, b"GAT?ACA")),
+             "hamming": lambda: distance.hamming_packed(q2, q2.flip(0)),
+             "pairwise": lambda: distance.pairwise_hamming(reads, chunk=32),
+             "pairwise packed": lambda: distance.pairwise_hamming_packed(q2, chunk=8)}
+    for mode in K.MYERS_MODES:
+        for b5, peq in ((False, peq4), (True, peq5)):
+            if mode == "ends" and b5:
+                continue
+            calls[f"#19 {mode} b5={b5}"] = lambda mode=mode, b5=b5, peq=peq: K.myers_scan_plain(
+                peq, lens, words, torch.tensor([300, 7, 0, 160], dtype=torch.int32), 10, 10, mode=mode, b5=b5,
+                max_errors=torch.tensor([0, 2, 2**31 - 1, 3], dtype=torch.int32))
+            calls[f"#19 {mode} b5={b5} stream rows"] = lambda mode=mode, b5=b5, peq=peq: K.myers_scan_plain(
+                peq[:1].expand(10, *peq.shape[1:]), torch.full((10,), 20, dtype=torch.int32), words,
+                torch.full((10,), 200, dtype=torch.int32), 4, 14, mode=mode, b5=b5,
+                max_errors=torch.full((10,), 9, dtype=torch.int32))
+    for label, call in calls.items():
+        want = call()
+        with _CardUint32():
+            got = call()
+        for g, w in zip(*((x if isinstance(x, tuple) else (x,)) for x in (got, want))):
+            assert torch.equal(g.view(torch.int32) if g.dtype == torch.uint32 else g,
+                               w.view(torch.int32) if w.dtype == torch.uint32 else w), label

@@ -10,6 +10,8 @@ does import JAX, so run it there without conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -130,7 +132,7 @@ def test_launch_counts_and_alignment(cuda_device):
     K.encode_2bit_nt4_mxu(t)
     K.encode_2bit_nt4_mxu(t, checked=True)
     K.decode_2bit_nt4(K.encode_2bit_nt4(t))
-    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     misaligned = torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:36]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_2bit_nt4(misaligned.view(torch.uint32).view(2, 4))
@@ -216,7 +218,7 @@ def test_b5_launch_counts_and_alignment(cuda_device):
     K.encode_b5_stream(x, checked=True)
     for checked, digits in B5_MODES:
         K.decode_b5_stream(w, checked, digits)
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_b5_stream(torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:31])
     with pytest.raises(ValueError, match="checked digit"):
@@ -373,7 +375,7 @@ def test_search_launch_counts(cuda_device):
     search.match_positions_b5(w5, s.size, b"GAT?ACA")
     search.match_positions_b5(w5[:1000], 13500, b"GAT?ACA")  # under 1024 u32: the mask tier
     search.match_count_b5(w5, s.size, b"A" * 1025)  # over 1024 nt: the mask tier
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.match_bits_stream(w2[1:], *search.compile_query(b"ACG")[:2], 10)
 
@@ -430,7 +432,7 @@ def test_kmer_cuda_matches_torch_tier(cuda_device):
     for k in (3, 8, 11):
         assert _same(kmer.kmer_histogram_batch(interop.to_tensor(batch, cuda_device), lengths, k, canonical=True),
                      kmer.kmer_histogram_batch(interop.to_tensor(batch), lengths, k, canonical=True))
-    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2, 0, 0, 0, 0, 0, 0, 0, 0]
 
 
 def test_stats_cuda_matches_torch_tier(cuda_device, tmp_path, capsys):
@@ -693,7 +695,7 @@ def test_planar_launch_counts_and_refusals(cuda_device):
     K.decode_b5_nt4_panels(lo, hi, padded=False)
     K.decode_b5_panels(lo, hi)
     K.encode_b5_planar(x[:0])  # no rows: nothing launched
-    assert [fn.launches for fn in K.WRAPPERS][-3:] == [1, 2, 1] and sum(fn.launches for fn in K.WRAPPERS) == 4
+    assert [fn.launches for fn in K.WRAPPERS][-4:] == [1, 2, 1, 0] and sum(fn.launches for fn in K.WRAPPERS) == 4
     with pytest.raises(ValueError, match="aligned"):
         K.encode_b5_planar(torch.zeros(2 * K.B5_ROW_NT, dtype=torch.uint8, device=cuda_device)[4 : 4 + K.B5_ROW_NT]
                            .view(1, -1))
@@ -710,14 +712,132 @@ def test_bench_table_on_the_card(cuda_device):
 
     rows = bench.build_rows(cuda_device, scale=512, full=True)
     results = bench.run_rows(rows, bench.cuda_timer, bench.Results())
-    assert not results.failed and len(results.gibs) == 43 and all(v > 0 for v in results.gibs.values())
+    assert not results.failed and len(results.gibs) == 49 and all(v > 0 for v in results.gibs.values())
     calls = 1 + bench.TRIALS * bench.K_CORE + 1  # warm-up, timed runs, latency call
+    for row in ("edit_distance_m128_n2048", "approx_stream_m21"):
+        assert results.launches[row] == {"myers_scan": 1 + bench.TRIALS * bench.K_ALIGN + 1}
     assert results.launches["encode_b5_cuda_planar"] == {"encode_b5_planar": calls}
     for row in ("decode_b5_cuda_nt4", "decode_b5_cuda_nt4_padded"):
         assert results.launches[row] == {"decode_b5_nt4_panels": calls}
     assert results.launches["decode_b5_cuda_u8"] == {"decode_b5_panels": calls}
     assert results.launches["memcpy_device"] == {} and results.launches["encode_2bit_torch_mul"] == {}
     assert all(s > 0 for s in results.sol.values())
+
+
+# --- kernel #19: the Myers scan ---------------------------------------------------
+
+def _myers_inputs(rng, b5: bool, nb: int, R: int = 37, L: int = 24):
+    A = 5 if b5 else 4
+    peq = torch.from_numpy(rng.integers(0, 2**32, (R, A, nb), dtype=np.uint32))
+    ql = torch.from_numpy(rng.integers(0, 32 * nb + 3, R).astype(np.int32))
+    words = torch.from_numpy(rng.integers(0, 2**32, R * L, dtype=np.uint32))
+    tl = torch.from_numpy(rng.integers(-2, 16 * L + 40, R).astype(np.int32))
+    errs = torch.from_numpy(rng.integers(0, 40, R).astype(np.int32))
+    errs[0] = 2**31 - 1
+    return peq, ql, words, tl, errs
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("nb", (1, 2, 3, 4, 8, 9, 12))
+@pytest.mark.parametrize("b5", (False, True))
+def test_myers_kernel_matches_plain(cuda_device, b5, nb):
+    """Random Peq planes, lengths past the query's blocks and the text rows,
+    every mode, a contiguous and a stride-0 Peq, and stream rows with a halo
+    over several rows: the kernel bit for bit equal to its plain version."""
+    rng = np.random.default_rng(100 * nb + b5)
+    peq, ql, words, tl, errs = _myers_inputs(rng, b5, nb)
+    for mode in K.MYERS_MODES:
+        if mode == "ends" and b5:
+            continue
+        for p in (peq, peq[:1].expand(*peq.shape)):
+            args = dict(mode=mode, b5=b5, max_errors=errs if mode == "ends" else None)
+            want = K.myers_scan_plain(p, ql, words, tl, 24, 24, **args)
+            cuda_args = {**args, "max_errors": errs.to(cuda_device) if mode == "ends" else None}
+            got = K.myers_scan(p.to(cuda_device), ql.to(cuda_device), words.to(cuda_device), tl.to(cuda_device),
+                               24, 24, **cuda_args)
+            assert all(_same(g, w) for g, w in zip(_as_tuple(got), _as_tuple(want))), (mode, p.stride())
+        if mode != "ends":
+            R = -(-words.numel() // 8)
+            sp = peq[:1].expand(R, *peq.shape[1:])
+            sq, st = torch.full((R,), 20, dtype=torch.int32), torch.full((R,), 10**6, dtype=torch.int32)
+            want = K.myers_scan_plain(sp, sq, words, st, 8, 8 + 30, mode=mode, b5=b5)
+            got = K.myers_scan(sp.to(cuda_device), sq.to(cuda_device), words.to(cuda_device), st.to(cuda_device), 8,
+                               8 + 30, mode=mode, b5=b5)
+            assert all(_same(g, w) for g, w in zip(_as_tuple(got), _as_tuple(want))), (mode, "stream rows")
+
+
+def test_align_cuda_matches_cpu(cuda_device):
+    """Every exported scan of both codecs and both stream forms: the card's
+    results equal the CPU's (plain version) on the same inputs, and the
+    stream form the host Myers scan."""
+    from cute_nucleotides_tpu_torch.ops import align
+
+    rng = np.random.default_rng(19)
+    qw = torch.from_numpy(rng.integers(0, 2**32, (33, 6), dtype=np.uint32))
+    tw = torch.from_numpy(rng.integers(0, 2**32, (33, 20), dtype=np.uint32))
+    ql = torch.from_numpy(rng.integers(0, 97, 33).astype(np.int32))
+    tl = torch.from_numpy(rng.integers(0, 330, 33).astype(np.int32))
+    errs = torch.from_numpy(rng.integers(0, 30, 33).astype(np.int32))
+    on = [t.to(cuda_device) for t in (qw, ql, tw, tl, errs)]
+    for fn in (align.edit_distance_packed, align.best_match_packed, align.prefix_distance_packed,
+               align.edit_distance_packed_b5, align.best_match_packed_b5):
+        got, want = fn(*on[:4]), fn(qw, ql, tw, tl)
+        assert all(_same(g, w) for g, w in zip(_as_tuple(got), _as_tuple(want))), fn.__name__
+    assert _same(align.match_ends_packed(*on), align.match_ends_packed(qw, ql, tw, tl, errs))
+    seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), 100_003).tobytes()
+    w2 = interop.u64_to_tensor(native.n_to_bits(seq), cuda_device)
+    w5 = interop.u64_to_tensor(native.n_to_bits2(seq), cuda_device)
+    query = seq[5000:5021]
+    assert align.best_match_stream(w2, len(seq), query) == native.best_match(query, seq) == (0, 5021)
+    assert align.best_match_stream_b5(w5, len(seq), query) == (0, 5021)
+    long_q = seq[:300]  # the scratch form, and a halo over many rows
+    assert align.best_match_stream(w2[:40], 600, long_q) == native.best_match(long_q, seq[:600])
+
+
+def test_myers_launch_counts_and_refusals(cuda_device):
+    from cute_nucleotides_tpu_torch.ops import align
+
+    peq, ql, words, tl, errs = _myers_inputs(np.random.default_rng(1), False, 2)
+    on = [t.to(cuda_device) for t in (peq, ql, words, tl, errs)]
+    K.reset_launch_counts()
+    K.myers_scan(*on[:4], 24, 24, mode="semiglobal")
+    K.myers_scan(*on[:4], 24, 24, mode="ends", max_errors=on[4])
+    K.myers_scan(on[0][:0], on[1][:0], on[2][:0], on[3][:0], 0, 0, mode="global")  # no rows: no launch
+    K.myers_scan(peq, ql, words, tl, 24, 24, mode="global")  # the CPU: the plain version
+    assert K.myers_scan.launches == 2 and sum(f.launches for f in K.WRAPPERS) == 2
+    peq_cli, m = align.peq_from_bytes(b"GATTNCA")
+    align.best_match_peq(interop.to_tensor(peq_cli, cuda_device)[None].expand(37, 4, 1), torch.full((37,), m),
+                         on[2].view(37, 24), on[3])
+    assert K.myers_scan.launches == 3
+    with pytest.raises(ValueError, match="Peq planes must be contiguous"):
+        K.myers_scan(on[0].transpose(1, 2).contiguous().transpose(1, 2), *on[1:4], 24, 24, mode="global")
+    with pytest.raises(ValueError, match="contiguous"):
+        K.myers_scan(on[0], on[1], on[2][::2], on[3], 12, 12, mode="global")
+    with pytest.raises(ValueError, match="inputs on"):
+        K.myers_scan(on[0], ql, *on[2:4], 24, 24, mode="global")
+    assert K.myers_scan.launches == 3
+
+
+def test_approx_cli_on_the_card(cuda_device, tmp_path, capsys):
+    """``approx --both --cigar`` on the card: each line equals the host Myers
+    scan's best strand, and each CIGAR spans its window."""
+    from cute_nucleotides_tpu_torch import cli
+
+    rng = np.random.default_rng(5)
+    seqs = [rng.choice(np.frombuffer(b"ACGT", np.uint8), n).tobytes() for n in (0, 15, 150, 150, 300, 1000)]
+    nup = str(tmp_path / "r.nup")
+    cli.write_nup(nup, [b"r%d" % i for i in range(len(seqs))], [native.n_to_bits(s) for s in seqs],
+                  [len(s) for s in seqs], "2bit")
+    assert cli.main(["approx", nup, "GATTACAGATTNCA", "--both", "--cigar", "--batch", "4"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    rc = search.revcomp_query(b"GATTACAGATTNCA")
+    for line, s in zip(lines, seqs):
+        f, r = native.best_match(b"GATTACAGATTNCA", s), native.best_match(rc, s)
+        assert (line["dist"], line["end"], line["strand"]) == ((*r, "-") if r[0] < f[0] else (*f, "+"))
+        assert line["end"] == 0 or 0 <= line["start"] <= line["end"]
 
 
 # --- the streaming runtime on the card ---------------------------------------------

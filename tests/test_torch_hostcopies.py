@@ -323,3 +323,31 @@ def test_fastq_scan_equals_reference_on_chunks_that_split_a_record(crlf):
             fn(bad)
     with pytest.raises(TypeError):
         native.fastq_scan(data.view(np.int8))
+
+
+MYERS_PAIRS = ((b"", b"ACGT"), (b"ACGT", b""), (b"", b""), (b"GATTACA", b"GATACAGATTTACA"), (b"NNA", b"CCCT"),
+               (b"acgu", b"ACGT"), (b"GANTACA", b"TTGACTACATT"), (b"ACGTACGTAC", b"T" * 14))
+
+
+def test_host_myers_equals_reference(monkeypatch):
+    """The port's ``native.edit_distance`` / ``best_match`` / ``prefix_match``
+    (the C++ Myers scan of the copied ``codec.cpp``) against the reference's,
+    at the u64 block seams (m = 63, 64, 65, 128, 129), with N wildcards and
+    empty sides; and their NumPy fallbacks (no C++ library) against the
+    same results."""
+    rng = np.random.default_rng(64)
+    pairs = list(MYERS_PAIRS)
+    for m in (1, 63, 64, 65, 128, 129):
+        q = bytearray(rng.choice(np.frombuffer(b"ACGTN", np.uint8), m).tobytes())
+        t = rng.choice(np.frombuffer(b"ACGTacgtU", np.uint8), int(rng.integers(0, 300))).tobytes()
+        pairs.append((bytes(q), t))
+        pairs.append((bytes(q), t[:50] + bytes(q).replace(b"N", b"G") + t[50:]))
+    for q, t in pairs:
+        for name in ("edit_distance", "best_match", "prefix_match"):
+            assert getattr(native, name)(q, t) == getattr(ref_native, name)(q, t), (name, q, t)
+        arr = np.frombuffer(t, np.uint8)
+        assert native.best_match(np.frombuffer(q, np.uint8), arr) == ref_native.best_match(q, t)
+    monkeypatch.setattr(native, "_lib", lambda: None)
+    for q, t in pairs[:10]:
+        for name in ("edit_distance", "best_match", "prefix_match"):
+            assert getattr(native, name)(q, t) == getattr(ref_native, name)(q, t), ("fallback", name, q, t)

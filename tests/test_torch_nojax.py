@@ -179,6 +179,56 @@ print("LOADED", loaded)
     assert "LOADED []" in proc.stdout and proc.stdout.count("refused") == 4
 
 
+def test_align_distance_and_approx_load_neither_jax_nor_the_reference(tmp_path):
+    """distance, every align scan of both codecs, the stream forms, the host
+    Myers and ``approx`` (--both --cigar, --all) in one process: afterwards
+    no jax and no cute_nucleotides_tpu module is loaded, kernel #19 ran its
+    plain version (no launch counted) and refuses a device without
+    kernels."""
+    code = f"""
+import sys
+import numpy as np, torch
+from cute_nucleotides_tpu_torch import api, cli, interop
+from cute_nucleotides_tpu_torch.ops import align, distance, kernels, native
+d = {str(tmp_path)!r}
+seq = b"ACGTGATTACAGGGGTGTAATCCC" * 20
+with open(d + "/r.fa", "wb") as f:
+    f.write(b">r1\\n" + seq + b"\\n>r2\\nGATTACA\\n")
+kernels.reset_launch_counts()
+for codec in ("2bit", "base5"):
+    nup = d + "/r_" + codec + ".nup"
+    assert cli.main(["encode", d + "/r.fa", nup, "--codec", codec]) == 0
+    assert cli.main(["approx", nup, "GATTACA", "--both", "--cigar"]) == 0
+assert cli.main(["approx", d + "/r_2bit.nup", "GATTACA", "--all", "--max-errors", "1"]) == 0
+w2 = interop.u64_to_tensor(api.n_to_bits(seq))
+w5 = interop.u64_to_tensor(api.n_to_bits2(seq))
+assert align.best_match_stream(w2, len(seq), b"GATTNCA") == native.best_match(b"GATTNCA", seq) == (0, 11)
+assert align.best_match_stream_b5(w5, len(seq), b"GATTACA") == (0, 11)
+rows = interop.u64_to_tensor(api.n_to_bits(seq * 2))[:32].view(2, 16)
+q = rows[:, :1].contiguous()
+lens = torch.tensor([16, 16])
+assert align.edit_distance_packed(q, lens, rows, [256, 256]).tolist() == [240, 240]
+assert align.best_match_packed(q, lens, rows, [256, 256])[0].tolist() == [0, 0]
+assert align.prefix_distance_packed(q, lens, rows, [256, 256])[0].tolist() == [0, 0]
+assert align.match_ends_packed(q, lens, rows, [256, 256], [0, 0]).sum().item() > 0
+assert distance.hamming_packed(rows, rows).tolist() == [0, 0]
+assert distance.pairwise_hamming(interop.to_tensor(np.frombuffer(seq, np.uint8).reshape(4, -1))).shape == (4, 4)
+assert all(fn.launches == 0 for fn in kernels.WRAPPERS)
+peq = torch.zeros((1, 4, 1), dtype=torch.uint32, device="meta")
+lens = torch.zeros(1, dtype=torch.int32, device="meta")
+try:
+    kernels.myers_scan(peq, lens, torch.zeros(1, dtype=torch.uint32, device="meta"), lens, 1, 1, mode="global")
+except ValueError as e:
+    assert str(e) == "no kernel for device meta", e
+    print("refused")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cute_nucleotides_tpu"))
+print("LOADED", loaded)
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout and "refused" in proc.stdout
+
+
 def test_cuda_tier_without_cuda_raises():
     code = """
 import numpy as np, torch
@@ -224,7 +274,7 @@ from cute_nucleotides_tpu_torch.ops import kernels
 rows = bench.build_rows("cpu", scale=4096, full=True)
 kernels.reset_launch_counts()
 results = bench.run_rows(rows, lambda row: (row.step(), (1e-3, 0.0))[1], bench.Results())
-assert len(results.gibs) == 43 and not results.failed
+assert len(results.gibs) == 49 and not results.failed
 assert all(fn.launches == 0 for fn in kernels.WRAPPERS)
 print(bench.headline(results, "detail.json"))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cute_nucleotides_tpu"))
