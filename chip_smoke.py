@@ -226,9 +226,14 @@ PRIMER = b"GTTCAGAGTTCTACAGTCCG"  # 20 nt
 #: (ALIGN_B pairs of ALIGN_QM x ALIGN_TN nt); phase 4 a query of
 #: ALIGN_STREAM_M nt over the chr1-length stream; phase 5 plants PRIMER in
 #: every APPROX_EVERY-th read and holds base-5 lines to the DP oracle on
-#: every APPROX_B5_EVERY-th record
-ALIGN_M = (1, 2, 20, 21, 31, 32, 33, 63, 64, 65, 128, 150, 300)
+#: every APPROX_B5_EVERY-th record.  ALIGN_M holds the block seams and
+#: each edge of #19's lane forms at 37 pairs (1 block solo; 2, 4, 8, 16 and
+#: 32 lanes of one block up to 64, 128, 256, 512 and 1024 nt; the scratch
+#: form past that)
+ALIGN_M = (1, 2, 20, 21, 31, 32, 33, 63, 64, 65, 128, 129, 256, 257, 512, 513, 1024, 1025)
 ALIGN_PAIRS, ALIGN_B, ALIGN_QM, ALIGN_TN, ALIGN_STREAM_M = 37, 8192, 128, 2048, 21
+#: pairs of phase 2's stride-0 runs at the long lane forms' edges
+MYERS_LONG_PAIRS = 8
 APPROX_EVERY, APPROX_B5_EVERY = 10, 997
 #: phase 2's rows of the approx CLI's shape: reads of APPROX_NT nt in rows of
 #: 16 u32 (2-bit) or 6 u32 pairs (base-5), PRIMER's 20 nt as one broadcast Peq
@@ -383,7 +388,8 @@ def phase_build():
         f"build and load {time.perf_counter() - t0:.1f} s")
     _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel", "gc_b5_kernel",
                                           "radix_hist_kernel", "radix_pass_kernel", "match_b5_kernel",
-                                          "match_2bit_kernel", "encode_2bit_pext_kernel", "myers_kernel"))
+                                          "match_2bit_kernel", "encode_2bit_pext_kernel", "myers_lanes",
+                                          "myers_scratch"))
 
 
 def _kernel_label(name: str, kernels):
@@ -397,25 +403,62 @@ def _kernel_label(name: str, kernels):
     return (f"{hit}<{args}>" if args else hit) if hit else None
 
 
-def _myers_floor_check(mixes: dict) -> None:
-    """#19's register forms unroll one text word (16 nt, or 27 base-5) with
-    no loop inside it, so a nt runs at most its static instructions over
-    that count; a floor (utils.profiling.myers_ops) above that would be no
-    floor.  Prints both for each instance and fails if so."""
+#: #19's template modes, as csrc/align.cu numbers them
+MYERS_MODE_NAMES = ("global", "semiglobal", "prefix", "ends")
+
+
+def _steady_loop(lines) -> tuple:
+    """(instructions, LDS) of the smallest loop of a function's SASS that
+    loads Eq (``LDS``): #19's word loop with no char test, from a backward
+    branch to its target; (0, 0) when there is none."""
+    at = []
+    for line in lines:
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?);", line)
+        if m and not m.group(2).strip().startswith("NOP"):
+            at.append((int(m.group(1), 16), m.group(2)))
+    best = (0, 0)
+    for addr, text in at:
+        target = re.search(r"BRA\b.*?0x([0-9a-f]+)", text)
+        if target and int(target.group(1), 16) < addr:
+            body = [t for a, t in at if int(target.group(1), 16) <= a <= addr]
+            lds = sum(bool(re.search(r"\bLDS\b", t)) for t in body)
+            if lds and (best == (0, 0) or len(body) < best[0]):
+                best = (len(body), lds)
+    return best
+
+
+def _myers_floor_check(mixes: dict, loops: dict) -> None:
+    """#19's lane forms, ``myers_lanes<BPL, MODE, B5, WAVE>``: the steady
+    word loop (every char of every lane inside its row, no char test) runs
+    its instructions over its chars a lane step, so a pair of L lanes runs
+    L times that a nt; a floor (utils.profiling.myers_ops in the form's own
+    mode at nb = L * BPL, the most blocks the form holds) above that would
+    be no floor: fails if so, and if a form has no steady loop to read.
+    Prints both for every L the plan can give the form, beside the whole
+    function's static count over its chars (prologue, fill and drain
+    included, so no bound on the loop)."""
     out = []
     for fn, mix in sorted(mixes.items()):
-        m = re.fullmatch(r"myers_kernel<(\d+), (true|false)>", fn)
-        if not m or m.group(1) == "0":
+        m = re.fullmatch(r"myers_lanes<(\d+), (\d+), (true|false), (true|false)>", fn)
+        if not m:
             continue
-        nb, b5 = int(m.group(1)), m.group(2) == "true"
+        bpl, mode, b5, wave = int(m.group(1)), MYERS_MODE_NAMES[int(m.group(2))], m.group(3) == "true", \
+            m.group(4) == "true"
         unroll = 27 if b5 else 16
-        per_nt = sum(mix.values()) / unroll
-        floor = myers_ops(unroll, nb, b5=b5, mode="semiglobal") / unroll  # the mode with the most work a nt
-        out.append(f"{fn} {per_nt:.1f} vs {floor:.1f}")
-        check(floor <= per_nt, f"{fn}: floor {floor:.1f} instructions a nt above its static {per_nt:.1f}")
+        whole = sum(mix.values()) / unroll
+        body, lds = loops.get(fn, (0, 0))
+        steady = body / (lds / bpl) if lds else float("nan")
+        parts = []
+        for lanes in ((2, 4, 8, 16, 32) if bpl == 1 else (2, 4, 8, 16)) if wave else (1,):
+            floor = myers_ops(unroll, lanes * bpl, b5=b5, mode=mode) / unroll
+            parts.append(f"L={lanes} steady {lanes * steady:.1f} vs {floor:.1f} (whole function {lanes * whole:.1f})")
+            check(floor <= lanes * steady, f"{fn} at {lanes} lanes: floor {floor:.1f} instructions a nt above "
+                                           f"its steady loop's {lanes * steady:.1f}")
+        out.append(f"{fn} ({mode}{', base-5' if b5 else ''}, {bpl} block(s) a lane): {'; '.join(parts)}")
     if out:
-        say(f"phase 1 SASS #19 floor check (static instructions a nt of the unrolled word vs the floor a nt, "
-            f"utils.profiling.myers_ops): {'; '.join(out)}")
+        say("phase 1 SASS #19 floor check (a pair's instructions a nt: lanes x the steady word loop's count a "
+            "lane step, vs the form's own mode's floor a nt at nb = lanes x blocks a lane, "
+            "utils.profiling.myers_ops): " + " | ".join(out))
 
 
 def _sass_mix(nvcc: str, path: str, kernels) -> None:
@@ -434,7 +477,7 @@ def _sass_mix(nvcc: str, path: str, kernels) -> None:
     if dump.returncode != 0:
         say(f"phase 1 SASS: cuobjdump exit {dump.returncode}: {dump.stderr.strip()[:300]}")
         return
-    fn, mixes = None, {}
+    fn, mixes, lines = None, {}, {}
     for line in dump.stdout.splitlines():
         if "Function :" in line:
             fn = _kernel_label(line.split("Function :", 1)[1].strip(), kernels)
@@ -443,10 +486,11 @@ def _sass_mix(nvcc: str, path: str, kernels) -> None:
         if fn and m and m.group(1) != "NOP":
             mixes.setdefault(fn, {}).setdefault(m.group(1), 0)
             mixes[fn][m.group(1)] += 1
+            lines.setdefault(fn, []).append(line)
     for fn, mix in sorted(mixes.items()):
         top = sorted(mix.items(), key=lambda kv: -kv[1])
         say(f"phase 1 SASS {fn}: {sum(mix.values())} instructions: {dict(top)}")
-    _myers_floor_check(mixes)
+    _myers_floor_check(mixes, {fn: _steady_loop(ls) for fn, ls in lines.items() if fn.startswith("myers_lanes")})
     for name, usage in re.findall(r"Function (\S+?):\s*(REG:[^\n]*)", res.stdout):
         fn = _kernel_label(name, kernels)
         if fn:
@@ -1323,7 +1367,7 @@ def _profiled(fn):
             continue
         key, ms = ev.name(), ev.duration_ns() / 1e6
         if any(tag in key for tag in ("_2bit_", "_b5_", "kmer_codes", "hist_codes", "kmer_hashes",
-                                      "minimizer_kernel", "radix_", "myers_kernel")):
+                                      "minimizer_kernel", "radix_", "myers_")):
             kind = "kernels"
             seen += 1
         else:
@@ -2573,16 +2617,19 @@ def _myers_case(errors: Errors, peq, ql, words, tl, stride: int, length: int, mo
 def phase_kernels_align(errors: Errors, rng) -> None:
     """#19 against its plain version on the card, bit for bit: both
     alphabets and every mode, ALIGN_PAIRS pairs at each m in ALIGN_M,
-    ragged texts of 0..700 nt (tlens below the row capacity), wildcard
-    queries (N, ?), base-5 triplets 125..127 in texts and queries,
-    max_errors 0, 2 and INT32_MAX, a stride-0 Peq, and stream rows whose
-    halo spans several rows."""
+    ragged texts of 0..700 nt (0..150 past 128-nt queries; tlens below
+    the row capacity), wildcard queries (N, ?), base-5 triplets 125..127
+    in texts and queries, max_errors 0, 2 and INT32_MAX, a stride-0 Peq
+    (to m = 128, and at m = 256 and 1024 on MYERS_LONG_PAIRS pairs of
+    200..400-nt texts), the lanes of two blocks on batches large enough
+    for the launch plan to pick them, and stream rows whose halo spans
+    several rows."""
     import torch
 
-    from cute_nucleotides_tpu_torch.ops import align
+    from cute_nucleotides_tpu_torch.ops import align, kernels as K
 
     dev = "cuda"
-    cases = 0
+    cases, t0 = 0, time.perf_counter()
     for b5 in (False, True):
         alpha, wild = (b"ACGTN", b"?") if b5 else (b"ACGT", b"N")
         cap_u32 = 2 * 26 if b5 else 44  # 702 / 704 nt a row
@@ -2594,7 +2641,9 @@ def phase_kernels_align(errors: Errors, rng) -> None:
                 if i % 4 == 1:
                     q[int(rng.integers(0, m))] = wild[0]
                 queries.append(bytes(q))
-            texts = [_myers_ascii(rng, int(rng.integers(0, 701)), alpha) for _ in range(ALIGN_PAIRS)]
+            # the plain version costs about 30 + 4 nb launches a text nt: the long queries get shorter texts
+            tmax = 700 if m <= 128 else 150
+            texts = [_myers_ascii(rng, int(rng.integers(0, tmax + 1)), alpha) for _ in range(ALIGN_PAIRS)]
             for i in range(0, ALIGN_PAIRS, 3):  # a near copy of the query in a third of the texts
                 if len(texts[i]) > m + 4:
                     at = int(rng.integers(0, len(texts[i]) - m - 2))
@@ -2621,10 +2670,51 @@ def phase_kernels_align(errors: Errors, rng) -> None:
                 _myers_case(errors, t[0], t[1], t[2], t[3], cap_u32, cap_u32, mode, b5, t[4],
                             f"#19 {'b5' if b5 else '2bit'} m={m} {mode}")
                 cases += 1
-                if mode in ("semiglobal", "ends"):  # the modes the CLI runs with one broadcast Peq
+                if mode in ("semiglobal", "ends") and m <= 128:  # the CLI's modes with one broadcast Peq
                     _myers_case(errors, wide, t[1], t[2], t[3], cap_u32, cap_u32, mode, b5, t[4],
                                 f"#19 {'b5' if b5 else '2bit'} m={m} {mode} stride-0 Peq")
                     cases += 1
+        # the CLI's broadcast Peq at the long forms' edges (8 and 32 lanes of one block): a few pairs whose
+        # texts run 200..400 nt, many words past the 32-lane fill (62 nt, base-5 93), stopping mid-word
+        cap_long = 2 * 16 if b5 else 28  # 432 / 448 nt a row
+        for m in (256, 1024):
+            q = _myers_ascii(rng, m, alpha)
+            texts = [_myers_ascii(rng, n, alpha) for n in [400] + rng.integers(200, 401, MYERS_LONG_PAIRS - 1).tolist()]
+            texts[1] = (texts[1][:50] + _mutate(rng, q, 3, alpha) + texts[1][50:])[: len(texts[1])]
+            tw = _myers_rows(texts, b5, cap_long)
+            if b5:
+                tw = _corrupt_b5(rng, tw, 3)
+            peq = torch.from_numpy((align.peq_from_bytes_b5 if b5 else align.peq_from_bytes)(q)[0]).to(dev)
+            errs = torch.tensor([(0, 2, 2**31 - 1)[i % 3] for i in range(MYERS_LONG_PAIRS)], dtype=torch.int32,
+                                device=dev)
+            t = (peq[None].expand(MYERS_LONG_PAIRS, *peq.shape),
+                 torch.full((MYERS_LONG_PAIRS,), m, dtype=torch.int32, device=dev),
+                 torch.from_numpy(tw.reshape(-1)).to(dev),
+                 torch.tensor([len(x) for x in texts], dtype=torch.int32, device=dev))
+            for mode in ("semiglobal",) + (() if b5 else ("ends",)):
+                _myers_case(errors, *t, cap_long, cap_long, mode, b5, errs,
+                            f"#19 {'b5' if b5 else '2bit'} m={m} {mode} stride-0 Peq, 200..400-nt texts")
+                cases += 1
+        # the lanes of two blocks, which the plan picks once one-block lanes would pass two warps a scheduler
+        # (one but in semiglobal mode): random Peq planes, query lengths up to the blocks' end and past it,
+        # 0..160-nt texts (stopping mid-word)
+        wave = torch.cuda.get_device_properties(0).multi_processor_count * 4 * 32
+        for nb in (3, 4, 8, 32):
+            lanes = (1 << (nb - 1).bit_length()) // 2
+            R = wave // lanes + 5
+            for mode in modes:
+                plan = K.myers_plan(nb, R, mode)
+                check(plan == (lanes, 2), f"#19 plan for {nb} blocks x {R} pairs, {mode}: {plan}")
+            A = 5 if b5 else 4
+            t = [torch.from_numpy(a).to(dev) for a in (
+                rng.integers(0, 2**32, (R, A, nb), dtype=np.uint32), rng.integers(0, 32 * nb + 3, R).astype(np.int32),
+                _corrupt_b5(rng, rng.integers(0, 2**32, (R, 10), dtype=np.uint32), 7) if b5
+                else rng.integers(0, 2**32, (R, 10), dtype=np.uint32), rng.integers(0, 161, R).astype(np.int32),
+                rng.integers(0, 30, R).astype(np.int32))]
+            for mode in modes:
+                _myers_case(errors, t[0], t[1], t[2].reshape(-1), t[3], 10, 10, mode, b5, t[4],
+                            f"#19 {'b5' if b5 else '2bit'} {lanes} lane(s) of 2 blocks, nb = {nb}, {R} pairs {mode}")
+                cases += 1
         # stream rows: 4 u32 a row (2 pairs), the halo of a 150-nt query spans about 5 rows
         m, stride = 150, 4
         halo = (2 * -(-(2 * m - 2) // 27)) if b5 else -(-(2 * m - 2) // 16)
@@ -2659,10 +2749,12 @@ def phase_kernels_align(errors: Errors, rng) -> None:
             cases += 1
     torch.cuda.synchronize()
     say(f"phase 2 align kernel: #19 in {cases} cases (both alphabets, every mode, {ALIGN_PAIRS} pairs at m in "
-        f"{ALIGN_M}, ragged texts of 0..700 nt, N/? wildcards, base-5 triplets 125..127 in texts and queries, "
-        f"max_errors 0/2/INT32_MAX, stride-0 Peq, stream rows with a halo over several rows, the approx CLI's "
-        f"{APPROX_ROWS} rows of 16 u32 with PRIMER): bit-identical "
-        f"to the plain version ({errors.count} comparisons in phase 2; max abs err {errors.max['myers_scan']})")
+        f"{ALIGN_M}, ragged texts of 0..700 nt (0..150 past m = 128), N/? wildcards, base-5 triplets 125..127 in "
+        f"texts and queries, lanes of two blocks at 3, 4, 8 and 32 blocks on batches past two warps a scheduler, "
+        f"max_errors 0/2/INT32_MAX, stride-0 Peq (to m = 128, and {MYERS_LONG_PAIRS} pairs of 200..400-nt texts at "
+        f"m = 256 and 1024), stream rows with a halo over several rows, the approx CLI's {APPROX_ROWS} rows of 16 u32 with PRIMER): bit-identical to the plain version "
+        f"({errors.count} comparisons in phase 2; max abs err {errors.max['myers_scan']}; "
+        f"{time.perf_counter() - t0:.1f} s)")
 
 
 def _align_batch(rng):
@@ -2960,6 +3052,26 @@ def _plain_once(fn) -> tuple:
     return out, start.elapsed_time(end)
 
 
+def _myers_entry_ms(args, iters: int) -> tuple:
+    """#19 in semiglobal mode timed through its entry point ``cn_myers``
+    with the outputs allocated once: at small shapes the wrapper's checks
+    take longer than the kernel.  ``args`` are myers_scan's (2-bit, Peq
+    contiguous per row); returns (ms a call, (best, first end))."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import _build, kernels as K
+
+    peq, ql, words, tl, row_stride, row_len = args
+    R, _, nb = peq.shape
+    best, end = (torch.empty(R, dtype=torch.int32, device="cuda") for _ in range(2))
+    scratch = torch.empty(2 * nb * R, dtype=torch.uint32, device="cuda")
+    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+    call = lambda: K._launch(lib.cn_myers, peq.data_ptr(), peq.stride(0), nb, ql.data_ptr(), words.data_ptr(),
+                             words.numel(), row_stride, row_len, tl.data_ptr(), None, K.MYERS_MODES["semiglobal"], 0,
+                             R, None, best.data_ptr(), end.data_ptr(), None, scratch.data_ptr(), stream)
+    return min(_time_ms(call, iters) for _ in range(2)), (best, end)
+
+
 def _time_myers(errors: Errors, align_words, chr1_words) -> tuple:
     """#19 at the bench's shape (the path's largest call: global mode on the
     phase-3 pairs) in turns with its plain version on the same inputs, which
@@ -2967,7 +3079,9 @@ def _time_myers(errors: Errors, align_words, chr1_words) -> tuple:
     chr1-length stream as ``best_match_stream`` cuts it (a 21-nt query),
     STREAM_CHECK_ROWS rows at each end of it held to the plain version;
     and at a phase-2 size beside the plain version.  Each beside its bound
-    (utils.profiling.myers_ops) but the last.  Returns phase_timing's
+    (utils.profiling.myers_ops) but the last, with the launch plan each
+    takes (``kernels.myers_plan``, read from ``cn_myers_plan``: lanes a
+    pair, blocks a lane) and the SM clock after.  Returns phase_timing's
     tuple."""
     import torch
 
@@ -3012,27 +3126,49 @@ def _time_myers(errors: Errors, align_words, chr1_words) -> tuple:
     stream_nt = int(rows_tl.sum())
     stream_bound, stream_by = _bound(4 * chr1_words.numel() + 8 * R,
                                      myers_ops(stream_nt, speq1.shape[1], mode="semiglobal"))
-    say(f"  myers_scan[bench {B} x {ALIGN_QM} x {ALIGN_TN}, global]: kernel {k_big:.4f} ms "
+    say(f"  myers_scan[bench {B} x {ALIGN_QM} x {ALIGN_TN}, global, plan {K.myers_plan(nb, B)}]: kernel {k_big:.4f} ms "
         f"({B * ALIGN_QM * ALIGN_TN / (k_big / 1e3) / 1e9:.1f} GCUPS); plain {p_big:.3f} ms; runs "
         f"{k1:.4f}/{k2:.4f} vs {p1:.3f}/{p2:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
         f"{100 * bound_ms / k_big:.0f}% of it; == the plain version on every pair, global and semiglobal")
-    say(f"  myers_scan[chr1 stream, {R} rows of {wrb} + {H} words, m = {m1}]: kernel {k_stream:.4f} ms "
+    say(f"  myers_scan[chr1 stream, {R} rows of {wrb} + {H} words, m = {m1}, plan "
+        f"{K.myers_plan(speq1.shape[1], R, 'semiglobal')}]: "
+        f"kernel {k_stream:.4f} ms "
         f"({stream_nt * m1 / (k_stream / 1e3) / 1e9:.1f} GCUPS); bound {stream_bound:.4f} ms ({stream_by}), "
         f"{100 * stream_bound / k_stream:.0f}% of it; {STREAM_CHECK_ROWS} rows at each end == the plain version")
+    # the approx CLI's shape (phase 2's): APPROX_ROWS reads of APPROX_NT nt in rows of 16 u32, PRIMER broadcast
+    apeq, am = align.peq_from_bytes(PRIMER)
+    approx_words = torch.from_numpy(rng.integers(0, 2**32, APPROX_ROWS * 16, dtype=np.uint32)).cuda()
+    approx_args = (torch.from_numpy(apeq).cuda()[None].expand(APPROX_ROWS, *apeq.shape),
+                   torch.full((APPROX_ROWS,), am, dtype=torch.int32, device="cuda"), approx_words,
+                   torch.full((APPROX_ROWS,), APPROX_NT, dtype=torch.int32, device="cuda"), 16, 16)
+    want_a, pa = _plain_once(lambda: K.myers_scan_plain(*approx_args, mode="semiglobal"))
+    wrapped = min(_time_ms(lambda: K.myers_scan(*approx_args, mode="semiglobal"), 50) for _ in range(2))
+    k_approx, got_a = _myers_entry_ms(approx_args, 200)
+    approx_case = f"approx {APPROX_ROWS} x {APPROX_NT} nt, m = {am}"
+    _myers_compare(errors, K.myers_scan(*approx_args, mode="semiglobal"), want_a, f"#19 {approx_case}")
+    _myers_compare(errors, got_a, want_a, f"#19 {approx_case}, through its entry point")
+    approx_bound, approx_by = _bound(4 * approx_words.numel() + 8 * APPROX_ROWS,
+                                     myers_ops(APPROX_ROWS * APPROX_NT, 1, mode="semiglobal"))
+    say(f"  myers_scan[{approx_case}, semiglobal, plan {K.myers_plan(1, APPROX_ROWS, 'semiglobal')}]: kernel {k_approx:.4f} ms "
+        f"through cn_myers ({wrapped:.4f} ms a call through the wrapper); plain {pa:.3f} ms; bound "
+        f"{approx_bound:.4f} ms ({approx_by}), {100 * approx_bound / k_approx:.0f}% of it; == the plain version")
     # a phase-2 size in turns with the plain version: ALIGN_PAIRS pairs of a 150-nt query and 700-nt texts
     m, n = 150, 700
     speq = torch.from_numpy(np.stack([align.peq_from_bytes(_myers_ascii(rng, m))[0] for _ in range(ALIGN_PAIRS)]))
     small_args = (speq.cuda(), torch.full((ALIGN_PAIRS,), m, dtype=torch.int32, device="cuda"),
                   torch.from_numpy(rng.integers(0, 2**32, ALIGN_PAIRS * 44, dtype=np.uint32)).cuda(),
                   torch.full((ALIGN_PAIRS,), n, dtype=torch.int32, device="cuda"), 44, 44)
-    _, ps1 = _plain_once(lambda: K.myers_scan_plain(*small_args, mode="semiglobal"))
-    k_small = min(_time_ms(lambda: K.myers_scan(*small_args, mode="semiglobal"), 20) for _ in range(2))
+    want_s, ps1 = _plain_once(lambda: K.myers_scan_plain(*small_args, mode="semiglobal"))
+    k_small, got_s = _myers_entry_ms(small_args, 50)
     _, ps2 = _plain_once(lambda: K.myers_scan_plain(*small_args, mode="semiglobal"))
     small_case = f"{ALIGN_PAIRS} pairs, m = {m}, {n}-nt texts"
-    say(f"  myers_scan[{small_case}, semiglobal]: kernel {k_small:.4f} ms; plain {min(ps1, ps2):.3f} ms; runs "
-        f"{ps1:.3f}/{ps2:.3f} ms")
+    _myers_compare(errors, got_s, want_s, f"#19 {small_case}, through its entry point")
+    say(f"  myers_scan[{small_case}, semiglobal, plan {K.myers_plan(speq.shape[2], ALIGN_PAIRS, 'semiglobal')}]: kernel "
+        f"{k_small:.4f} ms through cn_myers; plain {min(ps1, ps2):.3f} ms; runs {ps1:.3f}/{ps2:.3f} ms; "
+        f"clocks {_clocks()}")
     return k_big, p_big, bound_ms, bound_by, None, {f"[bench {B} x {ALIGN_QM} x {ALIGN_TN}]": k_big,
-                                                     f"[chr1 stream, m = {m1}]": k_stream, f"[{small_case}]": k_small}
+                                                     f"[chr1 stream, m = {m1}]": k_stream, f"[{approx_case}]": k_approx,
+                                                     f"[{small_case}]": k_small}
 
 
 def phase_timing(errors: Errors, x, words, x5, words5, chr1_words, chr1_pairs, planes, align_words,

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "cn_sort_pairs_radix": [_vp, _vp, _vp, _vp, _vp, _i64, _vp, _vp, _i64, _vp],
     "cn_myers": [_vp, _i64, _int, _vp, _vp, _i64, _i64, _i64, _vp, _vp, _int, _int, _i64, _vp, _vp, _vp, _vp, _vp,
                  _vp],
+    "cn_myers_plan": [_int, _i64, _int, _vp],
 }
 
 

@@ -54,6 +54,7 @@ the keys, the Myers scan by its integer work (about 40 instructions per
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -1320,9 +1321,8 @@ sort_pairs_bitonic.launches = 0
 MYERS_MODES = {"global": 0, "semiglobal": 1, "prefix": 2, "ends": 3}
 #: query rows per Peq block
 MYERS_BLOCK = 32
-#: the largest Peq block count held in registers (longer queries keep PV
-#: and MV in a global scratch)
-MYERS_REG_BLOCKS = 8
+#: ``cn_myers`` refuses more blocks than this without a scratch
+_MYERS_SCRATCH_FROM = 8
 #: text positions whose Eq the plain version gathers at once
 _MYERS_PLAIN_SPAN = 256
 
@@ -1358,6 +1358,17 @@ def text_codes(rows: torch.Tensor, b5: bool) -> torch.Tensor:
         return ((w[..., None] >> (2 * torch.arange(16, device=w.device))) & 3).reshape(R, 16 * L)
     t = (seqops._b5_words(rows)[..., None] >> (7 * torch.arange(9, device=rows.device))) & 0x7F
     return torch.stack(seqops._b5_digits(t), -1).reshape(R, 27 * (L // 2))
+
+
+def myers_plan(nb: int, rows: int, mode: str = "global", device=None) -> tuple[int, int]:
+    """#19's launch plan for ``rows`` pairs of ``nb``-block queries in
+    ``mode`` on a card (the current one by default), as ``csrc/align.cu``
+    makes it: (lanes a pair, blocks a lane), blocks 0 being the scratch
+    form.  Reads it from the entry point ``cn_myers_plan``; needs CUDA."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        _launch(_build.load().cn_myers_plan, nb, rows, MYERS_MODES[mode], out)
+    return out[0], out[1]
 
 
 def _check_myers(peq, qlens, words, tlens, row_stride: int, row_len: int, mode: str, b5: bool,
@@ -1497,12 +1508,20 @@ def myers_scan(peq, qlens, words, tlens, row_stride: int, row_len: int, *, mode:
 
     Replaces the word scans of ``cute_nucleotides_tpu/ops/align.py``
     (``_myers_scan_words`` :336, ``_myers_scan_words_b5`` :385), which are
-    ``lax.scan`` loops and not Pallas kernels.  One pair per thread, PV and
-    MV in registers for queries up to 256 nt (longer ones in a global
-    scratch), the text decoded in the thread, Eq an A-way select, each row
-    stopped at its own text length.  Bound by integer issue: at least 11
-    NB + 5 to 8 instructions per text nt (``utils.profiling.myers_ops``).
-    Time on the H100: PERF.md.
+    ``lax.scan`` loops and not Pallas kernels.  A wavefront over a warp's
+    lanes (``csrc/align.cu``): a pair takes L lanes, each holding one or two
+    32-row blocks' PV and MV in registers and their Eq planes in shared
+    memory; lane b takes text char s - D b at step s and gets the carry and
+    the Ph and Mh bits of the lane below by ``__shfl_up_sync``; the mode is
+    a template argument, global mode reads its score from the last column.
+    The launch plan (:func:`myers_plan` reads it) gives one lane to one or
+    two blocks, else pow2(nb) lanes of one block, or half as many of two
+    once those would pass one warp on each of the card's schedulers (SMs x
+    4 x 32 lanes; two warps in semiglobal mode); queries past 32 blocks
+    (1024 nt) take the scratch form, one pair a thread.  Bound by integer
+    issue: at least 11 NB + 2 (global) to 8 (semiglobal, prefix)
+    instructions per 2-bit text nt, 5/3 more for base-5
+    (``utils.profiling.myers_ops``).  Time on the H100: PERF.md.
     """
     R, A, nb = _check_myers(peq, qlens, words, tlens, row_stride, row_len, mode, b5, max_errors)
     rest = (qlens, words, tlens) + ((max_errors,) if mode == "ends" else ())
@@ -1517,7 +1536,7 @@ def myers_scan(peq, qlens, words, tlens, row_stride: int, row_len: int, *, mode:
         ends = torch.zeros((R, 16 * row_len), dtype=torch.bool, device=dev)
     else:
         best, best_end = torch.empty(R, dtype=torch.int32, device=dev), torch.empty(R, dtype=torch.int32, device=dev)
-    if nb > MYERS_REG_BLOCKS:
+    if nb > _MYERS_SCRATCH_FROM:  # the entry point's rule; only the scratch form reads it
         scratch = torch.empty(2 * nb * R, dtype=torch.uint32, device=dev)
     if R:
         lib = _build.load()

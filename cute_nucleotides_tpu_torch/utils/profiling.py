@@ -37,10 +37,12 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 #: the Myers scan's least instructions a text nt (kernel #19): 11 a 32-row
 #: block (one to fetch Eq, two for the adder and its carry, Xh, Ph, Mh, the
 #: two funnel shifts of Ph and Mh, Xv, the new PV and MV), and a char's own:
-#: its Eq address, the score bit's two tests and add, and by mode the best
-#: (a compare and two selects) or the ends mask (a compare and a store)
-MYERS_OPS_BLOCK, MYERS_OPS_CHAR = 11, 4
-MYERS_OPS_MODE = {"global": 0, "semiglobal": 3, "prefix": 3, "ends": 2}
+#: its Eq address, and by mode the score (global mode reads it from the
+#: last column, so none a char; else the score bit's two tests and add)
+#: with the best (a compare and two selects) or the ends mask (a compare
+#: and a store)
+MYERS_OPS_BLOCK, MYERS_OPS_CHAR = 11, 1
+MYERS_OPS_MODE = {"global": 0, "semiglobal": 6, "prefix": 6, "ends": 5}
 
 
 def bound(nbytes: float, ops: float = 0.0, tensor_ops: float = 0.0) -> tuple[float, str]:

@@ -140,8 +140,9 @@ def test_rows_calls_per_run_are_the_reference_chain_lengths(table):
 def test_myers_and_pairwise_rows_count_the_reference_work(scale):
     """The GCUPS rows keep the reference's DP-cell denominators (B m n,
     16 W m) and count the least integer instructions kernel #19 needs for
-    the text nt they scan: 11 nb + 5 a nt (global) over B n, 11 nb + 8
-    (semiglobal) over the nt of the reference's own row plan, each row
+    the text nt they scan: 11 nb + 2 a nt (global, whose score the last
+    column gives) over B n, 11 nb + 8 (semiglobal, a score and its best
+    every nt) over the nt of the reference's own row plan, each row
     clamped at the stream's end; the all-pairs rows count their int8
     multiply-adds at two operations each, and their steps return what the
     reference's do."""
@@ -151,7 +152,7 @@ def test_myers_and_pairwise_rows_count_the_reference_work(scale):
     n_rows = max(32768 // scale, 8)
     al = min(8192, n_rows)
     assert rows["edit_distance_m128_n2048"].denom == al * 128 * 2048
-    assert rows["edit_distance_m128_n2048"].roofline.int_ops == al * 2048 * (11 * 4 + 5)
+    assert rows["edit_distance_m128_n2048"].roofline.int_ops == al * 2048 * (11 * 4 + 2)
     W = min(n_rows * 512, 4 << 20)
     R, wrb, H = ref_align.stream_rows_plan(W, 21)
     nt = sum(min(max(16 * W - 16 * wrb * r, 0), 16 * (wrb + H)) for r in range(R))

@@ -741,14 +741,43 @@ def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-@pytest.mark.parametrize("nb", (1, 2, 3, 4, 8, 9, 12))
+#: (nb, rows) reaching every form of #19's launch plan (``K.myers_plan``) at
+#: the nb edges of each: the solo forms (1 and 2 blocks in one lane), 4-32
+#: lanes of one block, 2-16 lanes of two (once one-block lanes would pass
+#: one warp a scheduler, or two in semiglobal mode), and the scratch form
+#: past 32 blocks.  A row count (d, e) is the card's lanes of one warp a
+#: scheduler over d, plus e: d = pow2(nb) is the first batch whose
+#: one-block lanes pass one warp a scheduler (two blocks a lane but in
+#: semiglobal mode), d = pow2(nb) / 2 the first past two (in every mode).  37 rows is no multiple of a thread block's pairs, nor are the
+#: large counts
+MYERS_FORM_CASES = ((1, 37), (2, 37), (3, 37), (3, (4, 1)), (4, 37), (4, (4, 3)), (4, (2, 3)), (5, 37), (8, 37),
+                    (8, (8, 7)), (9, 37), (12, 37), (16, 37), (16, (16, 1)), (17, 37), (32, 37), (32, (32, 1)),
+                    (32, (16, 1)), (33, 37))
+
+
+def _wave_lanes(device) -> int:
+    """Lanes of one warp on each of the card's schedulers (4 an SM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count * 4 * 32
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+@pytest.mark.parametrize("nb, R", MYERS_FORM_CASES)
 @pytest.mark.parametrize("b5", (False, True))
-def test_myers_kernel_matches_plain(cuda_device, b5, nb):
-    """Random Peq planes, lengths past the query's blocks and the text rows,
-    every mode, a contiguous and a stride-0 Peq, and stream rows with a halo
-    over several rows: the kernel bit for bit equal to its plain version."""
-    rng = np.random.default_rng(100 * nb + b5)
-    peq, ql, words, tl, errs = _myers_inputs(rng, b5, nb)
+def test_myers_kernel_matches_plain(cuda_device, b5, nb, R):
+    """Every form of the launch plan: random Peq planes, lengths past the
+    query's blocks and the text rows, every mode, a contiguous and a
+    stride-0 Peq, and stream rows with a halo over several rows: the kernel
+    bit for bit equal to its plain version."""
+    if not isinstance(R, int):
+        d, R = R[0], _wave_lanes(cuda_device) // R[0] + R[1]
+        for mode in K.MYERS_MODES:  # two blocks a lane where the budget is passed
+            two = mode != "semiglobal" or d < _pow2(nb)
+            assert (K.myers_plan(nb, R, mode, cuda_device)[1] == 2) == two, (nb, R, mode)
+    rng = np.random.default_rng(100 * nb + b5 + R)
+    peq, ql, words, tl, errs = _myers_inputs(rng, b5, nb, R)
     for mode in K.MYERS_MODES:
         if mode == "ends" and b5:
             continue
@@ -767,6 +796,26 @@ def test_myers_kernel_matches_plain(cuda_device, b5, nb):
             got = K.myers_scan(sp.to(cuda_device), sq.to(cuda_device), words.to(cuda_device), st.to(cuda_device), 8,
                                8 + 30, mode=mode, b5=b5)
             assert all(_same(g, w) for g, w in zip(_as_tuple(got), _as_tuple(want))), (mode, "stream rows")
+
+
+@pytest.mark.parametrize("mode", tuple(K.MYERS_MODES))
+def test_myers_plan_rules(cuda_device, mode):
+    """``cn_myers_plan``, the plan ``csrc/align.cu`` launches with: one lane
+    for one or two blocks; else pow2(nb) lanes of one block while the batch's
+    lanes fit one warp a scheduler of this card (two in semiglobal mode),
+    half as many of two past that; the scratch form only past 32 blocks."""
+    wave = _wave_lanes(cuda_device)
+    budget = 2 * wave if mode == "semiglobal" else wave
+    for nb in range(0, 70):
+        for rows in (1, 37, 528, 529, 1000, 2112, 2113, wave // 4, wave // 4 + 1, wave // 2 + 1, wave, 10**6):
+            lanes, bpl = K.myers_plan(nb, rows, mode, cuda_device)
+            if nb > 32:
+                want = (1, 0)
+            elif nb <= 2:
+                want = (1, max(nb, 1))
+            else:
+                want = (_pow2(nb), 1) if rows * _pow2(nb) <= budget else (_pow2(nb) // 2, 2)
+            assert (lanes, bpl) == want, (nb, rows, wave, mode)
 
 
 def test_align_cuda_matches_cpu(cuda_device):
