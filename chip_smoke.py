@@ -31,7 +31,33 @@ calls:
      file;
   8. the stream path (run after the planar path, before the timing of
      phase 6), with its own launch counts: #1, #2, #3, #5 and #6 must each
-     launch on it.
+     launch on it;
+  9. the parallel layer (run after phase 8, before the timing of phase 6),
+     with its own launch counts, taken from the layer's own calls alone (the
+     one-device calls its checks compare against and its timing loops count
+     nothing): #1-#6, #8-#10, #12, #13 and #19 must each launch on it.
+
+The parallel layer (``parallel/mesh.py``, ``data_parallel.py``,
+``longseq.py`` and ``runtime.initialize``), every result against the
+one-device call on the same input, bit for bit: ``data_parallel_encode`` /
+``_decode`` and their checked forms (and the ``mxu`` variant) on phase 3's
+resident batches, on the default mesh (one card) and on 4 logical shards
+of cuda:0 (``make_mesh(4, 1, devices=[cuda:0] * 4)``), gathered and not,
+against ``TwoBitCodec``/``Base5Codec``; the one-card encode timed beside
+``TwoBitCodec.encode`` (within 2%: no copy); ``kmer_spectrum`` (k = 8),
+``sketch_sharded`` (k = 21), ``match_counts`` and ``edit_distances`` (the
+align batch) on 4 shards; ``encode_long_*``/``decode_long_*`` on a
+248,956,422-nt sequence with seq = 1 and 4 against ``api.n_to_bits`` /
+``n_to_bits2``, and ``match_long(_b5)`` with hits planted across every
+seam against ``search.match_positions(_b5)`` on the whole stream;
+``best_match_long`` on one 2,200,000,007-nt 2-bit stream (550 MB of random
+words from the seed, past 2^31, which ``best_match_stream`` refuses) on 2
+seq shards, a 32-nt query planted with one substitution across the seam
+and past 2^31 and another only past 2^31, each (1, the planted end) and the
+host Myers agreeing on its window; and a two-rank ``StreamingEncoder`` run
+on cuda:0 (two processes joined by ``runtime.initialize``, 10,000 x 150-nt
+reads), each rank's residue class, the union against the host oracle.
+Each step's seconds and the SM clock are printed.
 
 The stream path (``parallel/runtime.py``: ``StreamingEncoder`` and
 ``StreamingDecoder`` on the card, pinned copies on their own upload and
@@ -317,6 +343,15 @@ STREAM_LONG_READS, STREAM_FAULT_BATCHES = 32768, 6
 #: with validate), 2-bit decode (#2), base-5 encode (#5) and decode (#6)
 STREAM_KERNELS = ("encode_2bit_nt4", "decode_2bit_nt4", "encode_2bit_nt4_checked", "encode_b5_stream",
                   "decode_b5_stream")
+#: phase 9, the parallel layer: logical shards of the data and seq axes on the
+#: one card; one 2-bit stream past 2^31 nt (550 MB of words) for
+#: best_match_long on 2 seq shards; the two-rank stream's reads
+PAR_SHARDS, BIG_NT = 4, 2_200_000_007
+RANK_READS, RANK_NT, RANK_BATCH = 10_000, 150, 1024
+#: the kernels the parallel layer's path must launch: #1-#6, #8-#10, #12, #13, #19
+PARALLEL_KERNELS = ("encode_2bit_nt4", "decode_2bit_nt4", "encode_2bit_nt4_checked", "encode_2bit_nt4_mxu",
+                    "encode_b5_stream", "decode_b5_stream", "match_bits_stream", "match_b5_bits_stream",
+                    "kmer_codes_planar", "kmer_hashes_planar_pair", "hist_codes", "myers_scan")
 
 
 class SmokeFailure(Exception):
@@ -2977,6 +3012,325 @@ def phase_approx(rng, workdir: str, reads2: list, reads5: list) -> None:
             say("phase 5 approx base-5: --all exits 1 (2-bit only)")
 
 
+# --- the parallel layer: phase 9 ----------------------------------------------------
+
+#: one rank of the two-rank stream: joins the group through runtime.initialize,
+#: streams the seeded reads and saves what it sank
+_RANK_CHILD = r"""
+import sys
+import numpy as np
+import torch
+from cute_nucleotides_tpu_torch.parallel import runtime
+from cute_nucleotides_tpu_torch.utils import io as io_lib
+
+rank, coord, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+n, nt, batch, seed = (int(a) for a in sys.argv[4:8])
+info = runtime.initialize(coord, 2, rank)
+assert info["process_count"] == 2 and info["process_index"] == rank, info
+seqs = np.random.default_rng(seed).choice(np.frombuffer(b"ACGTUacgtu", np.uint8), (n, nt))
+records = [io_lib.Record(b"r%d" % i, seqs[i].tobytes()) for i in range(n)]
+idx, rows = [], []
+
+
+def sink(words, b):
+    idx.extend(b.indices[: b.count].tolist())
+    rows.append(np.array(words[: b.count]))
+
+
+agg = runtime.StreamingEncoder(batch_size=batch, max_len=160, codec="2bit").run(records, sink=sink)
+np.savez(out, idx=np.asarray(idx, np.int64), words=np.concatenate(rows), reads=agg["total_reads"],
+         device=torch.cuda.current_device(), host=agg["host_id"], hosts=agg["num_hosts"])
+torch.distributed.destroy_process_group()
+"""
+
+
+def _start_ranks(workdir: str, seed: int):
+    """The two-rank stream's processes, started; both run on cuda:0, the one
+    card (``process_id % device_count``)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        coord = f"localhost:{s.getsockname()[1]}"
+    outs = [os.path.join(workdir, f"rank{r}.npz") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", _RANK_CHILD, str(r), coord, outs[r], str(RANK_READS),
+                               str(RANK_NT), str(RANK_BATCH), str(seed)],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),  # this checkout's package
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    return procs, outs
+
+
+def _check_ranks(procs, outs, seed: int) -> str:
+    """Each rank sank exactly its residue class of records, on cuda:0; the
+    union is every record, bit-exact against the host oracle."""
+    from cute_nucleotides_tpu_torch.ops import native
+
+    seen = {}
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        try:
+            _, err = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.communicate()
+            raise SmokeFailure(f"rank {r} of the two-rank stream did not finish in 300 s") from None
+        check(p.returncode == 0, f"rank {r} of the two-rank stream exited {p.returncode}: {err[-2000:]}")
+        z = np.load(out)
+        check((int(z["host"]), int(z["hosts"]), int(z["device"])) == (r, 2, 0),
+              f"rank {r}: host {z['host']} of {z['hosts']} on cuda:{z['device']}")
+        idx = z["idx"]
+        check(int(z["reads"]) == idx.size and bool(np.all(idx % 2 == r)), f"rank {r} sank another residue class")
+        seen.update(zip(idx.tolist(), z["words"]))
+    check(sorted(seen) == list(range(RANK_READS)), "the two ranks did not cover every record once")
+    seqs = np.random.default_rng(seed).choice(np.frombuffer(ALPHABET, np.uint8), (RANK_READS, RANK_NT))
+    per = -(-RANK_NT // 32)
+    for i in range(RANK_READS):
+        check(np.array_equal(seen[i].view("<u8")[:per], native.n_to_bits(seqs[i])),
+              f"record {i} of the two-rank stream != host oracle")
+    return f"{RANK_READS} x {RANK_NT}-nt reads; ranks 0 and 1 each sank their residue class on cuda:0 == host oracle"
+
+
+def _random_seq() -> np.ndarray:
+    """A chr1-length ACGTUN sequence (upper and lower case) made on the card
+    from the seed, on the host."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 29)
+    table = torch.tensor(np.frombuffer(ALPHABET_N, np.uint8), device="cuda")
+    return table[torch.randint(0, len(ALPHABET_N), (CHR1_NT,), device="cuda", generator=g)].cpu().numpy()
+
+
+def _with_hits(seq: np.ndarray, starts: list, text: bytes) -> np.ndarray:
+    out = seq.copy()
+    for p in starts:
+        out[p : p + len(text)] = np.frombuffer(text, np.uint8)
+    return out
+
+
+def _seam_starts(units: int, per: int, shards: int, back: int) -> list:
+    """Starts ``back`` nt before each seam of a halo scan's split of
+    ``units`` words of ``per`` nt over ``shards``."""
+    w_eq = -(-units // shards)
+    return [per * k * w_eq - back for k in range(1, shards)]
+
+
+class _LayerLaunches:
+    """The launches of the calls made through it alone: ``tally(fn, *args)``
+    calls ``fn`` and adds the change of every wrapper's count, so the
+    one-device calls that a check compares against, and timing loops, count
+    nothing."""
+
+    def __init__(self):
+        from cute_nucleotides_tpu_torch.ops import kernels as K
+
+        self.wrappers = K.WRAPPERS
+        self.counts = {w.__name__: 0 for w in K.WRAPPERS}
+
+    def __call__(self, fn, *args, **kwargs):
+        before = [w.launches for w in self.wrappers]
+        out = fn(*args, **kwargs)
+        for w, n in zip(self.wrappers, before):
+            self.counts[w.__name__] += w.launches - n
+        return out
+
+
+def _lap(label: str, t0: float, laps: list) -> float:
+    t = time.perf_counter()
+    laps.append(f"{label} {t - t0:.2f} s")
+    return t
+
+
+def phase_parallel(rng, x, x5, words, words5, align_words, workdir: str) -> dict:
+    """The parallel layer on the card (``parallel/``), each result against
+    the one-device call on the same input, bit for bit: the data-parallel
+    codec forms on the phase-3 batches on the default (one-card) mesh and on
+    PAR_SHARDS logical shards of cuda:0, gathered and not, with the
+    one-card encode timed beside ``TwoBitCodec.encode``; ``kmer_spectrum``
+    (k = 8), ``sketch_sharded`` (k = 21), ``match_counts`` and
+    ``edit_distances`` (phase 3's align batch); the long-sequence mode on a
+    chr1-length sequence (seq = 1 and PAR_SHARDS) against the api and the
+    one-stream search, hits planted across every seam; ``best_match_long``
+    on one 2-bit stream of BIG_NT nt (past 2^31, which ``best_match_stream``
+    refuses) on 2 seq shards, against the planted ends and the host Myers
+    on their windows; and a two-rank ``StreamingEncoder`` run on cuda:0.
+    Returns the launches of the parallel layer's own calls (the checked ones,
+    not the one-device calls nor the timing loops)."""
+    import torch
+
+    from cute_nucleotides_tpu_torch import api, interop, parallel
+    from cute_nucleotides_tpu_torch.models import Base5Codec, TwoBitCodec
+    from cute_nucleotides_tpu_torch.ops import align, kmer, native, search, sketch
+    from cute_nucleotides_tpu_torch.parallel import longseq
+
+    t_start = t0 = time.perf_counter()
+    laps = []
+    say(f"phase 9 parallel: clocks {_clocks()}")
+    dev = torch.device("cuda", 0)
+    one = parallel.default_mesh()
+    check(one.size == torch.cuda.device_count() == 1, f"default mesh {one} on {torch.cuda.device_count()} cards")
+    data4 = parallel.make_mesh(PAR_SHARDS, 1, devices=[dev] * PAR_SHARDS)
+    seq4 = parallel.make_mesh(1, PAR_SHARDS, devices=[dev] * PAR_SHARDS)
+    dp = parallel.data_parallel
+    par = _LayerLaunches()
+
+    def same(got, want, what):
+        full = got.full()
+        check(full.shape == want.shape and torch.equal(full.view(torch.uint8), want.contiguous().view(torch.uint8)),
+              f"{what} != the one-device call")
+        if got.replicated:  # logical shards of one card share one gathered tensor
+            check(all(s.data_ptr() == full.data_ptr() for s in got.shards), f"{what}: a gather copied per shard")
+
+    # the data-parallel codec forms on the 1-Gnt batches
+    c2, c5 = TwoBitCodec(device="cuda"), Base5Codec(device="cuda")
+    w2 = c2.encode(x)
+    w2b, bad2 = c2.encode_checked(x)
+    d2 = c2.decode(w2)
+    for mesh, name in ((one, "one card"), (data4, f"data={PAR_SHARDS}")):
+        for gather in (False, True):
+            got = par(dp.data_parallel_encode, x, mesh=mesh, gather=gather)
+            check(len(got.shards) == mesh.shape["data"], f"encode on {name}: {got}")
+            same(got, w2, f"data_parallel_encode on {name}, gather={gather}")
+            same(par(dp.data_parallel_decode, got, mesh=mesh, gather=gather), d2,
+                 f"data_parallel_decode on {name}, gather={gather}")
+            del got
+        got, nbad = par(dp.data_parallel_encode_checked, x, mesh=mesh, gather=True)
+        same(got, w2b, f"data_parallel_encode_checked on {name}")
+        check(int(np.asarray(nbad)) == int(bad2.any()), f"encode_checked flag on {name}")
+        same(par(dp.data_parallel_encode, x, mesh=mesh, variant="mxu"), w2, f"data_parallel_encode mxu on {name}")
+        del got
+    del d2, w2b
+    one_ms = [_time_ms(fn, 20) for fn in (lambda: c2.encode(x), lambda: dp.data_parallel_encode(x, mesh=one),
+                                          lambda: dp.data_parallel_encode(x, mesh=one), lambda: c2.encode(x))]
+    codec_ms, dp_ms = min(one_ms[0], one_ms[3]), min(one_ms[1], one_ms[2])
+    check(dp_ms <= 1.02 * codec_ms, f"data_parallel_encode on one card {dp_ms:.4f} ms > 1.02 x TwoBitCodec.encode "
+          f"{codec_ms:.4f} ms")
+    w5, d5 = c5.encode(x5), c5.decode(words5)
+    w5b, bad5 = c5.encode_checked(x5)
+    d5b, dbad5 = c5.decode_checked(words5)
+    for mesh, name in ((one, "one card"), (data4, f"data={PAR_SHARDS}")):
+        same(par(dp.data_parallel_encode, x5, mesh=mesh, codec="base5", gather=True), w5, f"base-5 encode on {name}")
+        same(par(dp.data_parallel_decode, words5, mesh=mesh, codec="base5"), d5, f"base-5 decode on {name}")
+        got, nbad = par(dp.data_parallel_encode_checked, x5, mesh=mesh, codec="base5")
+        same(got, w5b, f"base-5 encode_checked on {name}")
+        check(int(np.asarray(nbad)) == int(bad5), f"base-5 encode_checked flag on {name}")
+        got, nbad = par(dp.data_parallel_decode_checked, words5, mesh=mesh)
+        same(got, d5b, f"base-5 decode_checked on {name}")
+        check(int(np.asarray(nbad)) == int(dbad5), f"base-5 decode_checked flag on {name}")
+        del got
+    del w5, d5, w5b, d5b
+    torch.cuda.empty_cache()
+    t0 = _lap("data-parallel codec", t0, laps)
+    rank_seed = SEED + 31  # the two ranks run beside the checks below (none of them is timed)
+    procs, outs = _start_ranks(workdir, rank_seed)
+
+    # the analyses: a psum, an all_gather + merge, two all_gathers
+    rows, nt = words.shape[0], 16 * words.shape[1]
+    same(par(parallel.kmer_spectrum, words, nt, 8, mesh=data4), kmer.kmer_histogram_batch(words, nt, 8),
+         f"kmer_spectrum k=8 on data={PAR_SHARDS}")
+    sub = words[: rows // 16]
+    lens = torch.full((sub.shape[0],), nt, dtype=torch.int32, device="cuda")
+    lens[1::7] = nt - 1000
+    same(par(parallel.sketch_sharded, sub, lens, SKETCH_K, SKETCH_S, mesh=data4),
+         sketch.bottom_k_sketch_batch(sub, lens, SKETCH_K, SKETCH_S), f"sketch_sharded k={SKETCH_K}")
+    few = words[: 8 * PAR_SHARDS]
+    same(par(parallel.match_counts, few, nt, b"GANTACA", mesh=data4), search.match_counts_batch(few, nt, b"GANTACA"),
+         "match_counts")
+    qw, tw = align_words
+    ql = torch.full((qw.shape[0],), ALIGN_QM, dtype=torch.int32, device="cuda")
+    tl = torch.full((qw.shape[0],), ALIGN_TN, dtype=torch.int32, device="cuda")
+    same(par(parallel.edit_distances, qw, ALIGN_QM, tw, ALIGN_TN, mesh=data4), align.edit_distance_packed(qw, ql, tw, tl),
+         f"edit_distances on data={PAR_SHARDS}")
+    torch.cuda.empty_cache()
+    t0 = _lap("analyses", t0, laps)
+
+    # the long-sequence mode on a chr1-length sequence, hits across every seam
+    q2, q5 = b"GATTACANGATTACANGATTACANGATTACAN", b"CATTAG?NCATTAG?NCATTAG?N"  # N, ? the wildcards
+    s2 = _seam_starts(2 * -(-CHR1_NT // 32), 16, PAR_SHARDS, 7)
+    s5 = _seam_starts(-(-CHR1_NT // 27), 27, PAR_SHARDS, 11)
+    seq = _random_seq()  # the two codecs' seams lie within a few nt, so each plants into its own copy
+    seq2, seq5 = _with_hits(seq, s2, q2.replace(b"N", b"T")), _with_hits(seq, s5, q5.replace(b"?", b"G"))
+    del seq
+    want2, want5 = api.n_to_bits(seq2), api.n_to_bits2(seq5)
+    back2, back5 = api.bits_to_n(want2, CHR1_NT), api.bits_to_n2(want5, CHR1_NT)
+    for mesh, name in ((one, "seq=1"), (seq4, f"seq={PAR_SHARDS}")):
+        check(np.array_equal(par(longseq.encode_long_2bit, seq2, mesh=mesh), want2), f"encode_long_2bit on {name}")
+        check(np.array_equal(par(longseq.encode_long_b5, seq5, mesh=mesh), want5), f"encode_long_b5 on {name}")
+        check(np.array_equal(par(longseq.decode_long_2bit, want2, CHR1_NT, mesh=mesh), back2), f"decode_long_2bit {name}")
+        check(np.array_equal(par(longseq.decode_long_b5, want5, CHR1_NT, mesh=mesh), back5), f"decode_long_b5 {name}")
+    del back2, back5, seq2, seq5
+    t0 = _lap("long encode/decode", t0, laps)
+    ww2, ww5 = interop.u64_to_tensor(want2, "cuda"), interop.u64_to_tensor(want5, "cuda")
+    m2, m5 = search.match_positions(ww2, CHR1_NT, q2), search.match_positions_b5(ww5, CHR1_NT, q5)
+    check(set(s2) <= set(m2.tolist()) and set(s5) <= set(m5.tolist()), "a hit planted across a seam is missing")
+    for mesh, name in ((one, "seq=1"), (seq4, f"seq={PAR_SHARDS}")):
+        check(np.array_equal(par(longseq.match_long, want2, CHR1_NT, q2, mesh=mesh), m2), f"match_long on {name}")
+        check(np.array_equal(par(longseq.match_long, ww2, CHR1_NT, q2, mesh=mesh), m2), f"match_long of words, {name}")
+        check(np.array_equal(par(longseq.match_long_b5, ww5, CHR1_NT, q5, mesh=mesh), m5), f"match_long_b5 on {name}")
+    del ww2, ww5, want2, want5
+    t0 = _lap("long search", t0, laps)
+    say(f"phase 9 parallel: data_parallel_encode/decode(_checked) and mxu on one card and on data={PAR_SHARDS} "
+        f"logical shards, gathered and not, == the one-device codec on the 1-Gnt batches (flags "
+        f"{int(bad2.any())}/{int(bad5)}/{int(dbad5)}); on one card data_parallel_encode {dp_ms:.4f} ms against "
+        f"TwoBitCodec.encode {codec_ms:.4f} ms ({100 * (dp_ms / codec_ms - 1):+.2f}%; runs "
+        f"{'/'.join(f'{v:.4f}' for v in one_ms)}, CUDA events, 20 calls each); kmer_spectrum, sketch_sharded, "
+        f"match_counts, edit_distances == their one-device calls; encode/decode_long (both codecs) and "
+        f"match_long(_b5) ({m2.size} and {m5.size} hits, {len(s2)} and {len(s5)} planted across the seams) on "
+        f"{CHR1_NT} nt, seq=1 and {PAR_SHARDS}, == api and the one-stream search")
+
+    # best_match_long past 2^31 nt: one random 2-bit stream, a 32-nt query
+    # planted with one substitution across the seam of 2 seq shards (before
+    # 2^31) and after 2^31; a second query only after 2^31
+    W = -(-BIG_NT // 16)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 37)
+    big = torch.randint(-2**31, 2**31, (W,), dtype=torch.int64, device="cuda", generator=g).to(torch.int32)
+    big[-1] &= (1 << (2 * (BIG_NT % 16))) - 1  # the bits past the last nt zero
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    qa, qb = (rng.choice(acgt, 32).tobytes() for _ in range(2))
+    seam = 16 * -(-W // 2)
+    planted = {}
+    for q, p in ((qa, seam - 16), (qa, 16 * ((2**31 + 16_000) // 16)), (qb, 16 * ((2**31 + 12_444_432) // 16))):
+        mut = bytearray(q)
+        mut[16] = b"ACGT"[(b"ACGT".index(mut[16]) + 1) % 4]  # one substitution mid-query
+        big[p // 16 : p // 16 + 2] = interop.u64_to_tensor(native.n_to_bits(bytes(mut)), "cuda").view(torch.int32)
+        planted.setdefault(q, p)
+    big = big.view(torch.uint32)
+    two = parallel.make_mesh(1, 2, devices=[dev] * 2)
+    torch.cuda.synchronize()
+    t0 = _lap(f"{BIG_NT}-nt stream", t0, laps)
+    found = []
+    for q, p in planted.items():
+        (d, e), wall, prof = _profiled(lambda q=q: par(longseq.best_match_long, big, BIG_NT, q, mesh=two))
+        lo = p - 64
+        win = big[lo // 16 : (p + 96) // 16].view(torch.int32)
+        w64 = interop.tensor_to_u64(torch.cat([win, win.new_zeros(win.numel() % 2)]).view(torch.uint32))
+        wd, we = native.best_match(q, native.bits_to_n(w64, p + 96 - lo).tobytes())
+        check((d, e) == (1, p + 32) == (wd, lo + we), f"best_match_long {q.decode()}: {(d, e)}; planted end "
+              f"{p + 32}; the host Myers on its window {(wd, lo + we)}")
+        found.append(f"{q.decode()} -> (1, {e}): {_breakdown(wall, prof)}")
+    big_ms = _time_ms(lambda: longseq.best_match_long(big, BIG_NT, qa, mesh=two), 3)
+    try:
+        align.best_match_stream(big, BIG_NT, qa)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    check(refused is not None and "parallel.longseq.best_match_long" in refused,
+          f"best_match_stream on {BIG_NT} nt: {refused}")
+    del big
+    torch.cuda.empty_cache()
+    t0 = _lap("best_match_long", t0, laps)
+    say(f"phase 9 best_match_long over {BIG_NT} nt on 2 seq shards == (1, the planted end), the host Myers on "
+        f"each window agreeing: {'; '.join(found)}")
+    say(f"  best_match_long, {BIG_NT} nt: {big_ms:.4f} ms a call (CUDA events over 3 calls, the host merge "
+        f"included); best_match_stream refuses the stream: {refused}")
+    say(f"phase 9 two-rank stream: {_check_ranks(procs, outs, rank_seed)}")
+    _lap("two-rank stream (the rest of its wait)", t0, laps)
+    say(f"phase 9 parallel done ({time.perf_counter() - t_start:.1f} s with the checks: {'; '.join(laps)}); "
+        f"clocks {_clocks()}")
+    return par.counts
+
+
 # --- the bench: phase 7 -------------------------------------------------------------
 
 def phase_bench(workdir: str) -> None:
@@ -3457,6 +3811,17 @@ def main() -> int:
             say(f"phase 8 launches by the stream path: {launches['stream']}")
             check(all(launches["stream"][k] > 0 for k in STREAM_KERNELS),
                   f"a kernel of the stream path never launched: {launches['stream']}")
+            torch.cuda.empty_cache()
+            K.reset_launch_counts()
+            # counted from the parallel layer's own calls alone: phase 9's
+            # one-device calls and timing loops launch the same kernels
+            launches["parallel"] = phase_parallel(rng, x, x5, words, words5, align_words, workdir)
+            torch.cuda.synchronize()
+            in_all = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+            say(f"phase 9 launches by the parallel layer's path: {launches['parallel']} (phase 9 in all, "
+                f"its one-device calls and timing loops included: {in_all})")
+            check(all(launches["parallel"][k] > 0 for k in PARALLEL_KERNELS),
+                  f"a kernel of the parallel layer's path never launched: {launches['parallel']}")
             torch.cuda.empty_cache()
             times = phase_timing(errors, x, words, x5, words5, chr1_words, chr1_pairs, planes, align_words, card)
             kernels_line = json.dumps({"kernels": [

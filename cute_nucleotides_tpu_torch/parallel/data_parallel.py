@@ -1,22 +1,34 @@
-"""Data-parallel batch codec, on one device.
+"""Data-parallel batch codec and analyses over a device mesh.
 
-The port's counterpart of ``cute_nucleotides_tpu/parallel/data_parallel.py``
-(``ShardedCodec``), for one ``torch.device``.  Reads are independent, so the
-reference's data parallelism is pure sharding of the batch axis; on one
-device a shard is the whole batch, and its ``psum`` of per-shard flags is the
-batch's own flag.  The functional ``data_parallel_*`` forms and the
-collectives across devices come with the multi-device layer.
+The port's counterpart of ``cute_nucleotides_tpu/parallel/data_parallel.py``,
+with its names, arguments, messages and results.  Reads are independent, so
+data parallelism is pure sharding: the batch axis is split over the mesh's
+``"data"`` axis, each device runs the single-device function on its shard,
+and no collective runs unless the result is replicated (gathered, summed).
+A result is a :class:`.mesh.ShardedTensor`: sharded, each shard on its own
+device, or replicated on every device of the axis; ``np.asarray`` of it is
+the reference's array.  On a mesh of one device a shard is the whole batch
+(a view, no copy) and a gather is the identity.
 
-On a CUDA device the codec keeps three streams, so that the copies of one
-batch overlap the kernels and copies of its neighbours:
+Two entry styles:
 
-* **upload**: :meth:`ShardedCodec.shard` copies a host batch into pinned
-  memory and from there, non-blocking, onto the card;
-* **compute**: it waits on the upload (an event), and the codec's kernels
-  launch on it (the kernel wrappers launch on the current stream);
-* **download**: :meth:`ShardedCodec.fetch` waits on the compute stream,
-  copies the results into fresh pinned host tensors and records a done
-  event.
+* the functional forms :func:`data_parallel_encode` / ``_decode`` (and
+  their checked forms, one ``psum`` of per-shard flags), and the analyses
+  :func:`kmer_spectrum` (``psum``), :func:`match_counts` and
+  :func:`edit_distances` (``all_gather``) and :func:`sketch_sharded`
+  (``all_gather`` + ``ops.sketch.merge_many``);
+* :class:`ShardedCodec`, the object API: over a mesh (``mesh=``) it calls
+  the functional forms; bound to one device (``device=``, the streaming
+  runtime's form) it keeps three CUDA streams, so that the copies of one
+  batch overlap the kernels and copies of its neighbours:
+
+  - **upload**: :meth:`ShardedCodec.shard` copies a host batch into pinned
+    memory and from there, non-blocking, onto the card;
+  - **compute**: it waits on the upload (an event), and the codec's kernels
+    launch on it (the kernel wrappers launch on the current stream);
+  - **download**: :meth:`ShardedCodec.fetch` waits on the compute stream,
+    copies the results into fresh pinned host tensors and records a done
+    event.
 
 A tensor made on one stream and read on another is marked with
 ``record_stream``, so the caching allocator cannot hand its block to a later
@@ -33,8 +45,16 @@ import numpy as np
 import torch
 
 from .. import models
+from ..ops import align as align_ops, kmer as kmer_ops, search as search_ops, sketch as sketch_ops
+from . import mesh as mesh_lib
+from .mesh import ShardedTensor
 
 CODECS = ("2bit", "base5")
+
+
+def _check_codec(codec: str) -> None:
+    if codec not in CODECS:
+        raise ValueError(f"unknown codec {codec!r}; expected one of {CODECS}")
 
 
 def resolve_stream_device(tier: str, device=None) -> torch.device:
@@ -47,28 +67,262 @@ def resolve_stream_device(tier: str, device=None) -> torch.device:
     return models.resolve_device(tier, device)
 
 
-class ShardedCodec:
-    """A batch codec bound to one device: host batch in, device words out.
+def _codec_on(device: torch.device, codec: str, tier: str = "auto", variant=None, decode_variant=None):
+    """A batch codec on ``device``: ``None`` variants take the tier's
+    default, as the reference's take its tier's champion; the base-5 codec
+    has none."""
+    if codec == "2bit":
+        return models.TwoBitCodec(tier=tier, encode_variant=variant, decode_variant=decode_variant, device=device)
+    return models.Base5Codec(tier=tier, device=device)
 
-    ``encode``/``decode`` return device tensors (u32 words, or u8 ASCII);
-    ``encode_checked``/``decode_checked`` add an int32 scalar tensor, the
-    count of flagged shards (0 iff the batch is clean: the reference's
-    ``psum`` over one shard).  ``gather=True`` is the identity on one device:
-    the one shard already holds the whole batch.
+
+def _codecs(mesh: mesh_lib.Mesh, codec: str, tier: str, variant=None, decode_variant=None) -> tuple[tuple, list]:
+    """The data axis's devices, and a batch codec on each (one per distinct
+    device)."""
+    _check_codec(codec)
+    devices = mesh.axis_devices(mesh_lib.DATA_AXIS)
+    return devices, mesh_lib.per_device(devices, lambda d: _codec_on(d, codec, tier, variant, decode_variant))
+
+
+def _out(shards: list, devices, gather: bool) -> ShardedTensor:
+    return mesh_lib.all_gather(shards, devices) if gather else ShardedTensor(shards)
+
+
+def _flags(flags: list, devices) -> ShardedTensor:
+    """The replicated int32 count of flagged shards (a ``psum``)."""
+    return mesh_lib.psum([f.any().to(torch.int32) for f in flags], devices)
+
+
+def data_parallel_encode(
+    reads,
+    *,
+    mesh: mesh_lib.Mesh | None = None,
+    codec: str = "2bit",
+    variant: str | None = None,
+    tier: str = "auto",
+    gather: bool = False,
+) -> ShardedTensor:
+    """Encode u8[B, L] with B sharded over the mesh's data axis.
+
+    ``gather=True`` all-gathers the packed words so the result is
+    replicated (otherwise it stays sharded, the right form for a streaming
+    sink).  B must divide by the data-axis size; L by 16 (2bit) / 27
+    (base5).  ``variant=None`` resolves to the tier's default.
+    """
+    mesh = mesh if mesh is not None else mesh_lib.default_mesh()
+    devices, codecs = _codecs(mesh, codec, tier, variant)
+    shards = mesh_lib.shard_rows(reads, devices)
+    return _out([c.encode(x) for c, x in zip(codecs, shards)], devices, gather)
+
+
+def data_parallel_decode(
+    words,
+    *,
+    mesh: mesh_lib.Mesh | None = None,
+    codec: str = "2bit",
+    variant: str | None = None,
+    tier: str = "auto",
+    gather: bool = False,
+) -> ShardedTensor:
+    """Decode packed u32[B, W] with B sharded over the mesh's data axis."""
+    mesh = mesh if mesh is not None else mesh_lib.default_mesh()
+    devices, codecs = _codecs(mesh, codec, tier, decode_variant=variant)
+    shards = mesh_lib.shard_rows(words, devices)
+    return _out([c.decode(w) for c, w in zip(codecs, shards)], devices, gather)
+
+
+def data_parallel_encode_checked(
+    reads,
+    *,
+    mesh: mesh_lib.Mesh | None = None,
+    codec: str = "2bit",
+    variant: str | None = None,
+    tier: str = "auto",
+    gather: bool = False,
+) -> tuple[ShardedTensor, ShardedTensor]:
+    """Encode + input-validity flag over the data axis: u8[B, L] ->
+    (packed words sharded, replicated i32 flagged-shard count).
+
+    The per-shard check rides the encode kernel's one read of the input on
+    the cuda tier (#3, or #4's checked form for ``variant="mxu"``, for
+    2-bit; #5 for base-5) and is a validity pass on the torch tier; one
+    ``psum`` merges the flags (0 iff every byte on every device is in the
+    codec's alphabet, either case).
+    """
+    mesh = mesh if mesh is not None else mesh_lib.default_mesh()
+    devices, codecs = _codecs(mesh, codec, tier, variant)
+    done = [c.encode_checked(x) for c, x in zip(codecs, mesh_lib.shard_rows(reads, devices))]
+    return _out([w for w, _ in done], devices, gather), _flags([f for _, f in done], devices)
+
+
+def data_parallel_decode_checked(
+    words,
+    *,
+    mesh: mesh_lib.Mesh | None = None,
+    tier: str = "auto",
+) -> tuple[ShardedTensor, ShardedTensor]:
+    """Base-5 decode + stream-integrity flag over the data axis: u32[B, 2W]
+    -> (u8[B, 27W] sharded, replicated i32 flagged-shard count).
+
+    The per-shard check is fused into the decode kernel (#6) on the cuda
+    tier and is the standalone scan on the torch tier; one ``psum`` merges
+    the flags.  Base-5 only -- every 2-bit pattern decodes, there is
+    nothing to check.
+    """
+    mesh = mesh if mesh is not None else mesh_lib.default_mesh()
+    devices, codecs = _codecs(mesh, "base5", tier)
+    done = [c.decode_checked(w) for c, w in zip(codecs, mesh_lib.shard_rows(words, devices))]
+    return ShardedTensor([d for d, _ in done]), _flags([f for _, f in done], devices)
+
+
+def _lengths(lengths, B: int) -> torch.Tensor:
+    """Per-read lengths (a scalar or one a read) as int32[B] (contiguous:
+    the kernels read them in place)."""
+    return torch.as_tensor(lengths).to(torch.int32).reshape(-1).broadcast_to((B,)).contiguous()
+
+
+def _rows_and_lengths(mesh, x, lengths) -> tuple[tuple, list, list]:
+    """The data axis's devices, ``x``'s row shards and each shard's lengths
+    (int32, on its device)."""
+    devices = (mesh if mesh is not None else mesh_lib.default_mesh()).axis_devices(mesh_lib.DATA_AXIS)
+    shards = mesh_lib.shard_rows(x, devices)
+    return devices, shards, _split_like(_lengths(lengths, sum(s.shape[0] for s in shards)), shards)
+
+
+def _split_like(v: torch.Tensor, shards: list) -> list[torch.Tensor]:
+    """``v`` cut into one block per shard (as many rows as it), each on the
+    shard's device."""
+    out, at = [], 0
+    for s in shards:
+        out.append(v[at : at + s.shape[0]].to(s.device))
+        at += s.shape[0]
+    return out
+
+
+def kmer_spectrum(
+    words,
+    lengths,
+    k: int,
+    *,
+    mesh: mesh_lib.Mesh | None = None,
+    canonical: bool = False,
+) -> ShardedTensor:
+    """Global k-mer spectrum of a packed read batch over the mesh:
+    u32[B, W] + lengths -> replicated i32[4**k].
+
+    The batch axis shards over the data axis, each device runs the
+    planar-extraction + histogram pass on its shard
+    (:func:`..ops.kmer.kmer_histogram_batch`: #10 and #13 for k <= 8;
+    windows never span reads, padding masked via ``lengths``), and one
+    ``psum`` merges the 4**k-bin spectra.  B must divide by the data-axis
+    size; k <= 12 (dense bins).
+    """
+    devices, shards, lens = _rows_and_lengths(mesh, words, lengths)
+    hists = [kmer_ops.kmer_histogram_batch(w, n, k, canonical=canonical) for w, n in zip(shards, lens)]
+    return mesh_lib.psum(hists, devices)
+
+
+def match_counts(
+    words,
+    lengths,
+    query: bytes,
+    *,
+    mesh: mesh_lib.Mesh | None = None,
+    codec: str = "2bit",
+) -> ShardedTensor:
+    """Distributed grep over a packed read batch: per-read occurrence
+    counts of ``query``, batch sharded over the data axis, all-gathered to
+    a replicated i32[B].  ``codec="base5"`` scans interleaved base-5 rows
+    (``N`` literal, ``?`` wildcard); B must divide by the data-axis size."""
+    if isinstance(query, str):
+        query = query.encode()
+    devices, shards, lens = _rows_and_lengths(mesh, words, lengths)
+    counts = [search_ops.match_counts_batch(w, n, bytes(query), codec=codec) for w, n in zip(shards, lens)]
+    return mesh_lib.all_gather(counts, devices)
+
+
+def sketch_sharded(
+    words,
+    lengths,
+    k: int,
+    s: int,
+    *,
+    mesh: mesh_lib.Mesh | None = None,
+    canonical: bool = True,
+) -> ShardedTensor:
+    """Mesh-wide bottom-``s`` MinHash sketch of a packed read batch:
+    u32[B, W] + lengths -> replicated sorted u32[s].
+
+    Each device sketches its read shard (:func:`..ops.sketch.
+    bottom_k_sketch_batch`; the hashes are #12 for k >= 16), and because
+    sketches union-merge associatively, one ``all_gather`` of the D tiny
+    ``u32[s]`` summaries + one distinct pass
+    (:func:`..ops.sketch.merge_many`) replaces any pairwise reduction tree.
+    B must divide by the data-axis size.
+    """
+    devices, shards, lens = _rows_and_lengths(mesh, words, lengths)
+    sketches = [sketch_ops.bottom_k_sketch_batch(w, n, k, s, canonical=canonical) for w, n in zip(shards, lens)]
+
+    def merged(dev):  # the all_gather (stacked, u32[D, s]), then the merge
+        return sketch_ops.merge_many(torch.stack([sk.to(dev) for sk in sketches]))
+
+    return ShardedTensor(mesh_lib.per_device(devices, merged), replicated=True)
+
+
+def edit_distances(
+    qwords,
+    qlens,
+    twords,
+    tlens,
+    *,
+    mesh: mesh_lib.Mesh | None = None,
+    codec: str = "2bit",
+) -> ShardedTensor:
+    """Distributed batched edit distance: pair rows sharded over the data
+    axis (pairs are independent -- pure data parallelism), global
+    Levenshtein per pair (#19) all-gathered to a replicated i32[B].
+    ``codec="base5"`` runs the digit-alphabet scan (``N`` literal).  B must
+    divide by the data-axis size."""
+    fn = align_ops.edit_distance_packed_b5 if codec == "base5" else align_ops.edit_distance_packed
+    devices, qs, qls = _rows_and_lengths(mesh, qwords, qlens)
+    ts = mesh_lib.shard_rows(twords, devices)
+    tls = _split_like(_lengths(tlens, sum(t.shape[0] for t in ts)), ts)
+    return mesh_lib.all_gather([fn(q, ql, t, tl) for q, ql, t, tl in zip(qs, qls, ts, tls)], devices)
+
+
+class ShardedCodec:
+    """A batch codec bound to a mesh or to one device: host batch in, device
+    words out.
+
+    Over a mesh (``mesh=``) it shards the batch axis over the data axis and
+    returns :class:`.mesh.ShardedTensor` results from the functional forms
+    above.  Bound to one device (``device=``, or neither: the card) it
+    returns device tensors (u32 words, or u8 ASCII) and runs on three CUDA
+    streams; ``gather=True`` is then the identity (the one shard already
+    holds the whole batch).  ``encode_checked``/``decode_checked`` add an
+    int32 count of flagged shards (0 iff the batch is clean: the reference's
+    ``psum``).
     """
 
     def __init__(
         self,
         codec: str = "2bit",
         *,
+        mesh: mesh_lib.Mesh | None = None,
         device=None,
         variant: str | None = None,
         decode_variant: str | None = None,
         tier: str = "auto",
     ):
-        if codec not in CODECS:
-            raise ValueError(f"unknown codec {codec!r}; expected one of {CODECS}")
-        self.codec = codec
+        _check_codec(codec)
+        if mesh is not None and device is not None:
+            raise ValueError("ShardedCodec takes mesh= or device=, not both")
+        self.codec, self.mesh = codec, mesh
+        self.upload = self.compute = self.download = None
+        if mesh is not None:  # the functional forms resolve tier and variants per device
+            self.device, self.model, self.tier = None, None, tier
+            self.variant, self.decode_variant = variant, decode_variant
+            return
         self.device = resolve_stream_device(tier, device)
         self.tier = models.resolve_tier(tier, self.device)
         if codec == "2bit":
@@ -80,16 +334,20 @@ class ShardedCodec:
             self.variant = self.decode_variant = None
         if self.device.type == "cuda":
             self.upload, self.compute, self.download = (torch.cuda.Stream(self.device) for _ in range(3))
-        else:
-            self.upload = self.compute = self.download = None
 
     def _computing(self):
         return torch.cuda.stream(self.compute) if self.compute is not None else contextlib.nullcontext()
 
-    def shard(self, host_batch) -> torch.Tensor:
-        """Place a host batch (u8[B, L] reads or u32[B, 2W] words) on the
-        device.  On the card: a pinned, non-blocking copy on the upload
-        stream, which the compute stream waits on."""
+    def _forms(self) -> dict:
+        return {"mesh": self.mesh, "codec": self.codec, "tier": self.tier}
+
+    def shard(self, host_batch):
+        """Place a host batch (u8[B, L] reads or u32[B, 2W] words): over the
+        mesh's data axis, or on the device -- on the card a pinned,
+        non-blocking copy on the upload stream, which the compute stream
+        waits on."""
+        if self.mesh is not None:
+            return ShardedTensor(mesh_lib.shard_rows(host_batch, self.mesh.axis_devices(mesh_lib.DATA_AXIS)))
         t = torch.from_numpy(np.ascontiguousarray(host_batch))
         if self.upload is None:
             return t.to(self.device)
@@ -100,23 +358,29 @@ class ShardedCodec:
         x.record_stream(self.compute)
         return x
 
-    def encode(self, reads: torch.Tensor, gather: bool = False) -> torch.Tensor:
+    def encode(self, reads, gather: bool = False):
+        if self.mesh is not None:
+            return data_parallel_encode(reads, variant=self.variant, gather=gather, **self._forms())
         with self._computing():
             return self.model.encode(reads)
 
-    def decode(self, words: torch.Tensor, gather: bool = False) -> torch.Tensor:
+    def decode(self, words, gather: bool = False):
+        if self.mesh is not None:
+            return data_parallel_decode(words, variant=self.decode_variant, gather=gather, **self._forms())
         with self._computing():
             return self.model.decode(words)
 
-    def encode_checked(self, reads: torch.Tensor, gather: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    def encode_checked(self, reads, gather: bool = False):
         """Encode + input-validity flag: (words, int32 count of flagged
         shards).  The check rides the encode kernel's one read of the input
         on the cuda tier (#3 or the checked #4 for 2-bit, #5 for base-5)."""
+        if self.mesh is not None:
+            return data_parallel_encode_checked(reads, variant=self.variant, gather=gather, **self._forms())
         with self._computing():
             words, bad = self.model.encode_checked(reads)
             return words, bad.any().to(torch.int32)
 
-    def decode_checked(self, words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def decode_checked(self, words):
         """Decode + stream-integrity flag (base-5 only): (ASCII, int32 count
         of flagged shards).  Fused into the decode kernel (#6) on the cuda
         tier."""
@@ -125,6 +389,8 @@ class ShardedCodec:
                 "decode_checked is base-5 only: every 2-bit pattern decodes, "
                 "there is no invalid state to detect"
             )
+        if self.mesh is not None:
+            return data_parallel_decode_checked(words, mesh=self.mesh, tier=self.tier)
         with self._computing():
             dec, bad = self.model.decode_checked(words)
             return dec, bad.to(torch.int32)
@@ -132,7 +398,8 @@ class ShardedCodec:
     def fetch(self, *tensors: torch.Tensor) -> tuple[tuple[torch.Tensor, ...], torch.cuda.Event | None]:
         """Copy device results to the host: fresh pinned tensors, filled on
         the download stream after the compute stream's work, and the event
-        that marks their end (None off the card, where nothing is copied).
+        that marks their end (None off the card and over a mesh, where
+        nothing is copied).
         Each call's host tensors are its own until the caller drops them."""
         if self.download is None:
             return tensors, None

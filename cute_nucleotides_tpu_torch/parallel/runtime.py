@@ -5,8 +5,8 @@ The port's counterpart of ``cute_nucleotides_tpu/parallel/runtime.py``, with
 its names, arguments, delivery semantics, stage timers, error types and
 messages:
 
-* :func:`initialize` reports the process topology (one process; runs across
-  processes come with the multi-device layer).
+* :func:`initialize` joins a ``torch.distributed`` group across processes
+  (one card a rank) and reports the topology; a no-op for one process.
 * :class:`StreamingEncoder` is the production loop: host-sharded record
   stream -> fixed-shape padded batches -> pinned H2D copy -> codec kernel ->
   D2H copy -> sink callback, with per-batch metrics and a resumable
@@ -35,6 +35,7 @@ lost or skipped.
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -64,17 +65,38 @@ def initialize(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> dict:
-    """Report the process topology; a no-op for a single process.
+    """Initialize the multi-process runtime; a no-op for a single process.
 
-    Runs across processes (a coordinator address, or more than one process)
-    are not ported yet and raise ``NotImplementedError``.  A process group
-    the caller initialized with ``torch.distributed`` is reported as it is.
+    With a coordinator address (``host:port``) or more than one process,
+    join a ``torch.distributed`` group: NCCL where CUDA is available, gloo
+    where it is not.  The address gives ``tcp://<address>``; without one
+    the group comes from the environment (``env://``, as ``torchrun`` sets
+    ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``), and so
+    do the process count and id where they are omitted (so under
+    ``torchrun`` a call without arguments joins).  A coordinator
+    address alone never reports a one-process topology: it joins a group or
+    raises.  On the card, the process's local rank picks its card
+    (``LOCAL_RANK``, else ``process_id % device_count``), so each rank's
+    streams run on their own card and consume their own residue class of
+    records.  A group the caller initialized is reported as it is.
     """
+    env = os.environ
+    if num_processes is None and "WORLD_SIZE" in env:
+        num_processes = int(env["WORLD_SIZE"])
+    if process_id is None and "RANK" in env:
+        process_id = int(env["RANK"])
     if coordinator_address is not None or (num_processes is not None and num_processes > 1):
-        raise NotImplementedError(
-            "multi-process initialization is not ported yet (ROADMAP queue 1 item 4, the multi-device "
-            "layer); initialize a torch.distributed process group yourself to shard a stream over ranks"
-        )
+        if not torch.distributed.is_initialized():
+            torch.distributed.init_process_group(
+                "nccl" if torch.cuda.is_available() else "gloo",
+                init_method=f"tcp://{coordinator_address}" if coordinator_address is not None else "env://",
+                world_size=num_processes if num_processes is not None else -1,
+                rank=process_id if process_id is not None else -1,
+            )
+        if torch.cuda.is_available():
+            local = os.environ.get("LOCAL_RANK")
+            rank = torch.distributed.get_rank()
+            torch.cuda.set_device(int(local) if local is not None else rank % torch.cuda.device_count())
     host_id, num_hosts = _host_topology()
     local = torch.cuda.device_count() if torch.cuda.is_available() else 1
     return {

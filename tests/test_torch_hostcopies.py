@@ -46,6 +46,18 @@ def test_spec_constants_equal_reference():
     assert spec.num_words_b5(55) == ref_spec.num_words_b5(55) and spec.cdiv(-7, 3) == ref_spec.cdiv(-7, 3)
 
 
+@pytest.mark.parametrize("n", [0, 1, 26, 27, 28, 31, 32, 33, 2**31 + 5, 2**33])
+def test_spec_helpers_of_the_long_sequence_mode_equal_reference(n):
+    """The helpers ``parallel/longseq.py`` plans its shards with: word counts
+    past 2^31 nt, and the u32-pair views both ways."""
+    assert spec.num_words_2bit(n) == ref_spec.num_words_2bit(n)
+    assert spec.num_words_b5(n) == ref_spec.num_words_b5(n)
+    w = (np.arange(min(n, 40), dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15)).reshape(-1)
+    pairs = spec.u64_to_u32_pairs(w)
+    assert np.array_equal(pairs, ref_spec.u64_to_u32_pairs(w))
+    assert np.array_equal(spec.u32_pairs_to_u64(pairs.reshape(-1)), ref_spec.u32_pairs_to_u64(pairs.reshape(-1)))
+
+
 def test_codec_cpp_is_the_reference_source():
     port_src = os.path.join(os.path.dirname(port_native_build.__file__), "codec.cpp")
     ref_src = os.path.join(os.path.dirname(ref_native_init), "codec.cpp")

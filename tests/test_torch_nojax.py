@@ -114,6 +114,12 @@ from cute_nucleotides_tpu_torch.ops import kmer, sketch
 w2 = interop.u64_to_tensor(api.n_to_bits(hay5))
 assert int(sketch.frac_sketch(w2, len(hay5), 21, scale=1, cap=64)[1]) == 13
 assert kmer.minimizers(w2, len(hay5), 15, 10)[0].any()
+import numpy as np, torch
+from cute_nucleotides_tpu_torch import parallel
+from cute_nucleotides_tpu_torch.parallel import longseq
+mesh = parallel.make_mesh(2, 2, devices=[torch.device("cpu")] * 4)
+assert np.array_equal(longseq.encode_long_b5(hay5, mesh=mesh), api.n_to_bits2(hay5))
+assert longseq.best_match_long(api.n_to_bits(hay5), len(hay5), b"GATTACA", mesh=mesh) == (0, 12)
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 print("JAX", loaded)
 assert not loaded, loaded

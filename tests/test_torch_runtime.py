@@ -264,14 +264,22 @@ def test_a_stream_that_asks_for_the_card_raises_without_it(monkeypatch):
         data_parallel.ShardedCodec("base5")
 
 
-def test_initialize_single_process_matches_reference():
+def test_initialize_single_process_matches_reference(monkeypatch):
     got, want = rt.initialize(), ref_rt.initialize()
     assert set(got) == set(want) and got["process_index"] == want["process_index"] == 0
     assert got["process_count"] == want["process_count"] == 1
     assert got["global_devices"] == got["local_devices"] >= 1
+    # a coordinator address, or more than one process, joins a group (gloo
+    # without CUDA; the two-process runs are tests/test_torch_multihost.py)
+    joined = []
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.distributed, "init_process_group", lambda *a, **kw: joined.append((a, kw)))
     for kwargs in ({"coordinator_address": "localhost:1234"}, {"num_processes": 2, "process_id": 0}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-            rt.initialize(**kwargs)
+        rt.initialize(**kwargs)
+    assert joined == [(("gloo",), {"init_method": "tcp://localhost:1234", "world_size": -1, "rank": -1}),
+                      (("gloo",), {"init_method": "env://", "world_size": 2, "rank": 0})]
 
 
 def test_an_initialized_process_group_shards_the_stream(monkeypatch):
