@@ -35,7 +35,8 @@ calls:
   9. the parallel layer (run after phase 8, before the timing of phase 6),
      with its own launch counts, taken from the layer's own calls alone (the
      one-device calls its checks compare against and its timing loops count
-     nothing): #1-#6, #8-#10, #12, #13 and #19 must each launch on it.
+     nothing): #1-#6, #8-#10, #12, #13 and #19 must each launch on it, in
+     this process and in each of the two rank processes.
 
 The parallel layer (``parallel/mesh.py``, ``data_parallel.py``,
 ``longseq.py`` and ``runtime.initialize``), every result against the
@@ -57,7 +58,18 @@ and past 2^31 and another only past 2^31, each (1, the planted end) and the
 host Myers agreeing on its window; and a two-rank ``StreamingEncoder`` run
 on cuda:0 (two processes joined by ``runtime.initialize``, 10,000 x 150-nt
 reads), each rank's residue class, the union against the host oracle.
-Each step's seconds and the SM clock are printed.
+The same two ranks, a gloo group on cuda:0 (NCCL takes one rank a card),
+then run every form on their process mesh -- data = 2 (``default_mesh()``)
+and seq = 2, one entry a rank -- with the whole input: the codec forms
+(sharded and gathered, both codecs, the checked forms, ``ShardedCodec``) on
+phase 3's batch shapes, the analyses, and the long-sequence mode at chr1
+length, each rank's own shard or whole result against its own one-device
+call, bit for bit, each timed beside it; each rank's own launches of #1-#6,
+#8-#10, #12, #13 and #19 must be above 0, and its collectives are counted
+by backend.  A one-rank NCCL group in this process runs
+``data_parallel_encode(gather=True)``, ``kmer_spectrum`` and
+``best_match_long`` over its process mesh and is destroyed before phase 6
+times anything.  Each step's seconds and the SM clock are printed.
 
 The stream path (``parallel/runtime.py``: ``StreamingEncoder`` and
 ``StreamingDecoder`` on the card, pinned copies on their own upload and
@@ -252,7 +264,9 @@ PRIMER = b"GTTCAGAGTTCTACAGTCCG"  # 20 nt
 #: (ALIGN_B pairs of ALIGN_QM x ALIGN_TN nt); phase 4 a query of
 #: ALIGN_STREAM_M nt over the chr1-length stream; phase 5 plants PRIMER in
 #: every APPROX_EVERY-th read and holds base-5 lines to the DP oracle on
-#: every APPROX_B5_EVERY-th record.  ALIGN_M holds the block seams and
+#: every APPROX_B5_EVERY-th record; ``--cigar`` runs on the first
+#: APPROX_CIGAR_READS of them (its host tracebacks took 29 s on all 200,000).
+#: ALIGN_M holds the block seams and
 #: each edge of #19's lane forms at 37 pairs (1 block solo; 2, 4, 8, 16 and
 #: 32 lanes of one block up to 64, 128, 256, 512 and 1024 nt; the scratch
 #: form past that)
@@ -260,7 +274,7 @@ ALIGN_M = (1, 2, 20, 21, 31, 32, 33, 63, 64, 65, 128, 129, 256, 257, 512, 513, 1
 ALIGN_PAIRS, ALIGN_B, ALIGN_QM, ALIGN_TN, ALIGN_STREAM_M = 37, 8192, 128, 2048, 21
 #: pairs of phase 2's stride-0 runs at the long lane forms' edges
 MYERS_LONG_PAIRS = 8
-APPROX_EVERY, APPROX_B5_EVERY = 10, 997
+APPROX_EVERY, APPROX_B5_EVERY, APPROX_CIGAR_READS = 10, 997, 40_000
 #: phase 2's rows of the approx CLI's shape: reads of APPROX_NT nt in rows of
 #: 16 u32 (2-bit) or 6 u32 pairs (base-5), PRIMER's 20 nt as one broadcast Peq
 APPROX_ROWS, APPROX_NT = 4096, 150
@@ -2938,10 +2952,11 @@ def phase_approx(rng, workdir: str, reads2: list, reads5: list) -> None:
     """``approx`` through the CLI on the phase-5 reads of both codecs, with
     PRIMER planted in a share of them: ``--both``, ``--both --max-errors
     2``, ``--all --max-errors 1`` (2-bit; base-5 must refuse it with exit 1)
-    and ``--both --cigar``.  2-bit lines against ``native.best_match`` per
-    record and strand (``--all`` against a numpy DP of every end); base-5
-    against the port's DP oracle on a sample; each CIGAR applied to its
-    window must give the line's distance."""
+    and ``--both --cigar`` (on the first APPROX_CIGAR_READS records).  2-bit
+    lines against ``native.best_match`` per record and strand (``--all``
+    against a numpy DP of every end); base-5 against the port's DP oracle
+    on a sample; each CIGAR applied to its window must give the line's
+    distance."""
     from cute_nucleotides_tpu_torch import cli
     from cute_nucleotides_tpu_torch.ops import align, native
 
@@ -2951,7 +2966,8 @@ def phase_approx(rng, workdir: str, reads2: list, reads5: list) -> None:
         t0 = time.perf_counter()
         names, seqs = _approx_reads(rng, records)
         nup = os.path.join(workdir, f"approx_{codec}.nup")
-        cli.write_nup(nup, names, [encode(s) for s in seqs], [len(s) for s in seqs], codec)
+        packed, lens = [encode(s) for s in seqs], [len(s) for s in seqs]
+        cli.write_nup(nup, names, packed, lens, codec)
         if codec == "2bit":
             want = []
             for s in seqs:
@@ -2981,9 +2997,12 @@ def phase_approx(rng, workdir: str, reads2: list, reads5: list) -> None:
         kept = [json.loads(line) for line in text.splitlines()]
         check(rc == 0 and kept == [g for g in got if g["dist"] <= 2],
               f"{label} approx --both --max-errors 2: exit {rc}, {len(kept)} lines")
-        rc, text, wall3, _ = _run_cli(["approx", nup, PRIMER.decode(), "--both", "--cigar"])
+        head = os.path.join(workdir, f"approx_{codec}_head.nup")
+        n_head = APPROX_CIGAR_READS
+        cli.write_nup(head, names[:n_head], packed[:n_head], lens[:n_head], codec)
+        rc, text, wall3, _ = _run_cli(["approx", head, PRIMER.decode(), "--both", "--cigar"])
         lines = [json.loads(line) for line in text.splitlines()]
-        check(rc == 0 and [{k: g[k] for k in ("record", "dist", "end", "strand")} for g in lines] == got,
+        check(rc == 0 and [{k: g[k] for k in ("record", "dist", "end", "strand")} for g in lines] == got[:n_head],
               f"{label} approx --both --cigar: exit {rc}, lines differ from --both")
         for i, g in enumerate(lines):
             if g["end"] == 0:
@@ -2994,7 +3013,8 @@ def phase_approx(rng, workdir: str, reads2: list, reads5: list) -> None:
             check((edits, qn, tn) == (g["dist"], len(q), g["end"] - g["start"]),
                   f"{label} --cigar line {i}: {g} applies as {edits} edits over {qn} and {tn} nt")
         say(f"phase 5 approx {label}: --both --max-errors 2 kept {len(kept)} records ({wall2:.2f} s); --both "
-            f"--cigar ({wall3:.2f} s): every CIGAR applied to its window gives the line's distance")
+            f"--cigar on the first {n_head} records ({wall3:.2f} s): every CIGAR applied to its window gives the "
+            f"line's distance")
         if codec == "2bit":
             rc, text, wall4, _ = _run_cli(["approx", nup, PRIMER.decode(), "--all", "--max-errors", "1"])
             want_all = [{"record": names[k].decode(), "end": int(e), "strand": "+"}
@@ -3014,58 +3034,241 @@ def phase_approx(rng, workdir: str, reads2: list, reads5: list) -> None:
 
 # --- the parallel layer: phase 9 ----------------------------------------------------
 
-#: one rank of the two-rank stream: joins the group through runtime.initialize,
-#: streams the seeded reads and saves what it sank
-_RANK_CHILD = r"""
-import sys
-import numpy as np
-import torch
-from cute_nucleotides_tpu_torch.parallel import runtime
-from cute_nucleotides_tpu_torch.utils import io as io_lib
-
-rank, coord, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-n, nt, batch, seed = (int(a) for a in sys.argv[4:8])
-info = runtime.initialize(coord, 2, rank)
-assert info["process_count"] == 2 and info["process_index"] == rank, info
-seqs = np.random.default_rng(seed).choice(np.frombuffer(b"ACGTUacgtu", np.uint8), (n, nt))
-records = [io_lib.Record(b"r%d" % i, seqs[i].tobytes()) for i in range(n)]
-idx, rows = [], []
-
-
-def sink(words, b):
-    idx.extend(b.indices[: b.count].tolist())
-    rows.append(np.array(words[: b.count]))
-
-
-agg = runtime.StreamingEncoder(batch_size=batch, max_len=160, codec="2bit").run(records, sink=sink)
-np.savez(out, idx=np.asarray(idx, np.int64), words=np.concatenate(rows), reads=agg["total_reads"],
-         device=torch.cuda.current_device(), host=agg["host_id"], hosts=agg["num_hosts"])
-torch.distributed.destroy_process_group()
-"""
+#: the flag that runs this script as one rank of phase 9's two-rank group
+PARALLEL_RANK = "--parallel-rank"
 
 
 def _start_ranks(workdir: str, seed: int):
-    """The two-rank stream's processes, started; both run on cuda:0, the one
-    card (``process_id % device_count``)."""
+    """Phase 9's two ranks, started: this script with PARALLEL_RANK
+    (:func:`rank_child`), run from its own checkout; both on cuda:0, the one
+    card, joined by a gloo group (NCCL takes one rank a card)."""
     import socket
 
     with socket.socket() as s:
         s.bind(("localhost", 0))
         coord = f"localhost:{s.getsockname()[1]}"
     outs = [os.path.join(workdir, f"rank{r}.npz") for r in range(2)]
-    procs = [subprocess.Popen([sys.executable, "-c", _RANK_CHILD, str(r), coord, outs[r], str(RANK_READS),
-                               str(RANK_NT), str(RANK_BATCH), str(seed)],
-                              cwd=os.path.dirname(os.path.abspath(__file__)),  # this checkout's package
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    script = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, script, PARALLEL_RANK, str(r), coord, outs[r], str(seed)],
+                              cwd=os.path.dirname(script), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
     return procs, outs
 
 
-def _check_ranks(procs, outs, seed: int) -> str:
-    """Each rank sank exactly its residue class of records, on cuda:0; the
-    union is every record, bit-exact against the host oracle."""
+def rank_child(rank: int, coord: str, out: str, seed: int) -> int:
+    """One rank of phase 9's two-rank group on cuda:0.  It joins a gloo group
+    of its own (``runtime.initialize`` takes it as it is), streams the seeded
+    reads (its residue class), then calls every form of the parallel layer
+    on the process mesh -- data = 2 (``default_mesh()``) and seq = 2, one
+    entry a rank -- with the whole input, each against its own one-device
+    call on that input, bit for bit: its own shard of a sharded result, the
+    whole of a replicated one, ``np.asarray`` of a sharded one raising.
+    Every form is timed once (CUDA events around the checked call, after a
+    barrier, so both ranks start it together, and after the one-device call
+    that warmed its kernels), and every one-device call at its second
+    call.  Saves what it sank, the launches of the layer's own
+    calls, its collectives by backend and the times.  A failing check or
+    collective raises (a collective waits 120 s for its peer)."""
+    import datetime
+
+    import torch
+
+    from cute_nucleotides_tpu_torch import api, interop, parallel
+    from cute_nucleotides_tpu_torch.models import Base5Codec, TwoBitCodec
+    from cute_nucleotides_tpu_torch.ops import align, kmer, search, sketch
+    from cute_nucleotides_tpu_torch.parallel import longseq, mesh as mesh_lib, runtime
+    from cute_nucleotides_tpu_torch.utils import io as io_lib
+
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://{coord}", world_size=2, rank=rank,
+                                         timeout=datetime.timedelta(seconds=120))
+    info = runtime.initialize()
+    mesh = parallel.default_mesh()
+    check(info == {"process_index": rank, "process_count": 2, "local_devices": 1, "global_devices": 2}
+          and mesh.size == 2 and mesh.rank == rank, f"rank {rank}: initialize {info}, default mesh {mesh}")
+
+    # the stream: this rank's residue class of the seeded reads
+    seqs = np.random.default_rng(seed).choice(np.frombuffer(ALPHABET, np.uint8), (RANK_READS, RANK_NT))
+    records = [io_lib.Record(b"r%d" % i, seqs[i].tobytes()) for i in range(RANK_READS)]
+    idx, rows = [], []
+
+    def sink(words, b):
+        idx.extend(b.indices[: b.count].tolist())
+        rows.append(np.array(words[: b.count]))
+
+    agg = runtime.StreamingEncoder(batch_size=RANK_BATCH, max_len=160, codec="2bit").run(records, sink=sink)
+
+    par, times, dp = _LayerLaunches(), {}, parallel.data_parallel
+    half = slice(rank * BATCH_ROWS // 2, (rank + 1) * BATCH_ROWS // 2)
+
+    def timed(label, fn, *args, **kwargs):  # a one-device call: its second call timed
+        fn(*args, **kwargs)
+        got, times[label] = _plain_once(lambda: fn(*args, **kwargs))
+        return got
+
+    def form(label, fn, *args, **kwargs):  # the layer's own calls: counted, and timed once, after the one-device
+        torch.distributed.barrier()  # call warmed their kernels and with both ranks starting together
+        got, times[label] = _plain_once(lambda: par(fn, *args, **kwargs))
+        return got
+
+    def u8(t):
+        return t.contiguous().view(torch.uint8)
+
+    def own(got, want, what):
+        check(not got.replicated and got.axis.mine == (rank,) and len(got.shards) == 1, f"rank {rank} {what}: {got}")
+        check(torch.equal(u8(got.shards[0]), u8(want[half])), f"rank {rank} {what}: its shard != its block of the "
+              f"one-device call")
+        try:
+            np.asarray(got)
+        except RuntimeError:
+            return
+        raise SmokeFailure(f"rank {rank} {what}: np.asarray of a sharded value across ranks did not raise")
+
+    def whole(got, want, what):
+        check(got.replicated and torch.equal(u8(got.full()), u8(want)), f"rank {rank} {what} != the one-device call")
+
+    def flag(nbad, bad, what):
+        check(int(np.asarray(nbad)) == int(bad.any()), f"rank {rank} {what}: flag {np.asarray(nbad)} against {bad}")
+
+    # the codec forms on phase 3's batches, made on the card from the seed (every rank the same)
+    x = _make_batch(seed)
+    c2 = TwoBitCodec(device="cuda")
+    w2 = timed("TwoBitCodec.encode", c2.encode, x)
+    own(form("data_parallel_encode", dp.data_parallel_encode, x, mesh=mesh), w2, "data_parallel_encode")
+    whole(form("data_parallel_encode gather", dp.data_parallel_encode, x, mesh=mesh, gather=True), w2,
+          "data_parallel_encode gather")
+    own(form("data_parallel_encode mxu", dp.data_parallel_encode, x, mesh=mesh, variant="mxu"), w2, "encode mxu")
+    d2 = timed("TwoBitCodec.decode", c2.decode, w2)
+    own(form("data_parallel_decode", dp.data_parallel_decode, w2, mesh=mesh), d2, "data_parallel_decode")
+    whole(form("data_parallel_decode gather", dp.data_parallel_decode, w2, mesh=mesh, gather=True), d2,
+          "data_parallel_decode gather")
+    w2b, bad2 = timed("TwoBitCodec.encode_checked", c2.encode_checked, x)
+    for gather in (False, True):
+        got, nbad = form(f"data_parallel_encode_checked{' gather' * gather}", dp.data_parallel_encode_checked, x,
+                         mesh=mesh, gather=gather)
+        (whole if gather else own)(got, w2b, f"data_parallel_encode_checked gather={gather}")
+        flag(nbad, bad2, "data_parallel_encode_checked")
+    sc = parallel.ShardedCodec(mesh=mesh)
+    placed = form("ShardedCodec.shard", sc.shard, x)
+    own(placed, x, "ShardedCodec.shard")
+    enc = form("ShardedCodec.encode", sc.encode, placed)
+    own(enc, w2, "ShardedCodec.encode")
+    own(form("ShardedCodec.decode", sc.decode, enc), d2, "ShardedCodec.decode")
+    whole(form("ShardedCodec.encode gather", sc.encode, placed, gather=True), w2, "ShardedCodec.encode gather")
+    del x, d2, w2b, got, placed, enc
+    torch.cuda.empty_cache()
+    x5 = _make_batch(seed + 1, B5_NT, ALPHABET_N)
+    c5 = Base5Codec(device="cuda")
+    w5 = timed("Base5Codec.encode", c5.encode, x5)
+    own(form("data_parallel_encode b5", dp.data_parallel_encode, x5, mesh=mesh, codec="base5"), w5, "base-5 encode")
+    whole(form("data_parallel_encode b5 gather", dp.data_parallel_encode, x5, mesh=mesh, codec="base5", gather=True),
+          w5, "base-5 encode gather")
+    d5 = timed("Base5Codec.decode", c5.decode, w5)
+    own(form("data_parallel_decode b5", dp.data_parallel_decode, w5, mesh=mesh, codec="base5"), d5, "base-5 decode")
+    whole(form("data_parallel_decode b5 gather", dp.data_parallel_decode, w5, mesh=mesh, codec="base5", gather=True),
+          d5, "base-5 decode gather")
+    w5b, bad5 = timed("Base5Codec.encode_checked", c5.encode_checked, x5)
+    for gather in (False, True):
+        got, nbad = form(f"data_parallel_encode_checked b5{' gather' * gather}", dp.data_parallel_encode_checked, x5,
+                         mesh=mesh, codec="base5", gather=gather)
+        (whole if gather else own)(got, w5b, f"base-5 encode_checked gather={gather}")
+        flag(nbad, bad5, "base-5 encode_checked")
+    d5b, dbad5 = timed("Base5Codec.decode_checked", c5.decode_checked, w5)
+    got, nbad = form("data_parallel_decode_checked", dp.data_parallel_decode_checked, w5, mesh=mesh)
+    own(got, d5b, "data_parallel_decode_checked")
+    flag(nbad, dbad5, "data_parallel_decode_checked")
+    sc5 = parallel.ShardedCodec("base5", mesh=mesh)
+    got, nbad = form("ShardedCodec b5 encode_checked gather", sc5.encode_checked, x5, gather=True)
+    whole(got, w5b, "ShardedCodec base-5 encode_checked gather")
+    flag(nbad, bad5, "ShardedCodec base-5 encode_checked")
+    got, nbad = form("ShardedCodec b5 decode_checked", sc5.decode_checked, w5)
+    own(got, d5b, "ShardedCodec base-5 decode_checked")
+    flag(nbad, dbad5, "ShardedCodec base-5 decode_checked")
+    del x5, d5, w5b, d5b, got
+    torch.cuda.empty_cache()
+
+    # the analyses: a psum, two all_gathers, an all_gather + merge, an all_gather
+    want = timed("kmer_histogram_batch", kmer.kmer_histogram_batch, w2, BATCH_NT, 8)
+    whole(form("kmer_spectrum", parallel.kmer_spectrum, w2, BATCH_NT, 8, mesh=mesh), want, "kmer_spectrum k=8")
+    want = timed("match_counts_batch", search.match_counts_batch, w2[:64], BATCH_NT, b"GANTACA")
+    whole(form("match_counts", parallel.match_counts, w2[:64], BATCH_NT, b"GANTACA", mesh=mesh), want,
+          "match_counts")
+    want = timed("match_counts_batch b5", search.match_counts_batch, w5[:64], B5_NT, b"CAT?AGN", codec="base5")
+    whole(form("match_counts b5", parallel.match_counts, w5[:64], B5_NT, b"CAT?AGN", mesh=mesh, codec="base5"),
+          want, "base-5 match_counts")
+    sub = w2[:256]
+    lens = torch.full((sub.shape[0],), BATCH_NT, dtype=torch.int32, device="cuda")
+    lens[1::7] = BATCH_NT - 1000
+    want = timed("bottom_k_sketch_batch", sketch.bottom_k_sketch_batch, sub, lens, SKETCH_K, SKETCH_S)
+    whole(form("sketch_sharded", parallel.sketch_sharded, sub, lens, SKETCH_K, SKETCH_S, mesh=mesh), want,
+          f"sketch_sharded k={SKETCH_K}")
+    _, _, qw, tw = _align_batch(np.random.default_rng(seed))
+    ql = torch.full((qw.shape[0],), ALIGN_QM, dtype=torch.int32, device="cuda")
+    tl = torch.full((qw.shape[0],), ALIGN_TN, dtype=torch.int32, device="cuda")
+    want = timed("edit_distance_packed", align.edit_distance_packed, qw, ql, tw, tl)
+    whole(form("edit_distances", parallel.edit_distances, qw, ALIGN_QM, tw, ALIGN_TN, mesh=mesh), want,
+          "edit_distances")
+    del w2, w5, sub, qw, tw, want
+    torch.cuda.empty_cache()
+
+    # the long-sequence mode at chr1 length on seq = 2, hits and near hits across the seam
+    seq2 = parallel.make_mesh(1, 2)
+    check(seq2.axis(mesh_lib.SEQ_AXIS).mine == (rank,), f"rank {rank}: seq axis {seq2}")
+    q2, q5 = b"GATTACANGATTACANGATTACANGATTACAN", b"CATTAG?NCATTAG?NCATTAG?N"
+    t2, t5 = q2.replace(b"N", b"T"), q5.replace(b"?", b"G")
+    s2 = _seam_starts(2 * -(-CHR1_NT // 32), 16, 2, 7)
+    s5 = _seam_starts(-(-CHR1_NT // 27), 27, 2, 11)
+    b2, b5 = bytearray(t2), bytearray(t5)
+    b2[16], b5[9] = ord("C"), ord("G")  # one substitution each: the best match across the seam is at distance 1
+    seq = _random_seq()
+    chr2, chr5 = _with_hits(seq, s2, t2), _with_hits(seq, s5, t5)
+    del seq
+    want2 = timed("api.n_to_bits", api.n_to_bits, chr2)
+    check(np.array_equal(form("encode_long_2bit", longseq.encode_long_2bit, chr2, mesh=seq2), want2),
+          f"rank {rank} encode_long_2bit")
+    want5 = timed("api.n_to_bits2", api.n_to_bits2, chr5)
+    check(np.array_equal(form("encode_long_b5", longseq.encode_long_b5, chr5, mesh=seq2), want5),
+          f"rank {rank} encode_long_b5")
+    back2 = timed("api.bits_to_n", api.bits_to_n, want2, CHR1_NT)
+    check(np.array_equal(form("decode_long_2bit", longseq.decode_long_2bit, want2, CHR1_NT, mesh=seq2), back2),
+          f"rank {rank} decode_long_2bit")
+    back5 = timed("api.bits_to_n2", api.bits_to_n2, want5, CHR1_NT)
+    check(np.array_equal(form("decode_long_b5", longseq.decode_long_b5, want5, CHR1_NT, mesh=seq2), back5),
+          f"rank {rank} decode_long_b5")
+    del chr2, chr5, back2, back5
+    ww2, ww5 = interop.u64_to_tensor(want2, "cuda"), interop.u64_to_tensor(want5, "cuda")
+    m2 = timed("search.match_positions", search.match_positions, ww2, CHR1_NT, q2)
+    m5 = timed("search.match_positions_b5", search.match_positions_b5, ww5, CHR1_NT, q5)
+    check(set(s2) <= set(m2.tolist()) and set(s5) <= set(m5.tolist()), f"rank {rank}: a planted hit is missing")
+    check(np.array_equal(form("match_long", longseq.match_long, ww2, CHR1_NT, q2, mesh=seq2), m2),
+          f"rank {rank} match_long")
+    check(np.array_equal(form("match_long_b5", longseq.match_long_b5, ww5, CHR1_NT, q5, mesh=seq2), m5),
+          f"rank {rank} match_long_b5")
+    best2 = timed("align.best_match_stream", align.best_match_stream, ww2, CHR1_NT, bytes(b2))
+    best5 = timed("align.best_match_stream_b5", align.best_match_stream_b5, ww5, CHR1_NT, bytes(b5))
+    check(best2[0] == best5[0] == 1, f"rank {rank}: the planted near hits {best2}, {best5}")
+    check(form("best_match_long", longseq.best_match_long, ww2, CHR1_NT, bytes(b2), mesh=seq2) == best2,
+          f"rank {rank} best_match_long")
+    check(form("best_match_long_b5", longseq.best_match_long_b5, ww5, CHR1_NT, bytes(b5), mesh=seq2) == best5,
+          f"rank {rank} best_match_long_b5")
+    torch.cuda.synchronize()
+    launches, collectives = dict(par.counts), dict(mesh_lib._COLLECTIVES)
+    check(all(launches[k] > 0 for k in PARALLEL_KERNELS), f"rank {rank}: a kernel of the path never launched in the "
+          f"layer's own calls: {launches}")
+    check(set(collectives) == {"gloo"} and collectives["gloo"] > 0, f"rank {rank}: collectives {collectives}")
+    np.savez(out, idx=np.asarray(idx, np.int64), words=np.concatenate(rows), reads=agg["total_reads"],
+             device=torch.cuda.current_device(), host=agg["host_id"], hosts=agg["num_hosts"],
+             report=np.array(json.dumps({"launches": launches, "collectives": collectives, "ms": times})))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _check_ranks(procs, outs, seed: int) -> list:
+    """Each rank passed its checks, sank exactly its residue class of records,
+    on cuda:0; the union is every record, bit-exact against the host oracle.
+    Returns each rank's report (launches, collectives, times)."""
     from cute_nucleotides_tpu_torch.ops import native
 
-    seen = {}
+    seen, reports = {}, []
     for r, (p, out) in enumerate(zip(procs, outs)):
         try:
             _, err = p.communicate(timeout=300)
@@ -3073,21 +3276,22 @@ def _check_ranks(procs, outs, seed: int) -> str:
             for q in procs:
                 q.kill()
                 q.communicate()
-            raise SmokeFailure(f"rank {r} of the two-rank stream did not finish in 300 s") from None
-        check(p.returncode == 0, f"rank {r} of the two-rank stream exited {p.returncode}: {err[-2000:]}")
+            raise SmokeFailure(f"rank {r} of the two-rank group did not finish in 300 s") from None
+        check(p.returncode == 0, f"rank {r} of the two-rank group exited {p.returncode}: {err[-3000:]}")
         z = np.load(out)
         check((int(z["host"]), int(z["hosts"]), int(z["device"])) == (r, 2, 0),
               f"rank {r}: host {z['host']} of {z['hosts']} on cuda:{z['device']}")
         idx = z["idx"]
         check(int(z["reads"]) == idx.size and bool(np.all(idx % 2 == r)), f"rank {r} sank another residue class")
         seen.update(zip(idx.tolist(), z["words"]))
+        reports.append(json.loads(str(z["report"])))
     check(sorted(seen) == list(range(RANK_READS)), "the two ranks did not cover every record once")
     seqs = np.random.default_rng(seed).choice(np.frombuffer(ALPHABET, np.uint8), (RANK_READS, RANK_NT))
     per = -(-RANK_NT // 32)
     for i in range(RANK_READS):
         check(np.array_equal(seen[i].view("<u8")[:per], native.n_to_bits(seqs[i])),
               f"record {i} of the two-rank stream != host oracle")
-    return f"{RANK_READS} x {RANK_NT}-nt reads; ranks 0 and 1 each sank their residue class on cuda:0 == host oracle"
+    return reports
 
 
 def _random_seq() -> np.ndarray:
@@ -3141,6 +3345,58 @@ def _lap(label: str, t0: float, laps: list) -> float:
     return t
 
 
+def _one_rank_nccl(par, c2, x, words, ww2) -> str:
+    """A one-rank NCCL group in this process (``runtime.initialize`` with a
+    coordinator and one process): ``default_mesh()`` is a process mesh of
+    this rank's card, and ``data_parallel_encode(gather=True)``,
+    ``kmer_spectrum`` and ``best_match_long`` run their collectives through
+    ``torch.distributed``'s NCCL backend; each against the one-device call
+    (``c2`` is a ``TwoBitCodec`` on the card), timed once (CUDA events)
+    beside it (timed at its second call).  The group is destroyed before anything else runs."""
+    import socket
+
+    import torch
+
+    from cute_nucleotides_tpu_torch import parallel
+    from cute_nucleotides_tpu_torch.ops import align, kmer
+    from cute_nucleotides_tpu_torch.parallel import longseq, mesh as mesh_lib, runtime
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        coord = f"localhost:{s.getsockname()[1]}"
+    t0 = time.perf_counter()
+    info = runtime.initialize(coord, 1, 0)
+    try:
+        join_s = time.perf_counter() - t0
+        mesh = parallel.default_mesh()
+        check(torch.distributed.get_backend() == "nccl" and mesh.rank == 0 and mesh.size == info["global_devices"] == 1,
+              f"one-rank group: backend {torch.distributed.get_backend()}, initialize {info}, default mesh {mesh}")
+        before = mesh_lib._COLLECTIVES["nccl"]
+        nt, q = 16 * words.shape[1], b"GATTACAGATTACAGATTACA"
+        def second(fn):  # a one-device call, timed at its second call
+            fn()
+            return _plain_once(fn)
+
+        w2, enc_one = second(lambda: c2.encode(x))
+        got, enc_ms = _plain_once(lambda: par(parallel.data_parallel_encode, x, mesh=mesh, gather=True))
+        check(got.replicated and torch.equal(got.full().view(torch.int32), w2.view(torch.int32)),
+              "data_parallel_encode(gather=True) over NCCL != TwoBitCodec.encode")
+        want, hist_one = second(lambda: kmer.kmer_histogram_batch(words, nt, 8))
+        got, hist_ms = _plain_once(lambda: par(parallel.kmer_spectrum, words, nt, 8, mesh=mesh))
+        check(torch.equal(got.full(), want), "kmer_spectrum over NCCL != kmer_histogram_batch")
+        want, best_one = second(lambda: align.best_match_stream(ww2, CHR1_NT, q))
+        got, best_ms = _plain_once(lambda: par(longseq.best_match_long, ww2, CHR1_NT, q, mesh=mesh))
+        check(got == want, f"best_match_long over NCCL {got} != best_match_stream {want}")
+        ran = mesh_lib._COLLECTIVES["nccl"] - before
+        check(ran >= 3, f"{ran} NCCL collectives for three forms")
+    finally:
+        torch.distributed.destroy_process_group()
+    return (f"joined in {join_s:.2f} s ({info}); {ran} NCCL collectives; data_parallel_encode gather {enc_ms:.4f} "
+            f"ms against TwoBitCodec.encode {enc_one:.4f}, kmer_spectrum k=8 {hist_ms:.4f} "
+            f"ms against kmer_histogram_batch {hist_one:.4f}, best_match_long {best_ms:.4f} ms against "
+            f"best_match_stream {best_one:.4f} on {CHR1_NT} nt, each == the one-device call; group destroyed")
+
+
 def phase_parallel(rng, x, x5, words, words5, align_words, workdir: str) -> dict:
     """The parallel layer on the card (``parallel/``), each result against
     the one-device call on the same input, bit for bit: the data-parallel
@@ -3153,9 +3409,11 @@ def phase_parallel(rng, x, x5, words, words5, align_words, workdir: str) -> dict
     one-stream search, hits planted across every seam; ``best_match_long``
     on one 2-bit stream of BIG_NT nt (past 2^31, which ``best_match_stream``
     refuses) on 2 seq shards, against the planted ends and the host Myers
-    on their windows; and a two-rank ``StreamingEncoder`` run on cuda:0.
-    Returns the launches of the parallel layer's own calls (the checked ones,
-    not the one-device calls nor the timing loops)."""
+    on their windows; a one-rank NCCL group (:func:`_one_rank_nccl`); and two
+    ranks on cuda:0 in a gloo group (:func:`rank_child`: the stream and
+    every form on a process mesh).  Returns the launches of the parallel
+    layer's own calls in this process (the checked ones, not the one-device
+    calls nor the timing loops); each rank checks its own."""
     import torch
 
     from cute_nucleotides_tpu_torch import api, interop, parallel
@@ -3221,7 +3479,7 @@ def phase_parallel(rng, x, x5, words, words5, align_words, workdir: str) -> dict
     del w5, d5, w5b, d5b
     torch.cuda.empty_cache()
     t0 = _lap("data-parallel codec", t0, laps)
-    rank_seed = SEED + 31  # the two ranks run beside the checks below (none of them is timed)
+    rank_seed = SEED + 31  # the two ranks run beside the checks below: the times taken below share the card
     procs, outs = _start_ranks(workdir, rank_seed)
 
     # the analyses: a psum, an all_gather + merge, two all_gathers
@@ -3267,8 +3525,10 @@ def phase_parallel(rng, x, x5, words, words5, align_words, workdir: str) -> dict
         check(np.array_equal(par(longseq.match_long, want2, CHR1_NT, q2, mesh=mesh), m2), f"match_long on {name}")
         check(np.array_equal(par(longseq.match_long, ww2, CHR1_NT, q2, mesh=mesh), m2), f"match_long of words, {name}")
         check(np.array_equal(par(longseq.match_long_b5, ww5, CHR1_NT, q5, mesh=mesh), m5), f"match_long_b5 on {name}")
-    del ww2, ww5, want2, want5
     t0 = _lap("long search", t0, laps)
+    nccl = _one_rank_nccl(par, c2, x, words, ww2)
+    del ww2, ww5, want2, want5
+    t0 = _lap("one-rank NCCL group", t0, laps)
     say(f"phase 9 parallel: data_parallel_encode/decode(_checked) and mxu on one card and on data={PAR_SHARDS} "
         f"logical shards, gathered and not, == the one-device codec on the 1-Gnt batches (flags "
         f"{int(bad2.any())}/{int(bad5)}/{int(dbad5)}); on one card data_parallel_encode {dp_ms:.4f} ms against "
@@ -3324,8 +3584,17 @@ def phase_parallel(rng, x, x5, words, words5, align_words, workdir: str) -> dict
         f"each window agreeing: {'; '.join(found)}")
     say(f"  best_match_long, {BIG_NT} nt: {big_ms:.4f} ms a call (CUDA events over 3 calls, the host merge "
         f"included); best_match_stream refuses the stream: {refused}")
-    say(f"phase 9 two-rank stream: {_check_ranks(procs, outs, rank_seed)}")
-    _lap("two-rank stream (the rest of its wait)", t0, laps)
+    say(f"phase 9 one-rank NCCL group: {nccl}")
+    reports = _check_ranks(procs, outs, rank_seed)
+    say(f"phase 9 two ranks on cuda:0 (a gloo group; process mesh data = 2 and seq = 2): every form == the rank's "
+        f"one-device call on the whole input (its own shard, the whole of a gathered result, np.asarray of a "
+        f"sharded one raising); ranks 0 and 1 each sank their residue class of {RANK_READS} x {RANK_NT}-nt reads "
+        f"== host oracle")
+    for r, rep in enumerate(reports):
+        say(f"  rank {r}: collectives {rep['collectives']}; the layer's own launches {rep['launches']}")
+        say(f"  rank {r} ms (CUDA events; each form one call, each one-device call its second): "
+            f"{'; '.join(f'{k} {v:.4f}' for k, v in rep['ms'].items())}")
+    _lap("two ranks (the rest of their wait)", t0, laps)
     say(f"phase 9 parallel done ({time.perf_counter() - t_start:.1f} s with the checks: {'; '.join(laps)}); "
         f"clocks {_clocks()}")
     return par.counts
@@ -3394,7 +3663,8 @@ def _clocks() -> str:
 
 
 def _plain_once(fn) -> tuple:
-    """One call of a plain version between two CUDA events: (its output, ms)."""
+    """One call (a plain version's, or phase 9's) between two CUDA events:
+    (its output, ms)."""
     import torch
 
     torch.cuda.synchronize()
@@ -3851,4 +4121,6 @@ if __name__ == "__main__":
         sys.exit(profile_sketch_chr1())
     if len(args) == 2 and args[0] == PROFILE_STREAM_ENCODE:
         sys.exit(profile_stream_encode(args[1]))
+    if len(args) == 5 and args[0] == PARALLEL_RANK:
+        sys.exit(rank_child(int(args[1]), args[2], args[3], int(args[4])))
     sys.exit(main())

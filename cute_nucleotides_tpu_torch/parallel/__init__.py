@@ -14,11 +14,14 @@ names:
   bit-exactly and scans see a halo of the next shard
   (:mod:`.longseq`).
 * **Across processes** -- :func:`.runtime.initialize` joins a
-  ``torch.distributed`` group (one card a rank), and each rank's streams
-  consume its own residue class of records (:mod:`.runtime`).
+  ``torch.distributed`` group (one card a rank); then :func:`default_mesh`
+  spans the group, the forms above compute each rank's own shards and
+  reduce over the group (NCCL on the card, gloo on the CPU), and each rank's
+  streams consume its own residue class of records (:mod:`.runtime`).
 
-A :class:`.mesh.Mesh` is driven by one process; its collectives run on the
-host (:mod:`.mesh`).
+A :class:`.mesh.Mesh` is driven by one process (its collectives run on the
+host) or spans the ranks of a group (one ``torch.distributed`` collective
+each) (:mod:`.mesh`).
 """
 
 from .mesh import make_mesh, default_mesh  # noqa: F401

@@ -8,7 +8,10 @@ and no collective runs unless the result is replicated (gathered, summed).
 A result is a :class:`.mesh.ShardedTensor`: sharded, each shard on its own
 device, or replicated on every device of the axis; ``np.asarray`` of it is
 the reference's array.  On a mesh of one device a shard is the whole batch
-(a view, no copy) and a gather is the identity.
+(a view, no copy) and a gather is the identity.  On a mesh across processes
+(:mod:`.mesh`) every rank passes the same whole batch, runs the kernels of
+its own shards alone, and the gathers and sums are one collective each over
+the group; a sharded result then holds the rank's own shards.
 
 Two entry styles:
 
@@ -76,21 +79,21 @@ def _codec_on(device: torch.device, codec: str, tier: str = "auto", variant=None
     return models.Base5Codec(tier=tier, device=device)
 
 
-def _codecs(mesh: mesh_lib.Mesh, codec: str, tier: str, variant=None, decode_variant=None) -> tuple[tuple, list]:
-    """The data axis's devices, and a batch codec on each (one per distinct
-    device)."""
+def _codecs(mesh: mesh_lib.Mesh, codec: str, tier: str, variant=None, decode_variant=None) -> tuple:
+    """The data axis (this process's view), and a batch codec on each of
+    its devices (one per distinct device)."""
     _check_codec(codec)
-    devices = mesh.axis_devices(mesh_lib.DATA_AXIS)
-    return devices, mesh_lib.per_device(devices, lambda d: _codec_on(d, codec, tier, variant, decode_variant))
+    axis = mesh.axis(mesh_lib.DATA_AXIS)
+    return axis, mesh_lib.per_device(axis.devices, lambda d: _codec_on(d, codec, tier, variant, decode_variant))
 
 
-def _out(shards: list, devices, gather: bool) -> ShardedTensor:
-    return mesh_lib.all_gather(shards, devices) if gather else ShardedTensor(shards)
+def _out(shards: list, axis, gather: bool) -> ShardedTensor:
+    return mesh_lib.all_gather(shards, axis) if gather else ShardedTensor(shards, axis=axis)
 
 
-def _flags(flags: list, devices) -> ShardedTensor:
+def _flags(flags: list, axis) -> ShardedTensor:
     """The replicated int32 count of flagged shards (a ``psum``)."""
-    return mesh_lib.psum([f.any().to(torch.int32) for f in flags], devices)
+    return mesh_lib.psum([f.any().to(torch.int32) for f in flags], axis)
 
 
 def data_parallel_encode(
@@ -110,9 +113,9 @@ def data_parallel_encode(
     (base5).  ``variant=None`` resolves to the tier's default.
     """
     mesh = mesh if mesh is not None else mesh_lib.default_mesh()
-    devices, codecs = _codecs(mesh, codec, tier, variant)
-    shards = mesh_lib.shard_rows(reads, devices)
-    return _out([c.encode(x) for c, x in zip(codecs, shards)], devices, gather)
+    axis, codecs = _codecs(mesh, codec, tier, variant)
+    shards = mesh_lib.shard_rows(reads, axis)
+    return _out([c.encode(x) for c, x in zip(codecs, shards)], axis, gather)
 
 
 def data_parallel_decode(
@@ -126,9 +129,9 @@ def data_parallel_decode(
 ) -> ShardedTensor:
     """Decode packed u32[B, W] with B sharded over the mesh's data axis."""
     mesh = mesh if mesh is not None else mesh_lib.default_mesh()
-    devices, codecs = _codecs(mesh, codec, tier, decode_variant=variant)
-    shards = mesh_lib.shard_rows(words, devices)
-    return _out([c.decode(w) for c, w in zip(codecs, shards)], devices, gather)
+    axis, codecs = _codecs(mesh, codec, tier, decode_variant=variant)
+    shards = mesh_lib.shard_rows(words, axis)
+    return _out([c.decode(w) for c, w in zip(codecs, shards)], axis, gather)
 
 
 def data_parallel_encode_checked(
@@ -150,9 +153,9 @@ def data_parallel_encode_checked(
     codec's alphabet, either case).
     """
     mesh = mesh if mesh is not None else mesh_lib.default_mesh()
-    devices, codecs = _codecs(mesh, codec, tier, variant)
-    done = [c.encode_checked(x) for c, x in zip(codecs, mesh_lib.shard_rows(reads, devices))]
-    return _out([w for w, _ in done], devices, gather), _flags([f for _, f in done], devices)
+    axis, codecs = _codecs(mesh, codec, tier, variant)
+    done = [c.encode_checked(x) for c, x in zip(codecs, mesh_lib.shard_rows(reads, axis))]
+    return _out([w for w, _ in done], axis, gather), _flags([f for _, f in done], axis)
 
 
 def data_parallel_decode_checked(
@@ -170,9 +173,9 @@ def data_parallel_decode_checked(
     nothing to check.
     """
     mesh = mesh if mesh is not None else mesh_lib.default_mesh()
-    devices, codecs = _codecs(mesh, "base5", tier)
-    done = [c.decode_checked(w) for c, w in zip(codecs, mesh_lib.shard_rows(words, devices))]
-    return ShardedTensor([d for d, _ in done]), _flags([f for _, f in done], devices)
+    axis, codecs = _codecs(mesh, "base5", tier)
+    done = [c.decode_checked(w) for c, w in zip(codecs, mesh_lib.shard_rows(words, axis))]
+    return ShardedTensor([d for d, _ in done], axis=axis), _flags([f for _, f in done], axis)
 
 
 def _lengths(lengths, B: int) -> torch.Tensor:
@@ -181,22 +184,20 @@ def _lengths(lengths, B: int) -> torch.Tensor:
     return torch.as_tensor(lengths).to(torch.int32).reshape(-1).broadcast_to((B,)).contiguous()
 
 
-def _rows_and_lengths(mesh, x, lengths) -> tuple[tuple, list, list]:
-    """The data axis's devices, ``x``'s row shards and each shard's lengths
-    (int32, on its device)."""
-    devices = (mesh if mesh is not None else mesh_lib.default_mesh()).axis_devices(mesh_lib.DATA_AXIS)
-    shards = mesh_lib.shard_rows(x, devices)
-    return devices, shards, _split_like(_lengths(lengths, sum(s.shape[0] for s in shards)), shards)
+def _rows_and_lengths(mesh, x, lengths) -> tuple:
+    """The data axis (this process's view), ``x``'s row shards and each
+    shard's lengths (int32, on its device)."""
+    axis = (mesh if mesh is not None else mesh_lib.default_mesh()).axis(mesh_lib.DATA_AXIS)
+    shards = mesh_lib.shard_rows(x, axis)
+    return axis, shards, _split_like(_lengths(lengths, len(axis.entries) * shards[0].shape[0]), shards, axis)
 
 
-def _split_like(v: torch.Tensor, shards: list) -> list[torch.Tensor]:
-    """``v`` cut into one block per shard (as many rows as it), each on the
-    shard's device."""
-    out, at = [], 0
-    for s in shards:
-        out.append(v[at : at + s.shape[0]].to(s.device))
-        at += s.shape[0]
-    return out
+def _split_like(v: torch.Tensor, shards: list, axis) -> list[torch.Tensor]:
+    """``v`` cut into one equal block a position of the axis, and the
+    blocks of this process's shards returned, each on its shard's
+    device."""
+    b = v.shape[0] // len(axis.entries)
+    return [v[i * b : (i + 1) * b].to(s.device) for i, s in zip(axis.mine, shards)]
 
 
 def kmer_spectrum(
@@ -217,9 +218,9 @@ def kmer_spectrum(
     ``psum`` merges the 4**k-bin spectra.  B must divide by the data-axis
     size; k <= 12 (dense bins).
     """
-    devices, shards, lens = _rows_and_lengths(mesh, words, lengths)
+    axis, shards, lens = _rows_and_lengths(mesh, words, lengths)
     hists = [kmer_ops.kmer_histogram_batch(w, n, k, canonical=canonical) for w, n in zip(shards, lens)]
-    return mesh_lib.psum(hists, devices)
+    return mesh_lib.psum(hists, axis)
 
 
 def match_counts(
@@ -236,9 +237,9 @@ def match_counts(
     (``N`` literal, ``?`` wildcard); B must divide by the data-axis size."""
     if isinstance(query, str):
         query = query.encode()
-    devices, shards, lens = _rows_and_lengths(mesh, words, lengths)
+    axis, shards, lens = _rows_and_lengths(mesh, words, lengths)
     counts = [search_ops.match_counts_batch(w, n, bytes(query), codec=codec) for w, n in zip(shards, lens)]
-    return mesh_lib.all_gather(counts, devices)
+    return mesh_lib.all_gather(counts, axis)
 
 
 def sketch_sharded(
@@ -260,13 +261,15 @@ def sketch_sharded(
     (:func:`..ops.sketch.merge_many`) replaces any pairwise reduction tree.
     B must divide by the data-axis size.
     """
-    devices, shards, lens = _rows_and_lengths(mesh, words, lengths)
-    sketches = [sketch_ops.bottom_k_sketch_batch(w, n, k, s, canonical=canonical) for w, n in zip(shards, lens)]
-
-    def merged(dev):  # the all_gather (stacked, u32[D, s]), then the merge
-        return sketch_ops.merge_many(torch.stack([sk.to(dev) for sk in sketches]))
-
-    return ShardedTensor(mesh_lib.per_device(devices, merged), replicated=True)
+    axis, shards, lens = _rows_and_lengths(mesh, words, lengths)
+    sketches = [sketch_ops.bottom_k_sketch_batch(w, n, k, s, canonical=canonical).view(1, -1)
+                for w, n in zip(shards, lens)]
+    every = mesh_lib.all_gather(sketches, axis)  # u32[D, s] on every device
+    merged = {}
+    for dev, whole in zip(axis.devices, every.shards):
+        if dev not in merged:
+            merged[dev] = sketch_ops.merge_many(whole)
+    return ShardedTensor([merged[d] for d in axis.devices], replicated=True, axis=axis)
 
 
 def edit_distances(
@@ -284,10 +287,10 @@ def edit_distances(
     ``codec="base5"`` runs the digit-alphabet scan (``N`` literal).  B must
     divide by the data-axis size."""
     fn = align_ops.edit_distance_packed_b5 if codec == "base5" else align_ops.edit_distance_packed
-    devices, qs, qls = _rows_and_lengths(mesh, qwords, qlens)
-    ts = mesh_lib.shard_rows(twords, devices)
-    tls = _split_like(_lengths(tlens, sum(t.shape[0] for t in ts)), ts)
-    return mesh_lib.all_gather([fn(q, ql, t, tl) for q, ql, t, tl in zip(qs, qls, ts, tls)], devices)
+    axis, qs, qls = _rows_and_lengths(mesh, qwords, qlens)
+    ts = mesh_lib.shard_rows(twords, axis)
+    tls = _split_like(_lengths(tlens, len(axis.entries) * ts[0].shape[0]), ts, axis)
+    return mesh_lib.all_gather([fn(q, ql, t, tl) for q, ql, t, tl in zip(qs, qls, ts, tls)], axis)
 
 
 class ShardedCodec:
@@ -347,7 +350,8 @@ class ShardedCodec:
         non-blocking copy on the upload stream, which the compute stream
         waits on."""
         if self.mesh is not None:
-            return ShardedTensor(mesh_lib.shard_rows(host_batch, self.mesh.axis_devices(mesh_lib.DATA_AXIS)))
+            axis = self.mesh.axis(mesh_lib.DATA_AXIS)
+            return ShardedTensor(mesh_lib.shard_rows(host_batch, axis), axis=axis)
         t = torch.from_numpy(np.ascontiguousarray(host_batch))
         if self.upload is None:
             return t.to(self.device)

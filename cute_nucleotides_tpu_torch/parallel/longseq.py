@@ -31,6 +31,13 @@ Inputs are the reference's (a u8 sequence as bytes or an array; u64 word
 streams) or tensors: a u8 tensor to encode, a flat u32 word stream (the
 device form: the little-endian halves of the u64 words) to decode or scan.
 Results are host numpy arrays and ints, as the reference's.
+
+On a seq axis across processes (:mod:`.mesh`) every rank holds the whole
+input, so a rank's blocks and halos are slices of it and nothing is sent
+before the scan; each rank runs its own shards' kernels, and the results
+are gathered over the group in shard order: the encoded and decoded pieces,
+the match positions (int64), each shard's (dist, first end) before the host
+merge.  Every rank returns the whole result.
 """
 
 from __future__ import annotations
@@ -98,10 +105,13 @@ def halo_plan(length: int, n_u32: int, m: int, n_shards: int, *, b5: bool = Fals
     return HaloPlan(w_eq, H, np.clip(limit - base, 0, span).astype(np.int32), base)
 
 
-def _seq_devices(mesh: mesh_lib.Mesh | None) -> tuple[torch.device, ...]:
-    """The seq axis's devices; without a mesh, every local card (the
-    reference's default (1, all) mesh)."""
-    return mesh.axis_devices(mesh_lib.SEQ_AXIS) if mesh is not None else tuple(mesh_lib.local_devices())
+def _seq_axis(mesh: mesh_lib.Mesh | None):
+    """The seq axis as this process sees it; without a mesh, that of the
+    reference's default (1, every device) mesh: every device of the group in
+    an initialized process group, else every local card."""
+    if mesh is None:
+        mesh = mesh_lib.Mesh([mesh_lib._default_devices()])
+    return mesh.axis(mesh_lib.SEQ_AXIS)
 
 
 def _on_one(t: torch.Tensor, devices) -> torch.Tensor:
@@ -135,9 +145,9 @@ def _word_stream(bits, *, pairs: bool) -> torch.Tensor:
 
 
 def _encode_long(seq, codec: str, mesh: mesh_lib.Mesh | None) -> np.ndarray:
-    devices = _seq_devices(mesh)
-    S = len(devices)
-    x = _on_one(_seq_tensor(seq), devices)
+    axis = _seq_axis(mesh)
+    S = len(axis.entries)
+    x = _on_one(_seq_tensor(seq), axis.devices)
     length = x.numel()
     if codec == "2bit":
         points = shard_points_2bit(length, S)
@@ -145,20 +155,22 @@ def _encode_long(seq, codec: str, mesh: mesh_lib.Mesh | None) -> np.ndarray:
     else:
         points = shard_points_b5(length, S)
         block, words_for = spec.NT_PER_WORD_B5, spec.num_words_b5
-    codecs = mesh_lib.per_device(devices, lambda d: data_parallel._codec_on(d, codec))
-    shards = []  # every shard's kernel is launched before any result is read
-    for k, (dev, c) in enumerate(zip(devices, codecs)):
+    sizes = [2 * -(-(points[k + 1] - points[k]) // block) for k in range(S)]  # each shard's u32
+    codecs = mesh_lib.per_device(axis.devices, lambda d: data_parallel._codec_on(d, codec))
+    pieces = []  # every shard's kernel is launched before any result is read
+    for k, dev, c in zip(axis.mine, axis.devices, codecs):
         piece = x[points[k] : points[k + 1]].to(dev)
         if not piece.numel():
+            pieces.append(torch.empty(0, dtype=torch.uint32, device=dev))
             continue
         pad = -piece.numel() % block  # 'A' (code 0) leaves the last word's unused bits zero
         if pad:
             piece = torch.cat([piece, piece.new_full((pad,), ord("A"))])
-        shards.append((2 * (points[k] // block), c.encode(mesh_lib.for_kernel(piece).view(1, -1)).view(-1)))
+        pieces.append(c.encode(mesh_lib.for_kernel(piece).view(1, -1)).view(-1))
     out = np.empty(2 * words_for(length), dtype=np.uint32)
     host = torch.from_numpy(out)
-    for at, words in shards:
-        host[at : at + words.numel()].copy_(words)
+    for k, words in enumerate(mesh_lib._every_block(pieces, axis, sizes)):  # gathered in shard order
+        host[2 * (points[k] // block) :][: words.numel()].copy_(words)
     return spec.u32_pairs_to_u64(out)
 
 
@@ -177,27 +189,30 @@ def encode_long_b5(seq, *, mesh: mesh_lib.Mesh | None = None) -> np.ndarray:
 
 
 def _decode_long(bits, length: int, codec: str, mesh: mesh_lib.Mesh | None) -> np.ndarray:
-    devices = _seq_devices(mesh)
-    S = len(devices)
+    axis = _seq_axis(mesh)
+    S = len(axis.entries)
     w32 = _word_stream(bits, pairs=True)
     n_words = w32.numel() // 2
     per_word = spec.NT_PER_WORD_2BIT if codec == "2bit" else spec.NT_PER_WORD_B5
     if length > n_words * per_word:
         raise ValueError(f"length {length} exceeds capacity {n_words * per_word}")
-    w32 = _on_one(w32, devices)
+    w32 = _on_one(w32, axis.devices)
     points = [(n_words * k) // S for k in range(S + 1)]  # a balanced word split
-    codecs = mesh_lib.per_device(devices, lambda d: data_parallel._codec_on(d, codec))
-    shards = []  # every shard's kernel is launched before any result is read
-    for k, (dev, c) in enumerate(zip(devices, codecs)):
-        lo, hi = per_word * points[k], min(per_word * points[k + 1], length)
+    spans = [(per_word * points[k], min(per_word * points[k + 1], length)) for k in range(S)]
+    codecs = mesh_lib.per_device(axis.devices, lambda d: data_parallel._codec_on(d, codec))
+    pieces = []  # every shard's kernel is launched before any result is read
+    for k, dev, c in zip(axis.mine, axis.devices, codecs):
+        lo, hi = spans[k]
         if hi <= lo:
+            pieces.append(torch.empty(0, dtype=torch.uint8, device=dev))
             continue
         piece = mesh_lib.for_kernel(w32[2 * points[k] : 2 * points[k + 1]].to(dev))
-        shards.append((lo, hi, c.decode(piece.view(1, -1)).view(-1)))
+        pieces.append(c.decode(piece.view(1, -1)).view(-1)[: hi - lo])
     out = np.empty(length, dtype=np.uint8)
     host = torch.from_numpy(out)
-    for lo, hi, nt in shards:
-        host[lo:hi].copy_(nt[: hi - lo])
+    every = mesh_lib._every_block(pieces, axis, [max(hi - lo, 0) for lo, hi in spans])  # gathered in shard order
+    for (lo, hi), nt in zip(spans, every):
+        host[lo:hi].copy_(nt)
     return out
 
 
@@ -211,29 +226,32 @@ def decode_long_b5(bits, length: int, *, mesh: mesh_lib.Mesh | None = None) -> n
     return _decode_long(bits, length, "base5", mesh)
 
 
-def _halo_blocks(w32: torch.Tensor, devices, plan: HaloPlan, unit: int) -> list[torch.Tensor]:
+def _halo_blocks(w32: torch.Tensor, axis, plan: HaloPlan, unit: int) -> list[torch.Tensor]:
     """Shard ``i``'s block and halo, ``unit`` u32 a plan unit, cut where the
-    stream ends, on ``devices[i]``; the last shard gets no halo (its ring
-    halo, shard 0's head, is never read: a valid window ends inside the
-    stream).  One slice of the stream where it lies on the shard's device."""
-    w32 = _on_one(w32, devices)
-    W, S = w32.numel(), len(devices)
+    stream ends, on its device, for each shard ``i`` of this process; the
+    last shard gets no halo (its ring halo, shard 0's head, is never read: a
+    valid window ends inside the stream).  One slice of the stream where it
+    lies on the shard's device: across processes every rank holds the whole
+    stream, so no halo is sent."""
+    w32 = _on_one(w32, axis.devices)
+    W, S = w32.numel(), len(axis.entries)
     out = []
-    for i, dev in enumerate(devices):
+    for i, dev in zip(axis.mine, axis.devices):
         lo = min(unit * i * plan.w_eq, W)
         hi = min(unit * ((i + 1) * plan.w_eq + (plan.H if i + 1 < S else 0)), W)
         out.append(w32[lo:hi].to(dev))
     return out
 
 
-def _positions(scan, blocks, plan: HaloPlan, per_word: int) -> np.ndarray:
+def _positions(scan, blocks, plan: HaloPlan, per_word: int, axis) -> np.ndarray:
     """Sorted global match positions: each shard's bits (``scan(ext,
     n_starts)``, starts past its claim cleared), every shard launched before
-    any is read, offset by its base."""
-    bits = [(scan(mesh_lib.for_kernel(ext), n_i), base)
-            for ext, n_i, base in zip(blocks, plan.valid.tolist(), plan.base.tolist()) if n_i]
-    pos = [search_ops._bit_positions(b, per_word) + base for b, base in bits]
-    return np.concatenate(pos) if pos else np.zeros(0, dtype=np.int64)
+    any is read, offset by its base, gathered in shard order."""
+    valid, base = plan.valid.tolist(), plan.base.tolist()
+    bits = [scan(mesh_lib.for_kernel(ext), valid[i]) if valid[i] else None for i, ext in zip(axis.mine, blocks)]
+    pos = [torch.from_numpy(search_ops._bit_positions(b, per_word) + base[i] if b is not None
+                            else np.zeros(0, dtype=np.int64)) for i, b in zip(axis.mine, bits)]
+    return np.concatenate([p.cpu().numpy() for p in mesh_lib._every_block(pos, axis)])
 
 
 def match_long(bits, length: int, query: bytes, *, mesh: mesh_lib.Mesh | None = None) -> np.ndarray:
@@ -247,17 +265,17 @@ def match_long(bits, length: int, query: bytes, *, mesh: mesh_lib.Mesh | None = 
     lost at boundaries and no position is double-counted (a position
     belongs to the shard owning its start word).
     """
-    devices = _seq_devices(mesh)
+    axis = _seq_axis(mesh)
     q, care, m = search_ops.compile_query(query)
     if length - m + 1 <= 0:
         raise ValueError(f"stream length {length} shorter than query ({m})")
     w32 = _word_stream(bits, pairs=False)
     if length > w32.numel() * spec.NT_PER_U32_2BIT:
         raise ValueError("length exceeds stream capacity")
-    plan = halo_plan(length, w32.numel(), m, len(devices))
-    blocks = _halo_blocks(w32, devices, plan, 1)
+    plan = halo_plan(length, w32.numel(), m, len(axis.entries))
+    blocks = _halo_blocks(w32, axis, plan, 1)
     return _positions(lambda ext, n: kernels.match_bits_stream(ext, q, care, n), blocks, plan,
-                      spec.NT_PER_U32_2BIT)
+                      spec.NT_PER_U32_2BIT, axis)
 
 
 def match_long_b5(bits, length: int, query: bytes, *, mesh: mesh_lib.Mesh | None = None) -> np.ndarray:
@@ -271,7 +289,7 @@ def match_long_b5(bits, length: int, query: bytes, *, mesh: mesh_lib.Mesh | None
     successor's head words, so hits crossing shard boundaries are seen
     exactly once (a position belongs to the shard owning its start word).
     """
-    devices = _seq_devices(mesh)
+    axis = _seq_axis(mesh)
     m = len(query)
     if m > search_ops._B5_SEARCH_MAX_QUERY:
         # the kernel's lookahead bounds the query; refuse rather than miss
@@ -286,20 +304,27 @@ def match_long_b5(bits, length: int, query: bytes, *, mesh: mesh_lib.Mesh | None
     w32 = _word_stream(bits, pairs=True)
     if length > (w32.numel() // 2) * spec.NT_PER_WORD_B5:
         raise ValueError("length exceeds stream capacity")
-    plan = halo_plan(length, w32.numel(), m, len(devices), b5=True)
-    blocks = _halo_blocks(w32, devices, plan, 2)
+    plan = halo_plan(length, w32.numel(), m, len(axis.entries), b5=True)
+    blocks = _halo_blocks(w32, axis, plan, 2)
     return _positions(lambda ext, n: kernels.match_b5_bits_stream(ext, qc, n), blocks, plan,
-                      spec.NT_PER_WORD_B5)
+                      spec.NT_PER_WORD_B5, axis)
 
 
-def _best_of_shards(run, blocks, plan: HaloPlan, m: int) -> tuple[int, int]:
-    """Every shard's (dist, first end) from ``run(ext, valid)``, launched
-    before any is read, merged on the host in int64: the least distance
-    and, among shards that reach it below ``m``, the first global end."""
-    found = [(run(ext, v), base) for ext, v, base in zip(blocks, plan.valid.tolist(), plan.base.tolist()) if v]
+def _best_of_shards(run, blocks, plan: HaloPlan, m: int, axis) -> tuple[int, int]:
+    """Every shard's (dist, first global end) from ``run(ext, valid)``,
+    launched before any is read (a shard that claims no text gives the
+    trivial ``(m, 0)``), gathered in shard order and merged on the host in
+    int64: the least distance and, among shards that reach it below ``m``,
+    the first global end."""
+    valid, base = plan.valid.tolist(), plan.base.tolist()
+    found = []
+    for i, ext in zip(axis.mine, blocks):
+        d, e = run(ext, valid[i]) if valid[i] else (m, 0)
+        found.append(torch.stack([torch.as_tensor(d, dtype=torch.int64, device=ext.device),
+                                  torch.as_tensor(e, dtype=torch.int64, device=ext.device) + base[i]]).view(1, 2))
     best = (m, 0)
-    for (d, e), base in found:
-        d, end = int(d), base + int(e)
+    for pair in mesh_lib._every_block(found, axis, [1] * len(axis.entries)):
+        d, end = pair.view(-1).tolist()
         if d < best[0] or (d == best[0] < m and end < best[1]):
             best = (d, end)
     return best
@@ -322,28 +347,29 @@ def best_match_long(bits, length: int, query: bytes, *, mesh: mesh_lib.Mesh | No
     global result is the lexicographic min of per-shard bests.  Unlike the
     one-device scan, the stream may pass 2^31 nt.
     """
-    devices = _seq_devices(mesh)
+    axis = _seq_axis(mesh)
     peq, m = align_ops.peq_from_bytes(query)
     w32 = _word_stream(bits, pairs=False)
     if length > w32.numel() * spec.NT_PER_U32_2BIT:
         raise ValueError("length exceeds stream capacity")
-    plan = halo_plan(length, w32.numel(), m, len(devices), best=True)
+    plan = halo_plan(length, w32.numel(), m, len(axis.entries), best=True)
     rows = align_ops.stream_rows_plan(plan.w_eq + plan.H, m)
-    blocks = _halo_blocks(w32, devices, plan, 1)
-    return _best_of_shards(lambda ext, v: align_ops._best_match_stream_impl(peq, ext, v, m, rows), blocks, plan, m)
+    blocks = _halo_blocks(w32, axis, plan, 1)
+    return _best_of_shards(lambda ext, v: align_ops._best_match_stream_impl(peq, ext, v, m, rows), blocks, plan, m,
+                           axis)
 
 
 def best_match_long_b5(bits, length: int, query: bytes, *, mesh: mesh_lib.Mesh | None = None) -> tuple[int, int]:
     """Base-5 mirror of :func:`best_match_long`: approximate search over
     ONE long base-5 stream, pair-aligned shards on the seq axis (``N``
     literal, ``?`` wildcard)."""
-    devices = _seq_devices(mesh)
+    axis = _seq_axis(mesh)
     peq, m = align_ops.peq_from_bytes_b5(query)
     w32 = _word_stream(bits, pairs=True)
     if length > (w32.numel() // 2) * spec.NT_PER_WORD_B5:
         raise ValueError("length exceeds stream capacity")
-    plan = halo_plan(length, w32.numel(), m, len(devices), b5=True, best=True)
+    plan = halo_plan(length, w32.numel(), m, len(axis.entries), b5=True, best=True)
     rows = align_ops.stream_rows_plan_b5(plan.w_eq + plan.H, m)
-    blocks = _halo_blocks(w32, devices, plan, 2)
+    blocks = _halo_blocks(w32, axis, plan, 2)
     return _best_of_shards(lambda ext, v: align_ops._best_match_stream_impl_b5(peq, ext, v, m, rows), blocks, plan,
-                           m)
+                           m, axis)

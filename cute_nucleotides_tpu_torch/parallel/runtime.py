@@ -78,7 +78,11 @@ def initialize(
     raises.  On the card, the process's local rank picks its card
     (``LOCAL_RANK``, else ``process_id % device_count``), so each rank's
     streams run on their own card and consume their own residue class of
-    records.  A group the caller initialized is reported as it is.
+    records.  A group the caller initialized is used as it is (so a caller
+    may run gloo on the card, as two ranks on one card must).  The report
+    counts devices as the default mesh does (:func:`.mesh.devices`): in a
+    group, one a rank (its card, or the CPU), ``process_count`` in all;
+    outside one, every local card.
     """
     env = os.environ
     if num_processes is None and "WORLD_SIZE" in env:
@@ -93,12 +97,14 @@ def initialize(
                 world_size=num_processes if num_processes is not None else -1,
                 rank=process_id if process_id is not None else -1,
             )
-        if torch.cuda.is_available():
-            local = os.environ.get("LOCAL_RANK")
-            rank = torch.distributed.get_rank()
-            torch.cuda.set_device(int(local) if local is not None else rank % torch.cuda.device_count())
+    in_group = torch.distributed.is_available() and torch.distributed.is_initialized()
+    if in_group and torch.cuda.is_available():
+        local = os.environ.get("LOCAL_RANK")
+        rank = torch.distributed.get_rank()
+        torch.cuda.set_device(int(local) if local is not None else rank % torch.cuda.device_count())
     host_id, num_hosts = _host_topology()
-    local = torch.cuda.device_count() if torch.cuda.is_available() else 1
+    # in a group one entry a rank, as mesh.devices() and default_mesh() count them
+    local = 1 if in_group else torch.cuda.device_count() if torch.cuda.is_available() else 1
     return {
         "process_index": host_id,
         "process_count": num_hosts,

@@ -982,3 +982,41 @@ def test_stream_sink_exception_drains_without_a_cuda_error(cuda_device, tmp_path
     w, b = sunk[-1]
     want = models.TwoBitCodec(device=cuda_device).encode(torch.from_numpy(b.reads).to(cuda_device))
     assert np.array_equal(w, interop.to_numpy(want))
+
+
+_NCCL_RANK = r"""
+import datetime, sys
+import torch
+
+rank, coord = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+torch.distributed.init_process_group("nccl", init_method="tcp://" + coord, world_size=2, rank=rank,
+                                     timeout=datetime.timedelta(seconds=60))
+t = torch.ones(4, device="cuda")
+torch.distributed.all_reduce(t)
+torch.cuda.synchronize()
+print("SUM", t.tolist())
+"""
+
+
+def test_nccl_takes_one_rank_a_card(cuda_device):
+    """Two NCCL ranks on one card: NCCL refuses them when it makes the
+    communicator (at the first collective), so two ranks on one card join a
+    gloo group (``chip_smoke.py`` phase 9), and a process mesh over NCCL
+    takes one card a rank (``runtime.initialize``)."""
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        coord = f"localhost:{s.getsockname()[1]}"
+    procs = [subprocess.Popen([sys.executable, "-c", _NCCL_RANK, str(r), coord], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode != 0 for p in procs), outs
+    assert any("Duplicate GPU detected" in out + err for out, err in outs), [err[-1500:] for _, err in outs]

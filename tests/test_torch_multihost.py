@@ -4,8 +4,9 @@ group through ``runtime.initialize`` and stream a shared record set through
 ``StreamingEncoder`` (host-sharded by record index); each writes its sunk
 words, and the parent checks that the union covers every record bit-exactly
 against the oracle and that each process consumed exactly its residue
-class.  The workers import only the port (the cards hidden), as a rank on a
-GPU host would."""
+class, and that ``default_mesh()`` spans what ``initialize`` reports as
+``global_devices``.  The workers import only the port (the cards hidden), as
+a rank on a GPU host would."""
 
 import json
 import os
@@ -25,6 +26,7 @@ import json, os, sys
 
 proc_id, coord, outdir, mode = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
 
+from cute_nucleotides_tpu_torch import parallel
 from cute_nucleotides_tpu_torch.parallel import runtime
 from cute_nucleotides_tpu_torch.utils import io as io_lib
 
@@ -33,6 +35,7 @@ if mode == "args":
 else:  # a coordinator address alone: the count and the id come from the environment
     info = runtime.initialize(coordinator_address=coord)
 assert info["process_count"] == 2 and info["process_index"] == proc_id, info
+mesh_size = parallel.default_mesh().size  # the process mesh spans the group
 
 reads = [("r%d" % i).encode() for i in range(10)]
 seqs = [bytes((b"ACGT" * (i + 3))[: 4 * (i + 3)]) for i in range(10)]
@@ -45,7 +48,7 @@ def sink(words, batch):
         got[int(batch.indices[row])] = words[row].tolist()
 agg = enc.run(records, sink=sink)
 with open(os.path.join(outdir, "h%d.json" % proc_id), "w") as f:
-    json.dump({"agg": agg, "info": info, "got": {str(k): v for k, v in got.items()}}, f)
+    json.dump({"agg": agg, "info": info, "mesh_size": mesh_size, "got": {str(k): v for k, v in got.items()}}, f)
 """
 
 
@@ -87,6 +90,7 @@ def test_two_process_streaming(tmp_path, mode):
     seen = {}
     for h, res in enumerate(results):
         assert res["info"] == {"process_index": h, "process_count": 2, "local_devices": 1, "global_devices": 2}
+        assert res["mesh_size"] == res["info"]["global_devices"]
         assert (res["agg"]["host_id"], res["agg"]["num_hosts"]) == (h, 2)
         for k, words in res["got"].items():
             idx = int(k)
