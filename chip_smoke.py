@@ -88,8 +88,8 @@ from the manifest, deliver every record index exactly once, each sunk batch
 against the torch tier.  The long-read shape of the reference bench (32,768
 x 2,048 nt, batches of 4096): the bench's unchecked encoder (#1), every
 batch against the torch tier and the first and last against the oracle;
-one encode run under ``torch.profiler`` in a fresh process (device ms and
-idle share; :func:`profile_stream_encode`, run as ``chip_smoke.py
+one encode run under ``torch.profiler`` in a fresh process (device ms;
+:func:`profile_stream_encode`, run as ``chip_smoke.py
 --profile-stream-encode FASTQ``), then the
 bench's three stream rows (``bench.run_stream_rows``: median of 3, the
 stage seconds, the same-run pinned H2D rate), with the SM clock beside them.
@@ -1438,8 +1438,7 @@ def _breakdown(wall: float, device: dict) -> str:
     if busy == 0:
         return f"{wall:.4f} s wall; device time not measured (the profiler saw no device events)"
     return (f"{wall:.4f} s wall; device: kernels {device['kernels']:.4f} ms, copies "
-            f"{device['copies']:.3f} ms, other {device['other']:.3f} ms; device idle "
-            f"{100 * (1 - busy / wall):.1f}% of the wall")
+            f"{device['copies']:.3f} ms, other {device['other']:.3f} ms")
 
 
 def phase_api(rng) -> None:

@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import eager, kernels, spec
 
 __all__ = [
@@ -305,14 +306,17 @@ def _stream_best(peq, ext: torch.Tensor, length, m: int, R: int, stride: int, ha
     beats ``m``."""
     dev = ext.device
     nt, unit = (spec.NT_PER_WORD_B5, 2) if b5 else (spec.NT_PER_U32_2BIT, 1)  # nt per text unit, u32 per unit
-    base = nt * (stride // unit) * torch.arange(R, dtype=torch.int64, device=dev)
-    tl = (int(length) - base).clamp(0, nt * ((stride + halo) // unit)).to(torch.int32)
-    peq = torch.as_tensor(peq).to(dev)
-    d, e = kernels.myers_scan(peq[None].expand(R, *peq.shape), torch.full((R,), m, dtype=torch.int32, device=dev),
-                              ext.reshape(-1), tl, stride, stride + halo, mode="semiglobal", b5=b5)
-    dmin = d.min()
-    emin = torch.where(d == dmin, base + e, torch.iinfo(torch.int64).max).min()
-    return dmin, torch.where(dmin >= m, 0, emin).to(torch.int32)
+    with tracing.span("align.stream.launch"):
+        base = nt * (stride // unit) * torch.arange(R, dtype=torch.int64, device=dev)
+        tl = (int(length) - base).clamp(0, nt * ((stride + halo) // unit)).to(torch.int32)
+        with tracing.span("align.stream.copy"):
+            peq = torch.as_tensor(peq).to(dev)
+        d, e = kernels.myers_scan(peq[None].expand(R, *peq.shape), torch.full((R,), m, dtype=torch.int32, device=dev),
+                                  ext.reshape(-1), tl, stride, stride + halo, mode="semiglobal", b5=b5)
+    with tracing.span("align.stream.reduce"):
+        dmin = d.min()
+        emin = torch.where(d == dmin, base + e, torch.iinfo(torch.int64).max).min()
+        return dmin, torch.where(dmin >= m, 0, emin).to(torch.int32)
 
 
 def _best_match_stream_impl(peq, ext: torch.Tensor, length, m: int, plan: tuple[int, int, int]):
@@ -344,37 +348,54 @@ def best_match_stream(words, length: int, query: bytes) -> tuple[int, int]:
     edit distance of the whole query against any substring and the first
     end achieving it (``(m, 0)`` when nothing beats the empty alignment).
     ``N``/``n`` in the query matches any base."""
-    peq, m = peq_from_bytes(query)
-    words = _stream_words(words)
-    if words.ndim != 1:
-        raise ValueError("best_match_stream takes a 1-D u32 word stream")
-    if length > spec.NT_PER_U32_2BIT * words.shape[0]:
-        raise ValueError("length exceeds stream capacity")
-    if length >= 2**31:
-        raise ValueError(
-            "single-device scan positions are int32; shard streams >= 2^31 nt with parallel.longseq.best_match_long"
-        )
-    if length == 0 or words.shape[0] == 0:
-        return m, 0  # empty text: only the trivial alignment exists
-    d, e = _best_match_stream_impl(peq, words, length, m, stream_rows_plan(words.shape[0], m))
-    return int(d), int(e)
+    with tracing.span("align.stream"):
+        with tracing.span("align.stream.peq"):
+            peq, m = peq_from_bytes(query)
+        with tracing.span("align.stream.plan"):
+            words = _stream_words(words)
+            if words.ndim != 1:
+                raise ValueError("best_match_stream takes a 1-D u32 word stream")
+            if length > spec.NT_PER_U32_2BIT * words.shape[0]:
+                raise ValueError("length exceeds stream capacity")
+            if length >= 2**31:
+                raise ValueError(
+                    "single-device scan positions are int32; shard streams >= 2^31 nt with "
+                    "parallel.longseq.best_match_long"
+                )
+            if length == 0 or words.shape[0] == 0:
+                return m, 0  # empty text: only the trivial alignment exists
+            plan = stream_rows_plan(words.shape[0], m)
+        d, e = _best_match_stream_impl(peq, words, length, m, plan)
+        with tracing.span("align.stream.readback"):
+            dist = int(d)
+        with tracing.span("align.stream.readback"):
+            end = int(e)
+        return dist, end
 
 
 def best_match_stream_b5(words, length: int, query: bytes) -> tuple[int, int]:
     """Base-5 mirror of :func:`best_match_stream` (``N`` literal, ``?``
     wildcard); ``words u32[2*Wp]`` is the serialized base-5 stream."""
-    peq, m = peq_from_bytes_b5(query)
-    words = _stream_words(words)
-    if words.ndim != 1 or words.shape[0] % 2:
-        raise ValueError("best_match_stream_b5 takes a flat u32 stream of whole pairs")
-    if length > spec.NT_PER_WORD_B5 * (words.shape[0] // 2):
-        raise ValueError("length exceeds stream capacity")
-    if length >= 2**31:
-        raise ValueError("single-device scan positions are int32")
-    if length == 0 or words.shape[0] == 0:
-        return m, 0  # empty text: only the trivial alignment exists
-    d, e = _best_match_stream_impl_b5(peq, words, length, m, stream_rows_plan_b5(words.shape[0] // 2, m))
-    return int(d), int(e)
+    with tracing.span("align.stream"):
+        with tracing.span("align.stream.peq"):
+            peq, m = peq_from_bytes_b5(query)
+        with tracing.span("align.stream.plan"):
+            words = _stream_words(words)
+            if words.ndim != 1 or words.shape[0] % 2:
+                raise ValueError("best_match_stream_b5 takes a flat u32 stream of whole pairs")
+            if length > spec.NT_PER_WORD_B5 * (words.shape[0] // 2):
+                raise ValueError("length exceeds stream capacity")
+            if length >= 2**31:
+                raise ValueError("single-device scan positions are int32")
+            if length == 0 or words.shape[0] == 0:
+                return m, 0  # empty text: only the trivial alignment exists
+            plan = stream_rows_plan_b5(words.shape[0] // 2, m)
+        d, e = _best_match_stream_impl_b5(peq, words, length, m, plan)
+        with tracing.span("align.stream.readback"):
+            dist = int(d)
+        with tracing.span("align.stream.readback"):
+            end = int(e)
+        return dist, end
 
 
 # --- host oracles and tracebacks (numpy) --------------------------------------
