@@ -94,8 +94,12 @@ one encode run under ``torch.profiler`` in a fresh process (device ms;
 bench's three stream rows (``bench.run_stream_rows``: median of 3, the
 stage seconds, the same-run pinned H2D rate), with the SM clock beside them.
 
-The align path (kernel #19, the Myers bit-vector scan, and the ``approx``
-command; its data from its own seed): phase 2 holds #19 against its plain
+The align path (kernel #19, the Myers bit-vector scan, the base-5 Peq build
+beside it, and the ``approx`` command; its data from its own seed): phase 2
+holds the Peq build against its plain version on the query lengths' block
+and word seams, corrupt triplets and random words at 1, 2, 3 and 9 blocks,
+on contiguous, row-sliced, stride-0 and unaligned words, and phase 3 at the
+adapter scan's 1,048,576 queries of 4 u32; phase 2 holds #19 against its plain
 version in both alphabets and every mode (global, semiglobal, prefix and,
 2-bit, every end within a threshold) on 37 pairs at m in {1, 2, 31, 32, 33,
 63, 64, 65, 150, 300} against ragged 0..700-nt texts, with N / ? wildcards,
@@ -103,7 +107,10 @@ base-5 triplets 125..127 in texts and queries, max_errors 0, 2 and
 INT32_MAX, a stride-0 Peq, and stream rows whose halo spans several rows;
 phase 3 runs ``edit_distance_packed`` and ``best_match_packed`` at the
 bench's shape (8192 pairs of 128 x 2048 nt) against the host Myers scan
-(``native.edit_distance`` / ``native.best_match``) on every pair; phase 4
+(``native.edit_distance`` / ``native.best_match``) on every pair, and
+``best_match_packed_b5`` and ``edit_distance_packed_b5`` at the adapter
+scan's shape (1,048,576 pairs of 20..54 x 150 nt, one Peq build and one #19
+launch a call) against the same on 4096 rows; phase 4
 runs ``best_match_stream`` on the chr1-length 2-bit stream with a 21-nt
 query (a substring with 2 edits) against ``native.best_match`` on the
 decoded stream, and ``best_match_stream_b5`` on the same sequence encoded
@@ -115,7 +122,8 @@ record and strand (2-bit), the DP oracle on a sample (base-5), a numpy DP
 of every end (``--all``), and each CIGAR applied to its window.  The timing
 phase takes #19 at the bench's shape beside its bound, and beside its plain
 version at a phase-2 size (the plain version would take hundreds of
-thousands of launches at the bench's).
+thousands of launches at the bench's), and the Peq build at the adapter
+scan's shape.
 
 The planar path (kernels #15-#17, the base-5 codec's planar (lo, hi)
 layout): phase 2 holds #15 against its plain version at 1, 2, 37 and 128
@@ -274,7 +282,7 @@ ALIGN_M = (1, 2, 20, 21, 31, 32, 33, 63, 64, 65, 128, 129, 256, 257, 512, 513, 1
 ALIGN_PAIRS, ALIGN_B, ALIGN_QM, ALIGN_TN, ALIGN_STREAM_M = 37, 8192, 128, 2048, 21
 #: pairs of phase 2's stride-0 runs at the long lane forms' edges
 MYERS_LONG_PAIRS = 8
-APPROX_EVERY, APPROX_B5_EVERY, APPROX_CIGAR_READS = 10, 997, 40_000
+APPROX_EVERY, APPROX_B5_EVERY, APPROX_CIGAR_READS = 10, 997, 25_000
 #: phase 2's rows of the approx CLI's shape: reads of APPROX_NT nt in rows of
 #: 16 u32 (2-bit) or 6 u32 pairs (base-5), PRIMER's 20 nt as one broadcast Peq
 APPROX_ROWS, APPROX_NT = 4096, 150
@@ -302,10 +310,14 @@ REPLACES = {
     "decode_b5_panels": f"{_PK}:607",
     # not a Pallas kernel: the lax.scan Myers scans (2-bit :336, base-5 :385)
     "myers_scan": "cute_nucleotides_tpu/ops/align.py:336",
+    # not a Pallas kernel: the jnp base-5 Peq build (digits :573, one-hot sum :605)
+    "peq_b5": "cute_nucleotides_tpu/ops/align.py:573",
 }
 #: what a kernel line's "replaces" points at, where it is no Pallas kernel
 NOT_PALLAS = {"myers_scan": "lax.scan word scans _myers_scan_words (align.py:336) and _myers_scan_words_b5 "
-                            "(align.py:385), not Pallas kernels"}
+                            "(align.py:385), not Pallas kernels",
+              "peq_b5": "jnp Peq build _unpack_digits_b5_t (align.py:573) and _peq_from_codes (align.py:605), "
+                        "not a Pallas kernel"}
 B5_KERNELS = ("encode_b5_stream", "decode_b5_stream", "match_b5_bits_stream")
 PLANAR_KERNELS = ("encode_b5_planar", "decode_b5_nt4_panels", "decode_b5_panels")
 SEARCH_KERNELS = ("match_bits_stream", "match_b5_bits_stream")
@@ -313,7 +325,7 @@ KMER_KERNELS = ("kmer_codes_planar", "kmer_codes_planar_pair", "hist_codes")
 SKETCH_KERNELS = ("kmer_hashes_planar_pair", "minimizer_bits_stream")
 SEQOPS_KERNELS = ("gc_b5_stream",)
 SORT_KERNELS = ("sort_pairs_bitonic",)
-ALIGN_KERNELS = ("myers_scan",)
+ALIGN_KERNELS = ("myers_scan", "peq_b5")
 #: (kernels, source file, path) in the order a kernel's first group wins
 _GROUPS = ((PLANAR_KERNELS, "codec_b5.cu", "planar"), (SORT_KERNELS, "sort.cu", "sort"),
            (ALIGN_KERNELS, "align.cu", "align"),
@@ -438,7 +450,7 @@ def phase_build():
     _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel", "gc_b5_kernel",
                                           "radix_hist_kernel", "radix_pass_kernel", "match_b5_kernel",
                                           "match_2bit_kernel", "encode_2bit_pext_kernel", "myers_lanes",
-                                          "myers_scratch"))
+                                          "myers_scratch", "peq_b5_kernel"))
 
 
 def _kernel_label(name: str, kernels):
@@ -2662,6 +2674,95 @@ def _myers_case(errors: Errors, peq, ql, words, tl, stride: int, length: int, mo
                    K.myers_scan_plain(peq, ql, words, tl, stride, length, **args), what)
 
 
+#: phase 2 query widths of the Peq build (1, 2, 3 and 9 blocks), and phase 3's
+#: rows: the adapter scan's batch, queries of 4 u32 (54 nt)
+PEQ_B5_WQ, PEQ_B5_ROWS = (2, 4, 6, 20), 1 << 20
+#: phase 3's base-5 align batch at the adapter scan's shape: PEQ_B5_ROWS texts
+#: of B5_BATCH_NT nt in rows of 12 u32 (162 nt), B5_BATCH_CHECKED of them
+#: held to the host Myers scan
+B5_BATCH_NT, B5_BATCH_CHECKED = 150, 4096
+
+
+def _peq_b5_queries(rng, wq: int):
+    """(qwords, qlens) on the card: each length at the block and word seams,
+    at the words' rows, past them and negative, over packed ACGTN queries,
+    then the same with a triplet 125..127 in every row, then random words."""
+    import torch
+
+    have = 27 * wq // 2
+    lens = [0, 1, 26, 27, 31, 32, 33, 53, 54, have, have + 5, -3]
+    clean = _myers_rows([_myers_ascii(rng, have, b"ACGTN") for _ in lens], True, wq)
+    q = np.concatenate([clean, _corrupt_b5(rng, clean, 1), rng.integers(0, 2**32, (9, wq), dtype=np.uint32)])
+    ql = np.array(lens * 2 + rng.integers(-2, have + 8, 9).tolist(), np.int32)
+    return torch.from_numpy(q).cuda(), torch.from_numpy(ql).cuda()
+
+
+def _peq_b5_small(errors: Errors, rng) -> int:
+    """The Peq build against its plain version at PEQ_B5_WQ: contiguous, from
+    row 1, every other row, a stride-0 query and words 4 bytes off an 8-byte
+    boundary (each of its load widths); returns the cases."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    cases = 0
+    for wq in PEQ_B5_WQ:
+        q, ql = _peq_b5_queries(rng, wq)
+        n = q.shape[0]
+        off = torch.zeros(n * wq + 1, dtype=torch.int32, device="cuda")
+        off[1:] = q.view(torch.int32).reshape(-1)
+        views = {"contiguous": (q, ql), "from row 1": (q[1:], ql[1:]),
+                 "every other row": (q[::2], ql[::2].contiguous()), "stride 0": (q[5:6].expand(n, wq), ql),
+                 "4 bytes off": (off[1:].view(torch.uint32).view(n, wq), ql)}
+        for what, (v, lens) in views.items():
+            errors.compare("peq_b5", K.peq_b5(v, lens), K.peq_b5_plain(v, lens), f"peq_b5 Wq = {wq}, {what}")
+            cases += 1
+    return cases
+
+
+def phase_peq_b5_full(errors: Errors) -> None:
+    """The Peq build at the adapter scan's shape, PEQ_B5_ROWS queries of 4 u32
+    (random words from the seed, corrupt triplets where they fall, bit 63 in
+    half), lengths -2..60, against its plain version on the card."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 22)
+    q = torch.randint(-(2**31), 2**31, (PEQ_B5_ROWS, 4), dtype=torch.int32, device="cuda", generator=g)
+    ql = torch.randint(-2, 61, (PEQ_B5_ROWS,), dtype=torch.int32, device="cuda", generator=g)
+    q = q.view(torch.uint32)
+    errors.compare("peq_b5", K.peq_b5(q, ql), K.peq_b5_plain(q, ql), f"peq_b5 at {PEQ_B5_ROWS} x 4 u32")
+    torch.cuda.synchronize()
+    say(f"phase 3 Peq build: peq_b5 of {PEQ_B5_ROWS} queries of 4 u32 (lengths -2..60) == its plain version "
+        f"({time.perf_counter() - t0:.1f} s with the check)")
+
+
+def _peq_b5_timing() -> tuple:
+    """The Peq build's timing case at the adapter scan's shape, PEQ_B5_ROWS
+    queries of 4 u32 (random words from the seed, 33-nt lengths): (label,
+    kernel, plain, bound).  The kernel is timed through its entry point
+    ``cn_peq_b5`` with the output allocated once: the wrapper's host work
+    (29-43 us a call on the card's host) is longer than the kernel.  Bound:
+    16 B of words and a 4-B length read, 5 x 2 u32 written a query."""
+    import torch
+
+    from cute_nucleotides_tpu_torch.ops import _build, kernels as K
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 24)
+    q = torch.randint(-(2**31), 2**31, (PEQ_B5_ROWS, 4), dtype=torch.int32, device="cuda", generator=g).view(
+        torch.uint32)
+    ql = torch.full((PEQ_B5_ROWS,), 33, dtype=torch.int32, device="cuda")
+    out = torch.empty((PEQ_B5_ROWS, 5, 2), dtype=torch.uint32, device="cuda")
+    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+    kernel = lambda: K._launch(lib.cn_peq_b5, q.data_ptr(), 4, 4, ql.data_ptr(), PEQ_B5_ROWS, 2, out.data_ptr(), stream)
+    return (f"[{PEQ_B5_ROWS} x 4 u32]", kernel, lambda: K.peq_b5_plain(q, ql),
+            _bound((16 + 4 + 40) * PEQ_B5_ROWS))
+
+
 def phase_kernels_align(errors: Errors, rng) -> None:
     """#19 against its plain version on the card, bit for bit: both
     alphabets and every mode, ALIGN_PAIRS pairs at each m in ALIGN_M,
@@ -2795,6 +2896,7 @@ def phase_kernels_align(errors: Errors, rng) -> None:
             _myers_case(errors, *args, mode, b5, torch.full((APPROX_ROWS,), 2, dtype=torch.int32, device=dev),
                         f"#19 {'b5' if b5 else '2bit'} approx shape, {APPROX_ROWS} x {APPROX_NT} nt, m = 20")
             cases += 1
+    peq_cases = _peq_b5_small(errors, rng)
     torch.cuda.synchronize()
     say(f"phase 2 align kernel: #19 in {cases} cases (both alphabets, every mode, {ALIGN_PAIRS} pairs at m in "
         f"{ALIGN_M}, ragged texts of 0..700 nt (0..150 past m = 128), N/? wildcards, base-5 triplets 125..127 in "
@@ -2802,7 +2904,10 @@ def phase_kernels_align(errors: Errors, rng) -> None:
         f"max_errors 0/2/INT32_MAX, stride-0 Peq (to m = 128, and {MYERS_LONG_PAIRS} pairs of 200..400-nt texts at "
         f"m = 256 and 1024), stream rows with a halo over several rows, the approx CLI's {APPROX_ROWS} rows of 16 u32 with PRIMER): bit-identical to the plain version "
         f"({errors.count} comparisons in phase 2; max abs err {errors.max['myers_scan']}; "
-        f"{time.perf_counter() - t0:.1f} s)")
+        f"{time.perf_counter() - t0:.1f} s with the Peq build's)")
+    say(f"phase 2 Peq build: peq_b5 in {peq_cases} cases (Wq in {PEQ_B5_WQ}, query lengths at the block and word "
+        f"seams, past the words and negative, triplets 125..127, random words; contiguous, row-sliced, stride 0, "
+        f"4 bytes off): bit-identical to the plain version (max abs err {errors.max['peq_b5']})")
 
 
 def _align_batch(rng):
@@ -2853,6 +2958,53 @@ def phase_align_batch(rng):
     say(f"  edit_distance_packed, {ALIGN_B} x {ALIGN_QM} x {ALIGN_TN}: {_breakdown(d_wall, d_dev)}")
     say(f"  best_match_packed, {ALIGN_B} x {ALIGN_QM} x {ALIGN_TN}: {_breakdown(b_wall, b_dev)}")
     return qw, tw
+
+
+def phase_align_batch_b5(rng) -> None:
+    """``best_match_packed_b5`` and ``edit_distance_packed_b5`` at the adapter
+    scan's shape, through the Peq build and #19: PEQ_B5_ROWS pairs of a query
+    of 4 u32 (20..54 nt of ACGT, its own a row) and a text of 12 u32
+    (B5_BATCH_NT nt of ACGT; a near copy of the query planted in half the
+    checked rows).  B5_BATCH_CHECKED rows are held to the host Myers scan
+    (``native.best_match`` / ``native.edit_distance``), and each call must
+    launch the Peq build once and #19 once."""
+    import torch
+
+    from cute_nucleotides_tpu_torch import interop
+    from cute_nucleotides_tpu_torch.ops import align, kernels as K, native
+
+    t0 = time.perf_counter()
+    R, q_nt, t_nt = PEQ_B5_ROWS, 54, 162  # 2 and 6 words of 27 nt: one encode of the flat bytes packs every row
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    qs = acgt[rng.integers(0, 4, (R, q_nt), dtype=np.uint8)]
+    ts = acgt[rng.integers(0, 4, (R, t_nt), dtype=np.uint8)]
+    qlens = rng.integers(20, q_nt + 1, R).astype(np.int32)
+    rows = rng.choice(R, B5_BATCH_CHECKED, replace=False)
+    for i in rows[::2]:
+        near = np.frombuffer(_mutate(rng, qs[i, : qlens[i]].tobytes(), int(rng.integers(0, 4))), np.uint8)
+        at = int(rng.integers(0, B5_BATCH_NT - near.size + 1))
+        ts[i, at : at + near.size] = near
+    qw = interop.u64_to_tensor(native.n_to_bits2(qs.reshape(-1)).reshape(R, -1), "cuda")
+    tw = interop.u64_to_tensor(native.n_to_bits2(ts.reshape(-1)).reshape(R, -1), "cuda")
+    ql = torch.from_numpy(qlens).cuda()
+    tl = torch.full((R,), B5_BATCH_NT, dtype=torch.int32, device="cuda")
+    before = (K.peq_b5.launches, K.myers_scan.launches)
+    best, end = align.best_match_packed_b5(qw, ql, tw, tl)
+    dist = align.edit_distance_packed_b5(qw, ql, tw, tl)
+    runs = (K.peq_b5.launches - before[0], K.myers_scan.launches - before[1])
+    check(runs == (2, 2), f"the two base-5 calls launched (peq_b5, myers_scan) {runs}, not one each a call")
+    idx = torch.from_numpy(rows).cuda()
+    best, end, dist = (x[idx].cpu().numpy() for x in (best, end, dist))
+    for k, i in enumerate(rows):
+        q, t = qs[i, : qlens[i]].tobytes(), ts[i, :B5_BATCH_NT].tobytes()
+        check((int(best[k]), int(end[k])) == native.best_match(q, t),
+              f"best_match_packed_b5 row {i}: {(best[k], end[k])} != host {native.best_match(q, t)}")
+        check(int(dist[k]) == native.edit_distance(q, t),
+              f"edit_distance_packed_b5 row {i}: {dist[k]} != host {native.edit_distance(q, t)}")
+    say(f"phase 3 base-5 align batch: best_match_packed_b5 and edit_distance_packed_b5 on {R} pairs of 20..{q_nt} x "
+        f"{B5_BATCH_NT} nt (u32 rows of 4 and 12), one peq_b5 and one myers_scan launch a call, == the host Myers "
+        f"scan on {B5_BATCH_CHECKED} rows (best {int(best.min())}..{int(best.max())}; "
+        f"{time.perf_counter() - t0:.1f} s with the checks)")
 
 
 def phase_align_stream(rng, chr1_words) -> None:
@@ -3944,6 +4096,8 @@ def phase_timing(errors: Errors, x, words, x5, words5, chr1_words, chr1_pairs, p
         # floor, 136 B a pair, is 8.5 times that and is not the function's
         "sort_pairs_bitonic": {label: _bound(16 * p[0].numel()) for label, p in sort_inputs.items()},
     }
+    label, kernel, plain, bounds["peq_b5"] = _peq_b5_timing()
+    cases["peq_b5"] = [(label, kernel, plain)]
     iters = {"sort_pairs_bitonic": (3, 1)}  # (kernel, plain) launches per timed run; 20 and 2 elsewhere
     say(f"  clocks before timing: {_clocks()}")
     say(f"timing on {card}: 2-bit u8[{BATCH_ROWS}, {BATCH_NT}] ({gib:.3f} Gnt), base-5 "
@@ -3966,7 +4120,8 @@ def phase_timing(errors: Errors, x, words, x5, words5, chr1_words, chr1_pairs, p
             k_ms, p_ms = min(k1, k2), min(p1, p2)
             lib_ms = _time_ms(library[name], 5) if name in library and name not in times else None
             torch.cuda.empty_cache()
-            rate = (f"{g / (k_ms / 1e3):.1f} GiB/s of nt" if name not in KMER_KERNELS + SKETCH_KERNELS + SORT_KERNELS
+            rate = (f"{g / (k_ms / 1e3):.1f} GiB/s of nt"
+                    if name not in KMER_KERNELS + SKETCH_KERNELS + SORT_KERNELS + ALIGN_KERNELS
                     else f"{HBM_BYTES_PER_S * bound_ms / k_ms / 1e12:.2f} TB/s moved" if bound_by == "bytes"
                     else "its instructions bound it")
             say(f"  {name}{suffix}: kernel {k_ms:.4f} ms ({rate}); plain {p_ms:.3f} ms; runs "
@@ -4064,8 +4219,12 @@ def main() -> int:
             torch.cuda.synchronize()
             launches["planar"] = {fn.__name__: fn.launches for fn in K.WRAPPERS}
             say(f"phase 6 launches by the planar path (phase 3): {launches['planar']}")
+            # the Peq build's direct check is no call of the align path: the
+            # reset drops its launch, so the path's peq_b5 count is its own
+            phase_peq_b5_full(errors)
             K.reset_launch_counts()
             align_words = phase_align_batch(align_rng)
+            phase_align_batch_b5(align_rng)
             phase_align_stream(align_rng, chr1_words)
             phase_approx(align_rng, workdir, reads2, reads5)
             torch.cuda.synchronize()

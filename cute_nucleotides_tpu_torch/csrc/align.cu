@@ -1,4 +1,5 @@
-// Myers bit-vector edit-distance scan for Hopper (sm_90a), plain C interface.
+// Myers bit-vector edit-distance scan for Hopper (sm_90a), plain C interface,
+// and beside it the base-5 Peq build that feeds it (its own section below).
 //
 // Replaces the word scans of cute_nucleotides_tpu/ops/align.py:
 // _myers_scan_words (:336, 2-bit text) and _myers_scan_words_b5 (:385, base-5
@@ -589,6 +590,176 @@ cudaError_t launch_mode(int mode, const Args& g, cudaStream_t stream) {
   }
 }
 
+// --- the base-5 Peq build --------------------------------------------------
+//
+// peq_b5_kernel (entry point cn_peq_b5) replaces no Pallas kernel.  The JAX
+// package builds a base-5 query's Peq with jnp: cute_nucleotides_tpu/ops/
+// align.py:573 _unpack_digits_b5_t splits the triplets into digits and :605
+// _peq_from_codes compares every digit with the five values, weights each row
+// by its bit and sums.  The port ran that as eager torch ops (an int64 one-hot
+// [B, 5, NB, 32] and its sum): about 10 ms for 1,048,576 queries of two words,
+// 35 times the #19 scan that reads it (PERF.md).  It is not named myers_: the
+// benchmark counts every device event with myers_ in its name as #19.
+//
+// Query b: Wq u32 (Wq / 2 u64 words, bit 63 in no triplet) from u32 b *
+// q_stride; digit k of triplet j of word w, t - 5 (t * 205 >> 10), (t * 205 >>
+// 10) - 5 (t * 41 >> 10) and t * 41 >> 10, is row 27 w + 3 j + k.  Peq[b]:
+// u32[5][nb], nb = max(1, ceil(27 Wq / 2 / 32)); bit i % 32 of word i / 32 of
+// plane c is set where row i is digit c and i < min(qlens[b], 27 Wq / 2).  A
+// corrupt triplet's (125..127) digit 5 sets no plane.
+//
+// What bounds it: bytes.  A query reads Wq u32 and its length and writes
+// 5 nb u32: 60 bytes at Wq = 4, 62.9 MB for 1,048,576 queries, 0.019 ms at
+// 3.35 TB/s.  Its integer work is small but not nothing, and a first design
+// that spent about twice this one's instructions (a 16-byte table entry a
+// triplet, 64-bit accumulators, a block of 128 queries building its table for
+// one tile) ran at 43% of the bound (PERF.md).  So nothing between the words
+// and Peq goes through device memory, each Peq word is stored once, and a
+// digit costs about one instruction:
+// - a thread builds one query's Peq, loading its words 16 bytes at a time
+//   where address, stride and Wq allow (4 bytes otherwise: 1% slower at the
+//   adapter scan's shape, and 8-byte loads gained half of that);
+// - a triplet is one LDS of a 128-entry table in shared memory, its three
+//   digits sliced by bit (bit 10 i + k: bit i of digit k); three triplets add
+//   into a group at bit 0, 3 and 6, so field i of a group holds bit i of its
+//   nine digits, and shifts and masks join a word's three groups into its
+//   three 27-bit slices;
+// - the slices join the query's pending rows by funnel shifts; each full 32
+//   rows give the five plane words by one logic op each on the three slices
+//   (plane c: the rows whose bits spell c), after the rows at and past the
+//   limit are set to 101, digit 5, which spells no plane;
+// - a warp stages its 32 queries' Peq rows in shared memory and stores them as
+//   one run of 16-byte stores, neighbouring lanes on neighbouring words, while
+//   a row holds at most kPeqStaged blocks (queries of up to 256 nt; longer rows
+//   store each word where it is made).  Stored where they were made, the rows
+//   of 1,048,576 two-block queries took 2.7 times as long.
+// - a block of kPeqThreads queries builds the table once and takes tiles of
+//   queries in turn, and 12 blocks an SM cap a thread at 40 registers: capped
+//   at 32 it spilled and ran 4% slower, at 96 (an earlier form's own choice)
+//   19% slower.
+
+constexpr int kPeqThreads = 128;  // queries a tile; also the table's triplets
+constexpr int kPeqStaged = 8;     // blocks a Peq row may hold for its warp to stage it
+// Blocks an SM holds (1536 threads, so at most 40 registers a thread); the
+// grid is as many as the card holds, each block taking tiles in turn.
+constexpr int kPeqSmBlocks = 12;
+
+// Triplet t's digits sliced by bit: bit 10 i + k holds bit i of digit k.
+__device__ __forceinline__ uint32_t digit_slices(uint32_t t) {
+  const uint32_t q5 = (t * 205u) >> 10, q25 = (t * 41u) >> 10;
+  const uint32_t d[3] = {t - 5u * q5, q5 - 5u * q25, q25};
+  uint32_t e = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) e |= ((d[k] * 0x40201u) & 0x100401u) << k;  // bits 0, 1, 2 of d to 0, 10, 20
+  return e;
+}
+
+// V: u32 a load (4 or 1).
+template <int V>
+__global__ void __launch_bounds__(kPeqThreads, kPeqSmBlocks)
+    peq_b5_kernel(const uint32_t* __restrict__ q, int64_t q_stride, int wq, const int32_t* __restrict__ qlens,
+                  int64_t rows, int nb, uint32_t* __restrict__ peq) {
+  __shared__ uint32_t table[128];
+  extern __shared__ uint4 tile4[];  // staged: [warp][32 queries][5 nb] u32
+  table[threadIdx.x] = digit_slices(threadIdx.x);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row_u32 = 5 * nb;
+  const bool staged = nb <= kPeqStaged;
+  uint32_t* const tile = reinterpret_cast<uint32_t*>(tile4) + 32 * warp * row_u32;
+  const int have = 27 * (wq / 2);
+  const int64_t tiles = (rows + kPeqThreads - 1) / kPeqThreads;
+  for (int64_t at = blockIdx.x; at < tiles; at += gridDim.x) {
+    const int64_t r0 = at * kPeqThreads + 32 * warp;  // the warp's first query
+    const int64_t r = r0 + lane;
+    const bool live = r < rows;  // a dead lane runs the warp's loop on zero words and stores nothing
+    uint32_t* const out = staged ? tile + lane * row_u32 : peq + r * row_u32;
+    const int32_t qlen = live ? qlens[r] : 0;
+    const int32_t lim = qlen < have ? qlen : have;  // rows that count; may be negative
+    const uint32_t* const row = q + (live ? r : 0) * q_stride;
+
+    uint32_t p0 = 0, p1 = 0, p2 = 0;  // slices of the rows from 32 b on, `fill` of them made
+    int fill = 0, b = 0;
+    auto emit = [&](uint32_t s0, uint32_t s1, uint32_t s2) {
+      int32_t n = lim - 32 * b;
+      n = n < 0 ? 0 : n > 32 ? 32 : n;
+      const uint32_t past = __funnelshift_lc(0u, 0xFFFFFFFFu, n);  // rows at and past the limit
+      s0 |= past;  // which then spell 101, digit 5: no plane
+      s1 &= ~past;
+      s2 |= past;
+      if (staged || live) {
+        out[b] = ~s0 & ~s1 & ~s2;
+        out[nb + b] = s0 & ~s1 & ~s2;
+        out[2 * nb + b] = ~s0 & s1 & ~s2;
+        out[3 * nb + b] = s0 & s1 & ~s2;
+        out[4 * nb + b] = ~s0 & ~s1 & s2;
+      }
+      ++b;
+    };
+    auto word = [&](uint32_t lo, uint32_t hi) {
+      auto at3 = [&](uint32_t x) { return table[x & 0x7Fu]; };
+      // three triplets a group: field i (bits 10 i .. 10 i + 8) holds bit i of their nine digits
+      const uint32_t g0 = at3(lo) + (at3(lo >> 7) << 3) + (at3(lo >> 14) << 6);
+      const uint32_t g1 = at3(lo >> 21) + (at3(__funnelshift_r(lo, hi, 28)) << 3) + (at3(hi >> 3) << 6);
+      const uint32_t g2 = at3(hi >> 10) + (at3(hi >> 17) << 3) + (at3(hi >> 24) << 6);
+      // the word's 27 rows: bit 9 m + j of slice i is field i of group m, bit j
+      const uint32_t s0 = (g0 & 0x1FFu) | ((g1 << 9) & 0x3FE00u) | ((g2 << 18) & 0x7FC0000u);
+      const uint32_t s1 = ((g0 >> 10) & 0x1FFu) | ((g1 >> 1) & 0x3FE00u) | ((g2 << 8) & 0x7FC0000u);
+      const uint32_t s2 = ((g0 >> 20) & 0x1FFu) | ((g1 >> 11) & 0x3FE00u) | ((g2 >> 2) & 0x7FC0000u);
+      if (fill >= 5) {  // 27 rows a word: at most one block ends in it
+        emit(p0 | (s0 << fill), p1 | (s1 << fill), p2 | (s2 << fill));
+        p0 = __funnelshift_l(s0, 0u, fill);
+        p1 = __funnelshift_l(s1, 0u, fill);
+        p2 = __funnelshift_l(s2, 0u, fill);
+        fill -= 5;
+      } else {
+        p0 |= s0 << fill;
+        p1 |= s1 << fill;
+        p2 |= s2 << fill;
+        fill += 27;
+      }
+    };
+    if constexpr (V == 4) {
+      for (int k = 0; k < wq; k += 4) {
+        const uint4 v = live ? __ldg(reinterpret_cast<const uint4*>(row + k)) : make_uint4(0u, 0u, 0u, 0u);
+        word(v.x, v.y);
+        word(v.z, v.w);
+      }
+    } else {
+      for (int k = 0; k < wq; k += 2) word(live ? __ldg(row + k) : 0u, live ? __ldg(row + k + 1) : 0u);
+    }
+    while (b < nb) {  // the last, partial block (rows past 27 Wq / 2 are empty)
+      emit(p0, p1, p2);
+      p0 = p1 = p2 = 0;
+    }
+
+    if (staged) {  // the warp's queries' rows: one run of words
+      __syncwarp();
+      const int64_t left = rows - r0;
+      const int count = left <= 0 ? 0 : (left >= 32 ? 32 : static_cast<int>(left)) * row_u32;
+      const uint4* const src = reinterpret_cast<const uint4*>(tile);  // 16-byte aligned: 640 nb bytes a warp
+      uint4* const dst = reinterpret_cast<uint4*>(peq + r0 * row_u32);
+      for (int e = lane; e < count / 4; e += 32) dst[e] = src[e];
+      for (int e = 4 * (count / 4) + lane; e < count; e += 32) peq[r0 * row_u32 + e] = tile[e];  // a last warp's tail
+      __syncwarp();
+    }
+  }
+}
+
+template <int V>
+cudaError_t launch_peq(const uint32_t* q, int64_t q_stride, int wq, const int32_t* qlens, int64_t rows, int nb,
+                       uint32_t* peq, cudaStream_t stream) {
+  int64_t wave = 0;
+  if (const cudaError_t e = wave_lanes(&wave); e != cudaSuccess) return e;
+  const int64_t tiles = (rows + kPeqThreads - 1) / kPeqThreads;
+  const int64_t most = wave / kSmLanes * kPeqSmBlocks;
+  const unsigned blocks = static_cast<unsigned>(tiles < most ? tiles : most);
+  const size_t tile = nb <= kPeqStaged ? sizeof(uint32_t) * kPeqThreads * 5 * nb : 0;
+  peq_b5_kernel<V><<<blocks, kPeqThreads, tile, stream>>>(q, q_stride, wq, qlens, rows, nb, peq);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -624,6 +795,27 @@ int cn_myers_plan(int nb, int64_t rows, int mode, int* out) {
   out[0] = p.lanes;
   out[1] = p.bpl;
   return static_cast<int>(e);
+}
+
+// The base-5 Peq of `rows` packed queries (the Peq section above): query b's
+// wq u32 at qwords + b * q_stride (wq even, at most 2^26; q_stride 0: one
+// query for every row), its length qlens[b]; writes peq u32[rows][5][nb], nb
+// = max(1, ceil(27 wq / 2 / 32)), which the caller allocates 16-byte aligned.
+int cn_peq_b5(const void* qwords, int64_t q_stride, int wq, const void* qlens, int64_t rows, int nb, void* peq,
+              void* stream) {
+  const int64_t need = (27 * static_cast<int64_t>(wq / 2) + 31) / 32;
+  if (rows < 0 || q_stride < 0 || wq < 0 || wq % 2 || wq > (1 << 26) || nb != (need > 1 ? need : 1) ||
+      reinterpret_cast<uintptr_t>(peq) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  const auto* q = static_cast<const uint32_t*>(qwords);
+  const auto* ql = static_cast<const int32_t*>(qlens);
+  auto* out = static_cast<uint32_t*>(peq);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto at = reinterpret_cast<uintptr_t>(q);
+  if (at % 16 == 0 && q_stride % 4 == 0 && wq % 4 == 0)
+    return static_cast<int>(launch_peq<4>(q, q_stride, wq, ql, rows, nb, out, s));
+  return static_cast<int>(launch_peq<1>(q, q_stride, wq, ql, rows, nb, out, s));
 }
 
 }  // extern "C"

@@ -256,7 +256,9 @@ def _peq_from_codes(codes: torch.Tensor, qlens, alphabet: int) -> torch.Tensor:
 
 
 def _peq_b5(qwords: torch.Tensor, qlens) -> torch.Tensor:
-    return _peq_from_codes(_unpack_digits_b5_t(qwords).T, qlens, 5)
+    # the kernel reads a row's words in place: a row of strided words is copied
+    q = qwords if qwords.stride(-1) == 1 else qwords.contiguous()
+    return kernels.peq_b5(q, _lens(qlens, qwords.device))
 
 
 def edit_distance_packed_b5(qwords: torch.Tensor, qlens, twords: torch.Tensor, tlens) -> torch.Tensor:

@@ -36,7 +36,8 @@ the packed (w, k)-minimizer bits for k <= 15 (u32[ceil(n/16)]).
 The base-5 GC kernel takes a flat base-5 stream and returns one int32; the
 pair sort takes two u32[n] key planes and returns them sorted.  The Myers
 scan takes query bitmasks (Peq) and text rows cut from one flat packed
-stream of either codec, and returns scores, best ends or an ends mask.
+stream of either codec, and returns scores, best ends or an ends mask;
+the base-5 Peq build makes those bitmasks from packed query words.
 
 Every codec kernel is bound by device memory: the 2-bit encoders read 4
 bytes and write 1 per 4 nt, the decoder the reverse (5 bytes moved per 4
@@ -49,7 +50,8 @@ minimizer kernel reads and writes little and is bound by its integer work
 (a hash and 2 floor(log2 w) + 2 doubling passes per position).  The GC
 kernel is bound by reading its stream, the radix sort by its passes over
 the keys, the Myers scan by its integer work (about 40 instructions per
-32-row block and text nt).  Times on the H100 beside the plain versions' are in PERF.md.
+32-row block and text nt), the Peq build by its bytes (the query words in, 20
+bytes a 32-row block out).  Times on the H100 beside the plain versions' are in PERF.md.
 """
 
 from __future__ import annotations
@@ -1552,11 +1554,80 @@ def myers_scan(peq, qlens, words, tlens, row_stride: int, row_len: int, *, mode:
 
 myers_scan.launches = 0
 
+# --- the base-5 Peq build ----------------------------------------------------------
+
+
+def peq_b5_plain(qwords: torch.Tensor, qlens: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`peq_b5`: the digits of :func:`text_codes`,
+    each compared with the five values as an int64 one-hot, weighted by its
+    row's bit and summed (``ops/align.py``: ``_peq_from_codes`` of
+    ``_unpack_digits_b5_t``, the reference's two steps)."""
+    from . import align  # align imports this module
+
+    return align._peq_from_codes(align._unpack_digits_b5_t(qwords).T, qlens, 5)
+
+
+def peq_b5(qwords: torch.Tensor, qlens: torch.Tensor) -> torch.Tensor:
+    """Base-5 Peq of packed queries: u32[B, Wq] (Wq even, Wq / 2 u64 words of
+    27 digits; rows contiguous, any row stride) and i32[B] lengths -> u32[B,
+    5, NB], NB = max(1, ceil(27 Wq / 2 / 32)), the Peq of :func:`myers_scan`
+    with ``b5``.  Bit ``i % 32`` of ``peq[b, c, i // 32]`` is set where row
+    ``i`` of query ``b`` (digit k of triplet j of word w is row 27 w + 3 j +
+    k) is digit ``c`` and ``i < min(qlens[b], 27 Wq / 2)``; a corrupt
+    triplet's (125..127) digit 5 sets no plane.
+
+    Replaces no Pallas kernel but the JAX package's jnp build,
+    ``cute_nucleotides_tpu/ops/align.py:573`` ``_unpack_digits_b5_t`` and
+    ``:605`` ``_peq_from_codes``, which the port ran as eager ops (an int64
+    one-hot [B, 5, NB, 32] and its sum).  ``csrc/align.cu``'s
+    ``peq_b5_kernel``: a thread builds one query, its words read 16 bytes at
+    a time where they align; each triplet is one lookup in a 128-entry table
+    in shared memory of its digits sliced by bit, so that a word gives three
+    27-bit bit slices and each 32-row block's five plane words are one logic
+    op each; a warp stages its 32 queries' rows in shared memory and stores
+    them as one run (Peq rows of up to 8 blocks; longer ones word by word).
+    Bound by its bytes: the words and the length in, 20 bytes a block out
+    (1,048,576 queries of 4 u32: 62.9 MB, 0.019 ms at 3.35 TB/s).  Time on
+    the H100: PERF.md.
+    """
+    if qwords.ndim != 2:
+        raise TypeError(f"expected query words u32[B, Wq], got {qwords.dtype}{tuple(qwords.shape)}")
+    if qwords.shape[1] % 2:
+        raise ValueError("base-5 packed stream must have even u32 count")
+    if qwords.dtype != torch.uint32:
+        raise TypeError(f"expected uint32 words, got {qwords.dtype}")
+    B, wq = qwords.shape
+    if qlens.dtype != torch.int32 or tuple(qlens.shape) != (B,):
+        raise TypeError(f"expected qlens i32[{B}], got {(qlens.dtype, tuple(qlens.shape))}")
+    dev = qwords.device
+    if qlens.device != dev:
+        raise ValueError(f"inputs on {sorted({str(dev), str(qlens.device)})}")
+    if dev.type == "cpu":
+        return peq_b5_plain(qwords, qlens)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if wq > 1 and qwords.stride(1) != 1:
+        raise ValueError(f"query words must be contiguous within a row, got strides {qwords.stride()}")
+    if not qlens.is_contiguous():
+        raise ValueError("kernel input must be contiguous")
+    nb = max(1, -(-(27 * (wq // 2)) // MYERS_BLOCK))
+    peq = torch.empty((B, 5, nb), dtype=torch.uint32, device=dev)
+    if B:
+        lib = _build.load()
+        with torch.cuda.device(dev):
+            _launch(lib.cn_peq_b5, qwords.data_ptr(), qwords.stride(0), wq, qlens.data_ptr(), B, nb, peq.data_ptr(),
+                    _stream(qwords))
+        peq_b5.launches += 1
+    return peq
+
+
+peq_b5.launches = 0
+
 WRAPPERS = (encode_2bit_nt4, decode_2bit_nt4, encode_2bit_nt4_checked, encode_2bit_nt4_mxu,
             encode_b5_stream, decode_b5_stream, match_bits_stream, match_b5_bits_stream,
             kmer_codes_planar, kmer_codes_planar_pair, hist_codes, kmer_hashes_planar_pair,
             minimizer_bits_stream, gc_b5_stream, sort_pairs_bitonic, encode_b5_planar, decode_b5_nt4_panels,
-            decode_b5_panels, myers_scan)
+            decode_b5_panels, myers_scan, peq_b5)
 
 
 def reset_launch_counts() -> None:

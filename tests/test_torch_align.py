@@ -256,6 +256,79 @@ def test_b5_odd_word_count_raises_as_the_reference():
         align._unpack_digits_b5_t(torch.from_numpy(odd))
 
 
+
+#: query widths of the base-5 Peq build: 1, 2, 3 and 9 blocks
+PEQ_B5_WQ = (2, 4, 6, 20)
+
+
+def _peq_b5_cases(rng, wq: int) -> tuple[np.ndarray, np.ndarray]:
+    """(qwords, qlens): each length at the block and word seams, at the
+    words' rows, past them and negative, twice: packed ACGTN queries, then
+    the same with a triplet 125-127 in every row; and two rows of random
+    bits (bit 63 set, corrupt triplets where they fall)."""
+    have = 27 * wq // 2
+    lens = [0, 1, 26, 27, 31, 32, 33, 53, 54, have, have + 5, -3]
+    clean = _rows([bytes(rng.choice(ACGTN, have)) for _ in lens], native.n_to_bits2, wq)
+    q = np.concatenate([clean, _corrupt(clean, rng, 1), rng.integers(0, 2**32, (2, wq), dtype=np.uint32)])
+    return q, np.array(lens * 2 + [have, 40], np.int32)
+
+
+@pytest.mark.parametrize("wq", PEQ_B5_WQ + (3,))
+def test_peq_b5_wrapper_matches_reference(wq):
+    """``kernels.peq_b5`` on CPU tensors (its plain version) against the JAX
+    package's ``_peq_from_codes(_unpack_digits_b5_t(q).T, qlens, 5)``: every
+    row below min(qlen, 27 Wq / 2) in the plane of its digit, a corrupt
+    triplet's digit 5 in none, rows past the words empty; an odd word count
+    raises the reference's error."""
+    rng = np.random.default_rng(70 + wq)
+    if wq % 2:
+        odd, ql = np.zeros((2, wq), np.uint32), np.array([1, 1], np.int32)
+        want = pytest.raises(ValueError, ref._unpack_digits_b5_t, odd).value
+        got = pytest.raises(ValueError, kernels.peq_b5, torch.from_numpy(odd), torch.from_numpy(ql)).value
+        assert str(got) == str(want)
+        return
+    q, ql = _peq_b5_cases(rng, wq)
+    got = kernels.peq_b5(torch.from_numpy(q), torch.from_numpy(ql))
+    digits = np.asarray(ref._unpack_digits_b5_t(q)).T  # [B, 27 Wq / 2]
+    want = np.asarray(ref._peq_from_codes(digits, ql, 5))
+    assert got.shape == (len(q), 5, max(1, -(-digits.shape[1] // 32))) and got.dtype == torch.uint32
+    assert np.array_equal(got.view(torch.int32).numpy(), want.view(np.int32))
+    # each row counted in exactly the plane of its digit; digit 5 nowhere
+    bits = (want[..., None] >> np.arange(32, dtype=np.uint32)) & 1  # [B, 5, NB, 32]
+    planes = bits.reshape(len(q), 5, -1)[:, :, : digits.shape[1]]
+    rows = np.arange(digits.shape[1]) < np.minimum(ql, digits.shape[1])[:, None]
+    assert (digits == 5).any() and np.array_equal(planes.sum(1), rows & (digits < 5))
+    assert kernels.peq_b5.launches == 0  # the CPU launches nothing
+
+
+def test_b5_packed_takes_column_strided_queries():
+    """Query words not contiguous within a row (every other column of a
+    wider array, a transposed array) give the contiguous words' results."""
+    rng = np.random.default_rng(75)
+    q, ql = (torch.from_numpy(a) for a in _peq_b5_cases(rng, 4))
+    tw = torch.from_numpy(rng.integers(0, 2**32, (len(q), 12), dtype=np.uint32))
+    tl = torch.from_numpy(rng.integers(0, 163, len(q)).astype(np.int32))
+    want = align.best_match_packed_b5(q, ql, tw, tl) + (align.edit_distance_packed_b5(q, ql, tw, tl),)
+    wide = torch.zeros((len(q), 8), dtype=torch.uint32)
+    wide[:, ::2] = q
+    for v in (wide[:, ::2], q.T.contiguous().T):
+        assert v.stride(1) != 1
+        got = align.best_match_packed_b5(v, ql, tw, tl) + (align.edit_distance_packed_b5(v, ql, tw, tl),)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_align_cu_names_only_the_scan_myers():
+    """The benchmark counts every device event whose name holds ``myers_``
+    as #19: no other kernel of ``csrc/align.cu`` may carry it."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(kernels.__file__), "..", "csrc", "align.cu")).read()
+    names = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src))
+    assert {"myers_lanes", "myers_scratch", "peq_b5_kernel"} <= names
+    assert {n for n in names if "myers_" in n} == {"myers_lanes", "myers_scratch"}
+
+
 def test_scan_wrapper_refuses_bad_inputs():
     peq = torch.zeros((2, 4, 1), dtype=torch.uint32)
     lens = torch.zeros(2, dtype=torch.int32)

@@ -1,7 +1,7 @@
 """The CUDA kernels of both codecs (with their planar forms), the search,
-the k-mer path and the sketch path on the card: each against its plain
-version, the cuda tier against the torch tier and the oracle, launch counts
-and refusals; and the bench's table.
+the k-mer path, the sketch path, the Myers scan and the base-5 Peq build on
+the card: each against its plain version, the cuda tier against the torch
+tier and the oracle, launch counts and refusals; and the bench's table.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 no JAX, so it also runs where JAX is not installed; the tests' conftest
@@ -23,6 +23,7 @@ pytestmark = pytest.mark.cuda
 
 ALPHABET = np.frombuffer(b"ACGTUacgtu", np.uint8)
 ALPHABET_N = np.frombuffer(b"ACGTUNacgtun", np.uint8)
+ACGTN = np.frombuffer(b"ACGTN", np.uint8)
 B5_MODES = ((False, False), (True, False), (False, True))  # chars, checked, digits
 ENCODE = ("mul", "shift", "interleave")
 DECODE = ("shuffle", "select", "swar")
@@ -132,7 +133,7 @@ def test_launch_counts_and_alignment(cuda_device):
     K.encode_2bit_nt4_mxu(t)
     K.encode_2bit_nt4_mxu(t, checked=True)
     K.decode_2bit_nt4(K.encode_2bit_nt4(t))
-    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     misaligned = torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:36]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_2bit_nt4(misaligned.view(torch.uint32).view(2, 4))
@@ -218,7 +219,7 @@ def test_b5_launch_counts_and_alignment(cuda_device):
     K.encode_b5_stream(x, checked=True)
     for checked, digits in B5_MODES:
         K.decode_b5_stream(w, checked, digits)
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_b5_stream(torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:31])
     with pytest.raises(ValueError, match="checked digit"):
@@ -375,7 +376,7 @@ def test_search_launch_counts(cuda_device):
     search.match_positions_b5(w5, s.size, b"GAT?ACA")
     search.match_positions_b5(w5[:1000], 13500, b"GAT?ACA")  # under 1024 u32: the mask tier
     search.match_count_b5(w5, s.size, b"A" * 1025)  # over 1024 nt: the mask tier
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.match_bits_stream(w2[1:], *search.compile_query(b"ACG")[:2], 10)
 
@@ -432,7 +433,7 @@ def test_kmer_cuda_matches_torch_tier(cuda_device):
     for k in (3, 8, 11):
         assert _same(kmer.kmer_histogram_batch(interop.to_tensor(batch, cuda_device), lengths, k, canonical=True),
                      kmer.kmer_histogram_batch(interop.to_tensor(batch), lengths, k, canonical=True))
-    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2, 0, 0, 0, 0, 0, 0, 0, 0, 0]
 
 
 def test_stats_cuda_matches_torch_tier(cuda_device, tmp_path, capsys):
@@ -695,7 +696,7 @@ def test_planar_launch_counts_and_refusals(cuda_device):
     K.decode_b5_nt4_panels(lo, hi, padded=False)
     K.decode_b5_panels(lo, hi)
     K.encode_b5_planar(x[:0])  # no rows: nothing launched
-    assert [fn.launches for fn in K.WRAPPERS][-4:] == [1, 2, 1, 0] and sum(fn.launches for fn in K.WRAPPERS) == 4
+    assert [fn.launches for fn in K.WRAPPERS][-5:] == [1, 2, 1, 0, 0] and sum(fn.launches for fn in K.WRAPPERS) == 4
     with pytest.raises(ValueError, match="aligned"):
         K.encode_b5_planar(torch.zeros(2 * K.B5_ROW_NT, dtype=torch.uint8, device=cuda_device)[4 : 4 + K.B5_ROW_NT]
                            .view(1, -1))
@@ -868,6 +869,119 @@ def test_myers_launch_counts_and_refusals(cuda_device):
     with pytest.raises(ValueError, match="inputs on"):
         K.myers_scan(on[0], ql, *on[2:4], 24, 24, mode="global")
     assert K.myers_scan.launches == 3
+
+
+
+# --- the base-5 Peq build -----------------------------------------------------------
+
+def _peq_b5_inputs(rng, wq: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(qwords, qlens) on the CPU: each length at the block and word seams,
+    at the words' rows, past them and negative, over packed ACGTN queries,
+    then the same with a triplet 125-127 in every row, then rows of random
+    bits."""
+    have = 27 * wq // 2
+    lens = [0, 1, 26, 27, 31, 32, 33, 53, 54, have, have + 5, -3]
+    clean = np.zeros((len(lens), wq), np.uint32)
+    for i in range(len(lens)):
+        clean[i] = np.ascontiguousarray(native.n_to_bits2(rng.choice(ACGTN, have).tobytes())).view(np.uint32)
+    bad = clean.copy()
+    pairs = bad.view(np.uint64)
+    for r in range(len(bad)):
+        pairs[r, int(rng.integers(0, wq // 2))] |= np.uint64(int(rng.integers(125, 128)) << (7 * int(rng.integers(0, 9))))
+    q = np.concatenate([clean, bad, rng.integers(0, 2**32, (9, wq), dtype=np.uint32)])
+    ql = np.array(lens * 2 + rng.integers(-2, have + 8, 9).tolist(), np.int32)
+    return torch.from_numpy(q), torch.from_numpy(ql)
+
+
+@pytest.mark.parametrize("wq", (2, 4, 6, 20))
+def test_peq_b5_kernel_matches_plain(cuda_device, wq):
+    """The Peq build bit for bit equal to its plain version: the seams of the
+    query lengths, corrupt triplets, random words; contiguous, row-sliced
+    (an offset start and every other row), a stride-0 query, and a start 4
+    bytes off an 8-byte boundary (each of the kernel's load widths)."""
+    q, ql = _peq_b5_inputs(np.random.default_rng(200 + wq), wq)
+    n = len(q)
+    flat = torch.zeros(n * wq + 1, dtype=torch.uint32)
+    flat[1:] = q.reshape(-1)
+    views = {"contiguous": (q, ql), "from row 1": (q[1:], ql[1:]), "every other row": (q[::2], ql[::2]),
+             "stride 0": (q[5:6].expand(n, wq), ql), "4 bytes off": (flat[1:].view(n, wq), ql)}
+    for what, (v, lens) in views.items():
+        on = flat.to(cuda_device)[1:].view(n, wq) if what == "4 bytes off" else q.to(cuda_device)
+        v_on = {"contiguous": on, "from row 1": on[1:], "every other row": on[::2], "stride 0": on[5:6].expand(n, wq),
+                "4 bytes off": on}[what]
+        got = K.peq_b5(v_on, lens.to(cuda_device))
+        assert _same(got, K.peq_b5_plain(v, lens)), what
+        assert got.shape == (len(lens), 5, max(1, -(-27 * wq // 2 // 32))), what
+
+
+def test_peq_b5_kernel_at_the_cell_shape(cuda_device):
+    """The adapter scan's shape: 1,048,576 queries of 4 u32 (random words,
+    corrupt triplets where they fall, bit 63 set in half), lengths -2..60."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(1_048_576)
+    R = 1 << 20
+    q = torch.randint(-(2**31), 2**31, (R, 4), dtype=torch.int32, device=cuda_device, generator=g).view(torch.uint32)
+    ql = torch.randint(-2, 61, (R,), dtype=torch.int32, device=cuda_device, generator=g)
+    assert _same(K.peq_b5(q, ql), K.peq_b5_plain(q, ql))
+
+
+def test_peq_b5_launches_once_a_call_and_never_runs_plain(cuda_device, monkeypatch):
+    """Each ``best_match_packed_b5`` and ``edit_distance_packed_b5`` call on
+    the card launches the Peq build once and #19 once, and never reaches the
+    plain version; the results equal the CPU's.  Refusals."""
+    from cute_nucleotides_tpu_torch.ops import align
+
+    rng = np.random.default_rng(22)
+    q, ql = _peq_b5_inputs(rng, 4)
+    tw = torch.from_numpy(rng.integers(0, 2**32, (len(q), 12), dtype=np.uint32))
+    tl = torch.from_numpy(rng.integers(0, 163, len(q)).astype(np.int32))
+    want = (align.best_match_packed_b5(q, ql, tw, tl), align.edit_distance_packed_b5(q, ql, tw, tl))
+
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached the plain Peq build")
+
+    monkeypatch.setattr(K, "peq_b5_plain", refuse)
+    on = [t.to(cuda_device) for t in (q, ql, tw, tl)]
+    K.reset_launch_counts()
+    best = align.best_match_packed_b5(*on)
+    assert K.peq_b5.launches == 1 and K.myers_scan.launches == 1
+    dist = align.edit_distance_packed_b5(*on)
+    assert K.peq_b5.launches == 2 and K.myers_scan.launches == 2
+    assert all(_same(g, w) for g, w in zip(best + (dist,), want[0] + (want[1],)))
+    assert sum(fn.launches for fn in K.WRAPPERS) == 4
+    with pytest.raises(ValueError, match="contiguous within a row"):
+        K.peq_b5(on[0][:, ::2], on[1])
+    with pytest.raises(ValueError, match="inputs on"):
+        K.peq_b5(on[0], ql)
+    with pytest.raises(ValueError, match="even u32 count"):
+        K.peq_b5(on[0][:, :3], on[1])
+    with pytest.raises(TypeError, match="qlens"):
+        K.peq_b5(on[0], on[1][1:])
+    K.peq_b5(on[0][:0], on[1][:0])  # no rows: no launch
+    assert K.peq_b5.launches == 2
+
+
+def test_b5_packed_takes_column_strided_queries(cuda_device):
+    """``best_match_packed_b5`` and ``edit_distance_packed_b5`` take query
+    words that are not contiguous within a row (every other column of a
+    wider array, a transposed array) as the CPU does, one Peq build a call."""
+    from cute_nucleotides_tpu_torch.ops import align
+
+    rng = np.random.default_rng(23)
+    q, ql = _peq_b5_inputs(rng, 4)
+    tw = torch.from_numpy(rng.integers(0, 2**32, (len(q), 12), dtype=np.uint32))
+    tl = torch.from_numpy(rng.integers(0, 163, len(q)).astype(np.int32))
+    want = align.best_match_packed_b5(q, ql, tw, tl) + (align.edit_distance_packed_b5(q, ql, tw, tl),)
+    wide = torch.zeros((len(q), 8), dtype=torch.uint32)
+    wide[:, ::2] = q
+    on = [t.to(cuda_device) for t in (ql, tw, tl)]
+    views = {"every other column": wide.to(cuda_device)[:, ::2], "transposed": q.T.contiguous().to(cuda_device).T}
+    for what, v in views.items():
+        assert v.stride(1) != 1, what
+        K.reset_launch_counts()
+        got = align.best_match_packed_b5(v, *on) + (align.edit_distance_packed_b5(v, *on),)
+        assert all(_same(g, w) for g, w in zip(got, want)), what
+        assert K.peq_b5.launches == 2 and K.myers_scan.launches == 2, what
 
 
 def test_approx_cli_on_the_card(cuda_device, tmp_path, capsys):
