@@ -43,12 +43,14 @@ block: a freed buffer is not handed out again until its copy has finished.
 from __future__ import annotations
 
 import contextlib
+import weakref
 
 import numpy as np
 import torch
 
 from .. import models
 from ..ops import align as align_ops, kmer as kmer_ops, search as search_ops, sketch as sketch_ops
+from ..utils import tracing
 from . import mesh as mesh_lib
 from .mesh import ShardedTensor
 
@@ -79,12 +81,22 @@ def _codec_on(device: torch.device, codec: str, tier: str = "auto", variant=None
     return models.Base5Codec(tier=tier, device=device)
 
 
+#: each mesh's batch codecs by their settings, made at a form's first call
+#: and reused by the next (a codec holds only its settings and device)
+_MESH_CODECS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
 def _codecs(mesh: mesh_lib.Mesh, codec: str, tier: str, variant=None, decode_variant=None) -> tuple:
     """The data axis (this process's view), and a batch codec on each of
-    its devices (one per distinct device)."""
+    its devices (one per distinct device), made once a mesh."""
     _check_codec(codec)
-    axis = mesh.axis(mesh_lib.DATA_AXIS)
-    return axis, mesh_lib.per_device(axis.devices, lambda d: _codec_on(d, codec, tier, variant, decode_variant))
+    made = _MESH_CODECS.setdefault(mesh, {})
+    key = (codec, tier, variant, decode_variant)
+    if key not in made:
+        axis = mesh.axis(mesh_lib.DATA_AXIS)
+        made[key] = axis, mesh_lib.per_device(
+            axis.devices, lambda d: _codec_on(d, codec, tier, variant, decode_variant))
+    return made[key]
 
 
 def _out(shards: list, axis, gather: bool) -> ShardedTensor:
@@ -110,12 +122,16 @@ def data_parallel_encode(
     ``gather=True`` all-gathers the packed words so the result is
     replicated (otherwise it stays sharded, the right form for a streaming
     sink).  B must divide by the data-axis size; L by 16 (2bit) / 27
-    (base5).  ``variant=None`` resolves to the tier's default.
+    (base5).  ``variant=None`` resolves to the tier's default.  Records the
+    span ``dp.encode``, with ``dp.encode.codec`` (the shard split and the
+    encodes' enqueue) inside it.
     """
-    mesh = mesh if mesh is not None else mesh_lib.default_mesh()
-    axis, codecs = _codecs(mesh, codec, tier, variant)
-    shards = mesh_lib.shard_rows(reads, axis)
-    return _out([c.encode(x) for c, x in zip(codecs, shards)], axis, gather)
+    with tracing.span("dp.encode"):
+        mesh = mesh if mesh is not None else mesh_lib.default_mesh()
+        axis, codecs = _codecs(mesh, codec, tier, variant)
+        with tracing.span("dp.encode.codec"):
+            words = [c.encode(x) for c, x in zip(codecs, mesh_lib.shard_rows(reads, axis))]
+        return _out(words, axis, gather)
 
 
 def data_parallel_decode(

@@ -26,14 +26,20 @@ A mesh is of one of two kinds:
   rank with an entry in its row (data) or column (seq), as the reference
   replicates over the other axis.  :func:`all_gather` and :func:`psum`
   first reduce the rank's own shards, then run ONE collective over the
-  group (``all_gather_into_tensor`` of the shards' bytes, padded where the
-  ranks' blocks differ in size; ``all_reduce(SUM)``): NCCL on the card,
-  gloo on the CPU.  Gloo takes host tensors only, so under gloo a tensor on
-  the card goes through host memory on its way in and out.  A collective
+  group (``all_gather_into_tensor`` of the shards' bytes, in place in one
+  receive buffer, padded where the ranks' blocks differ in size;
+  ``all_reduce(SUM)``): NCCL on the card, gloo on the CPU.  Gloo takes
+  host tensors only, so under gloo a tensor on the card goes through host
+  memory on its way in and out.  A collective
   runs in the current stream's order (NCCL's stream waits on it, gloo's
   staging copy runs on it), where the forms compute their shards.  Each
   position's copy is taken from one rank, its owner (the rank of the
   position's first entry).
+
+Across processes each gather records the spans ``mesh.all_gather`` (with
+``.stage``, its bytes laid into the receive buffer, ``.collective``, the
+collective's enqueue, and ``.rows``, the row counts' gather and read-back
+where it runs) and each sum ``mesh.psum``, through ``utils/tracing.py``.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils import tracing
 
 DATA_AXIS = "data"
 SEQ_AXIS = "seq"
@@ -174,13 +182,20 @@ class Mesh:
         else:
             self.devices = tuple(tuple(Device(int(d.process_index), torch.device(d.device)) for d in r) for r in rows)
         self.shape = {DATA_AXIS: len(self.devices), SEQ_AXIS: len(self.devices[0])}
+        self._axes: dict = {}
 
     @property
     def size(self) -> int:
         return self.shape[DATA_AXIS] * self.shape[SEQ_AXIS]
 
     def axis(self, name: str) -> _Axis:
-        """This process's view of one axis (:class:`_Axis`)."""
+        """This process's view of one axis (:class:`_Axis`), made once: a
+        mesh does not change, and every call of a form asks for it."""
+        if name not in self._axes:
+            self._axes[name] = self._axis(name)
+        return self._axes[name]
+
+    def _axis(self, name: str) -> _Axis:
         if name == DATA_AXIS:
             lines = self.devices
         elif name == SEQ_AXIS:
@@ -331,10 +346,11 @@ def shard_rows(x, devices) -> list[torch.Tensor]:
     return [for_kernel(x[i * b : (i + 1) * b].to(dev)) for i, dev in zip(axis.mine, axis.devices)]
 
 
-def _backend_device(axis: _Axis) -> torch.device:
-    """Where a collective's tensors lie: host memory under gloo, this rank's
-    card under NCCL."""
-    return torch.device("cpu") if torch.distributed.get_backend() == "gloo" else axis.devices[0]
+def _backend(axis: _Axis) -> tuple[str, torch.device]:
+    """The group's backend, and where a collective's tensors lie: host
+    memory under gloo, this rank's card under NCCL."""
+    name = str(torch.distributed.get_backend())
+    return name, torch.device("cpu") if name == "gloo" else axis.devices[0]
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
@@ -343,79 +359,94 @@ def _as_bytes(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.uint8).reshape(-1)
 
 
-def _gather_bytes(parts: list, sizes: list, axis: _Axis) -> list[torch.Tensor]:
+def _gather_bytes(parts: list, sizes: list, axis: _Axis, rank: int) -> tuple[torch.Tensor, int]:
     """Every rank's bytes (``sizes[r]`` on rank r; this rank's are
-    ``parts``, u8, laid end to end) by one ``all_gather_into_tensor``, each
-    rank's block padded to the largest (rounded up to 16 bytes).  Under
-    gloo a rank on the card stages through pinned host memory (the caching
-    host allocator keeps it for the next gather)."""
-    dev, n = _backend_device(axis), 16 * -(-max(max(sizes), 1) // 16)  # each rank's block 16-byte aligned
-    pinned = dev.type == "cpu" and axis.devices[0].type == "cuda"
-    buf = torch.empty(n, dtype=torch.uint8, device=dev, pin_memory=pinned)
-    at = 0
-    for p in parts:
-        buf[at : at + p.numel()].copy_(p)
-        at += p.numel()
-    out = torch.empty(n * len(sizes), dtype=torch.uint8, device=dev, pin_memory=pinned)
-    torch.distributed.all_gather_into_tensor(out, buf)
-    _COLLECTIVES[str(torch.distributed.get_backend())] += 1
-    return [out[r * n : r * n + s] for r, s in enumerate(sizes)]
+    ``parts``, u8, laid end to end) by one ``all_gather_into_tensor`` in
+    place: the receive buffer and ``n``, the bytes of each rank's block in
+    it (rank r's begin at ``r * n``), padded to the largest and rounded up
+    to 16 bytes.  This rank's bytes are laid into its own block, which is
+    the collective's input, so no send block is staged beside the buffer
+    (and NCCL copies nothing onto itself).  Under gloo a rank on the card
+    stages through pinned host memory (the caching host allocator keeps it
+    for the next gather)."""
+    backend, dev = _backend(axis)
+    n = 16 * -(-max(max(sizes), 1) // 16)
+    with tracing.span("mesh.all_gather.stage"):
+        out = torch.empty(n * len(sizes), dtype=torch.uint8, device=dev,
+                          pin_memory=dev.type == "cpu" and axis.devices[0].type == "cuda")
+        mine, at = out[rank * n : (rank + 1) * n], 0
+        for p in parts:
+            mine[at : at + p.numel()].copy_(p)
+            at += p.numel()
+    with tracing.span("mesh.all_gather.collective"):
+        torch.distributed.all_gather_into_tensor(out, mine)
+    _COLLECTIVES[backend] += 1
+    return out, n
 
 
-def _every_block(blocks: list, axis: _Axis, rows: list | None = None) -> list[torch.Tensor]:
-    """Every position's block of an axis from this process's ``blocks`` (one
-    for each of ``axis.mine``; one dtype and trailing shape): the blocks
-    themselves on a mesh of one controller; across processes each position's
-    block from its owner, by one all_gather over the group (after one small
-    all_gather of the blocks' row counts where ``rows``, each position's
-    dim-0 size, is not given).  The blocks come back where the collective
-    left them (host memory under gloo)."""
-    if axis.owner is None:
-        return list(blocks)
+def _exchange(blocks: list, axis: _Axis, rows: list | None) -> tuple[torch.Tensor, list, list]:
+    """Every position's block of an axis across processes, from this
+    process's ``blocks`` (one for each of ``axis.mine``; one dtype and
+    trailing shape), by one all_gather over the group, after one small
+    all_gather of the blocks' row counts (read back once) where ``rows``,
+    each position's dim-0 size, is None.  Returns the receive buffer as the
+    blocks' dtype (where the collective left it: host memory under gloo),
+    where each position's block begins in it, and ``rows``.  Each position's
+    copy is its owner's."""
     rank, world = _group()
     own = dict(zip(axis.mine, blocks))
     held = [[i for i, o in enumerate(axis.owner) if o == r] for r in range(world)]
     if rows is None:
         counts = torch.tensor([own[i].shape[0] for i in held[rank]], dtype=torch.int64)
-        got = _gather_bytes([_as_bytes(counts)], [8 * len(h) for h in held], axis)
+        with tracing.span("mesh.all_gather.rows"):
+            got, n = _gather_bytes([_as_bytes(counts)], [8 * len(h) for h in held], axis, rank)
+            got = got.cpu().view(torch.int64).tolist()
         rows = [0] * len(axis.entries)
-        for h, part in zip(held, got):
-            for i, c in zip(h, part.cpu().view(torch.int64).tolist()):
-                rows[i] = c
+        for r, h in enumerate(held):
+            for k, i in enumerate(h):
+                rows[i] = got[r * n // 8 + k]
     first = blocks[0]
-    row_bytes = math.prod(first.shape[1:]) * first.element_size()
-    got = _gather_bytes([_as_bytes(own[i]) for i in held[rank]],
-                        [sum(rows[i] for i in h) * row_bytes for h in held], axis)
-    out = [None] * len(axis.entries)
-    for h, part in zip(held, got):
-        at = 0
+    width, size = math.prod(first.shape[1:]), first.element_size()
+    out, n = _gather_bytes([_as_bytes(own[i]) for i in held[rank]],
+                           [sum(rows[i] for i in h) * width * size for h in held], axis, rank)
+    starts = [0] * len(axis.entries)
+    for r, h in enumerate(held):
+        at = r * n // size  # n is a multiple of 16 bytes, so of every element size
         for i in h:
-            n = rows[i] * row_bytes
-            out[i] = part[at : at + n].view(first.dtype).reshape(rows[i], *first.shape[1:])
-            at += n
-    return out
+            starts[i] = at
+            at += rows[i] * width
+    return out.view(first.dtype), starts, rows
 
 
-def _joined(blocks: list) -> torch.Tensor:
-    """The blocks laid end to end along dim 0: a view of the buffer where
-    they already lie so (one gather of equal blocks in rank order), else a
-    concatenation."""
-    first, at = blocks[0], blocks[0].data_ptr()
-    for b in blocks:
-        if not b.is_contiguous() or b.data_ptr() != at:
-            return torch.cat(blocks)
-        at += b.numel() * b.element_size()
-    return first.as_strided((sum(b.shape[0] for b in blocks), *first.shape[1:]), first.stride(),
-                            first.storage_offset())
+def _every_block(blocks: list, axis: _Axis, rows: list | None = None) -> list[torch.Tensor]:
+    """Every position's block of an axis from this process's ``blocks``:
+    the blocks themselves on a mesh of one controller; across processes
+    each position's block from its owner (:func:`_exchange`)."""
+    if axis.owner is None:
+        return list(blocks)
+    with tracing.span("mesh.all_gather"):
+        flat, starts, rows = _exchange(blocks, axis, rows)
+        width, trailing = math.prod(blocks[0].shape[1:]), blocks[0].shape[1:]
+        return [flat[s : s + r * width].view(r, *trailing) for s, r in zip(starts, rows)]
 
 
 def all_gather(shards, devices) -> ShardedTensor:
     """Every device of the axis (``devices``, as in :func:`shard_rows`) gets
     the whole array: the shards concatenated along dim 0.  A device that
-    holds the only shard keeps it as it is."""
+    holds the only shard keeps it as it is.  Across processes the shards
+    are equal blocks; where the ranks' blocks lie end to end in the receive
+    buffer (no padding, positions in rank order) the array is a view of it,
+    else a concatenation."""
     axis = _layout(devices)
     if axis.owner is not None:
-        whole = _joined(_every_block(shards, axis, [shards[0].shape[0]] * len(axis.entries)))
+        with tracing.span("mesh.all_gather"):
+            first = shards[0]
+            flat, starts, _ = _exchange(shards, axis, [first.shape[0]] * len(axis.entries))
+            block, count = first.numel(), len(starts)
+            if not block or starts == list(range(0, block * count, block)):
+                whole = flat[: block * count].view(count * first.shape[0], *first.shape[1:])
+            else:
+                whole = torch.cat([flat[s : s + block].view(first.shape) for s in starts])
         return ShardedTensor(per_device(axis.devices, whole.to), replicated=True, axis=axis)
 
     def whole(dev):
@@ -430,14 +461,15 @@ def psum(shards, devices) -> ShardedTensor:
     """Every device of the axis gets the sum of the shards."""
     axis = _layout(devices)
     if axis.owner is not None:
-        rank, dev = _group()[0], _backend_device(axis)
-        total = torch.zeros(shards[0].shape, dtype=shards[0].dtype, device=dev)
-        for i, s in zip(axis.mine, shards):
-            if axis.owner[i] == rank:
-                total += s.to(dev)
-        torch.distributed.all_reduce(total)
-        _COLLECTIVES[str(torch.distributed.get_backend())] += 1
-        return ShardedTensor(per_device(axis.devices, total.to), replicated=True, axis=axis)
+        with tracing.span("mesh.psum"):
+            rank, (backend, dev) = _group()[0], _backend(axis)
+            total = torch.zeros(shards[0].shape, dtype=shards[0].dtype, device=dev)
+            for i, s in zip(axis.mine, shards):
+                if axis.owner[i] == rank:
+                    total += s.to(dev)
+            torch.distributed.all_reduce(total)
+            _COLLECTIVES[backend] += 1
+            return ShardedTensor(per_device(axis.devices, total.to), replicated=True, axis=axis)
 
     def total(dev):
         out = shards[0].to(dev)

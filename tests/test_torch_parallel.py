@@ -488,6 +488,35 @@ def test_one_device_mesh_costs_no_copy(rng):
     assert mesh_lib.all_gather([w], (w.device,)).shards[0] is w
 
 
+def test_a_mesh_makes_its_axes_and_codecs_once(rng):
+    """A mesh's axis views and the forms' batch codecs are made at the
+    first call and reused by every later one on that mesh (one codec a
+    distinct device); another mesh makes its own; a wrong setting still
+    raises at every call."""
+    from cute_nucleotides_tpu_torch.parallel import data_parallel as dp
+
+    m, other = _mesh(4, 2), _mesh(4, 2)
+    assert m.axis(mesh_lib.DATA_AXIS) is m.axis(mesh_lib.DATA_AXIS) is not other.axis(mesh_lib.DATA_AXIS)
+    assert m.axis(mesh_lib.SEQ_AXIS) is m.axis(mesh_lib.SEQ_AXIS)
+    for _ in range(2):
+        with pytest.raises(ValueError, match="unknown mesh axis"):
+            m.axis("rows")
+    axis, codecs = dp._codecs(m, "base5", "auto")
+    again = dp._codecs(m, "base5", "auto")
+    assert again[0] is axis and all(a is b for a, b in zip(again[1], codecs)) and len(codecs) == 4
+    assert not set(map(id, dp._codecs(other, "base5", "auto")[1])) & set(map(id, codecs))
+    assert dp._codecs(m, "2bit", "auto")[1][0] is not codecs[0]
+    x = torch.from_numpy(rng.choice(ALPHABET_N, size=(8, 54)))
+    first = np.asarray(parallel.data_parallel_encode(x, mesh=m, codec="base5", gather=True))
+    _same(parallel.data_parallel_encode(x, mesh=m, codec="base5", gather=True), first)
+    _same(first, ref_parallel.data_parallel_encode(jnp.asarray(x.numpy()), codec="base5", tier="xla"))
+    for _ in range(2):
+        with pytest.raises(ValueError, match="unknown codec"):
+            parallel.data_parallel_encode(x, mesh=m, codec="base4")
+        with pytest.raises(ValueError, match="unknown tier"):
+            parallel.data_parallel_encode(x, mesh=m, codec="base5", tier="tpu")
+
+
 def test_data_parallel_on_a_2x4_mesh(rng):
     """The data forms shard over the data axis only (2 shards), as the
     reference's replicate over seq; match_counts and sketch_sharded too."""

@@ -14,8 +14,13 @@ taken from the conftest's 8 virtual devices (``tier="xla"`` where a tier is
 asked for), as ``tests/test_torch_parallel.py`` holds the mesh of one
 controller; the long-sequence mode at the word seams (that file's
 ``SEAM_LENGTHS_*``) against the oracle and the one-stream search, as there.
-The workers import only the port; where they ask for the ``cuda`` tier, the
-kernel wrappers run their plain versions (CPU tensors)."""
+The gather cell's step -- each position's own base-5 batch passed as the
+rank's shards and gathered, plain and checked -- is held to the plain
+PyTorch reference of ``nucbench/reference/b5.py`` as well, and every
+all-gather a rank ran to its layout (in place: the rank's block of the
+output is the input).  The workers import only the port; where they ask
+for the ``cuda`` tier, the kernel wrappers run their plain versions (CPU
+tensors)."""
 
 import json
 import os
@@ -33,6 +38,7 @@ from cute_nucleotides_tpu import parallel as ref_parallel
 from cute_nucleotides_tpu.ops import oracle, spec
 from cute_nucleotides_tpu.parallel import longseq as ref_longseq
 from cute_nucleotides_tpu_torch.ops import align as port_align, search as port_search
+from nucbench.reference import b5 as ref_b5
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_parallel import SEAM_LENGTHS_2BIT, SEAM_LENGTHS_B5  # noqa: E402
@@ -57,6 +63,18 @@ torch.distributed.init_process_group("gloo", init_method="tcp://" + coord, world
 
 from cute_nucleotides_tpu_torch import models, parallel
 from cute_nucleotides_tpu_torch.parallel import longseq, mesh as mesh_lib, runtime
+
+# every all-gather's layout: where its input lies in its output, and both sizes
+layouts = []
+_all_gather_into_tensor = torch.distributed.all_gather_into_tensor
+
+
+def _recorded(output, input, *args, **kwargs):
+    layouts.append((input.data_ptr() - output.data_ptr(), input.numel(), output.numel()))
+    return _all_gather_into_tensor(output, input, *args, **kwargs)
+
+
+torch.distributed.all_gather_into_tensor = _recorded
 
 # the cuda tier on CPU tensors: its kernel wrappers run their plain versions
 models.resolve_device = lambda tier, device=None: torch.device(device or "cpu")
@@ -122,6 +140,12 @@ keep("data4/codec_decode_gather", sc.decode(words, gather=True))
 sc5 = parallel.ShardedCodec("base5", mesh=m)
 keep("data4/codec_encode_checked_b5", sc5.encode_checked(inp["bad5"], gather=True))
 keep("data4/codec_decode_checked_b5", sc5.decode_checked(inp["corrupt5"]))
+# each position's own base-5 batch, as a rank of the gather cell holds it: one shard a position it computes
+ax = m.axis(mesh_lib.DATA_AXIS)
+for name in ("own5", "own5_bad"):
+    placed = mesh_lib.ShardedTensor([torch.from_numpy(inp[name][i]) for i in ax.mine], axis=ax)
+    keep(f"data4/{name}_gather", dp.data_parallel_encode(placed, mesh=m, codec="base5", gather=True))
+    keep(f"data4/{name}_checked_gather", dp.data_parallel_encode_checked(placed, mesh=m, codec="base5", gather=True))
 try:
     dp.data_parallel_encode(inp["batch2"][:6], mesh=m)
     out["indivisible"] = np.array("")
@@ -157,6 +181,7 @@ for key in [k for k in inp if k.startswith("seam/") and k.count("/") == 2]:
             out[key + f"/match{i}"] = longseq.match_long_b5(bits, n, q, mesh=m)
         out[key + "/best"] = np.array(longseq.best_match_long_b5(bits, n, bytes(inp[key + "/query"]), mesh=m))
 out["collectives"] = np.array(mesh_lib._COLLECTIVES["gloo"])
+out["gather_layouts"] = np.array(layouts, dtype=np.int64)
 np.savez(f"{outdir}/r{rank}.npz", **out)
 torch.distributed.destroy_process_group()
 """
@@ -206,12 +231,17 @@ def _inputs() -> dict:
     long2[p2 : p2 + 21] = np.frombuffer(bytes(mut2), np.uint8)
     p5 = 27 * 2 * -(-spec.num_words_b5(LONG_NT) // 4) - 5
     long5[p5 : p5 + 21] = np.frombuffer(bytes(mut5), np.uint8)
+    # each position's own reads (a generator of their own, so the other inputs stay as they were): 5 reads of
+    # 135 nt, 675 bytes in and 200 bytes of words out a position, neither a multiple of 16
+    own5 = np.random.default_rng(0x0B5).choice(ALPHABET_N, size=(4, 5, 135))
+    own5_bad = own5.copy()
+    own5_bad[2, 4, 134] = ord("X")
     inp = dict(batch2=batch2, batch5=batch5, bad2=bad2, bad5=bad5, words2=words2, words5=words5,
                lens2=lens2, lens5=np.minimum(lens2, 135), corrupt5=corrupt5,
                qw=_rows(qs, oracle.n_to_bits_lut), tw=_rows(ts, oracle.n_to_bits_lut),
                qw5=_rows(qs, oracle.n_to_bits2_lut), tw5=_rows(ts, oracle.n_to_bits2_lut),
                long_n=np.array(LONG_NT), long2=long2, long5=long5, bits2=oracle.n_to_bits_lut(long2),
-               bits5=oracle.n_to_bits2_lut(long5))
+               bits5=oracle.n_to_bits2_lut(long5), own5=own5, own5_bad=own5_bad)
     for n in SEAM_LENGTHS_2BIT:  # as tests/test_torch_parallel.py's seam cases
         s = rng.choice(ALPHABET_N, size=n)
         s[np.arange(0, n, 37)] = ord("G")
@@ -461,3 +491,40 @@ def test_default_mesh_spans_the_group(runs, group):
         assert int(res["default_size"]) == world and res["default_ranks"].tolist() == list(range(world))
         assert str(res["indivisible"]) == "batch of 6 rows does not divide over the data axis of size 4"
         assert int(res["collectives"]) > 0
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("name", ("own5", "own5_bad"))
+def test_base5_gather_of_each_positions_own_batch(runs, group, name):
+    """The gather cell's step on every rank: each position's own base-5
+    batch (N and lower case; 675 bytes in and 200 bytes of words out a
+    position) passed as the rank's shards, gathered, against the plain
+    PyTorch reference's encode (``nucbench/reference/b5.py``) of every
+    position's batch in position order, and against the JAX package's
+    gathered encode of the same whole batch; the checked form's words
+    alike, its flag the count of positions with a byte outside the
+    alphabet."""
+    inp, ranks = runs[group]
+    whole = inp[name].reshape(-1, inp[name].shape[-1])
+    want = ref_b5.pack(ref_b5.digits(torch.from_numpy(whole))).numpy()
+    jax_words = np.asarray(ref_parallel.data_parallel.data_parallel_encode(
+        jnp.asarray(whole), mesh=_ref_mesh("data4"), codec="base5", tier="xla", gather=True))
+    _same(jax_words, want)
+    for res in ranks:
+        _same(res[f"data4/{name}_gather"], want)
+        _same(res[f"data4/{name}_checked_gather"], want)
+        assert int(res[f"data4/{name}_checked_gather.flag"]) == (name == "own5_bad")
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_every_gather_runs_in_place(runs, group):
+    """Each all-gather over the group (the forms', the row counts',
+    longseq's) takes as its input this rank's own block of its output: no
+    send block is staged beside the receive buffer."""
+    _, ranks = runs[group]
+    world = GROUPS[group][0]
+    for r, res in enumerate(ranks):
+        got = res["gather_layouts"]
+        assert len(got) > 10
+        for offset, n_in, n_out in got.tolist():
+            assert n_out == world * n_in and offset == r * n_in

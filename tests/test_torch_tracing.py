@@ -1,7 +1,9 @@
-"""The port's span recorder (``utils/tracing.py``) and the spans of the
-one-stream Myers path (``ops/align.py``), on the CPU: when it records,
-how spans nest within a thread, its bound, the seven steps of a
-``best_match_stream`` call, and that it changes no result and puts nothing
+"""The port's span recorder (``utils/tracing.py``), the spans of the
+one-stream Myers path (``ops/align.py``) and those of the parallel layer
+(``parallel/mesh.py``, ``parallel/data_parallel.py``), on the CPU: when it
+records, how spans nest within a thread, its bound, the seven steps of a
+``best_match_stream`` call, the steps of a data-parallel encode and of a
+gather over a gloo group, and that it changes no result and puts nothing
 into the profiler's stream."""
 
 import collections
@@ -16,6 +18,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from cute_nucleotides_tpu_torch.ops import align, native
+from cute_nucleotides_tpu_torch.parallel import data_parallel, mesh
 from cute_nucleotides_tpu_torch.utils import tracing
 
 PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "cute_nucleotides_tpu_torch")
@@ -224,7 +227,7 @@ def test_recorder_puts_nothing_into_the_profile(codec, monkeypatch):
     assert with_recorder == without and sum(without.values()) > 0
 
 
-@pytest.mark.parametrize("path", ("utils/tracing.py", "ops/align.py"))
+@pytest.mark.parametrize("path", ("utils/tracing.py", "ops/align.py", "parallel/mesh.py"))
 def test_no_profiler_range_sync_or_event_in_the_source(path):
     """No name in the code (docstrings and comments aside) opens a profiler
     range, synchronizes or makes a CUDA event."""
@@ -232,3 +235,107 @@ def test_no_profiler_range_sync_or_event_in_the_source(path):
         names = {tok.string for tok in tokenize.generate_tokens(f.readline) if tok.type == tokenize.NAME}
     for word in ("record_function", "RecordFunction", "nvtx", "synchronize", "Event"):
         assert not [name for name in names if word in name], (path, word)
+
+
+# --- the parallel layer, over a gloo group of this process alone ------------------
+
+GATHER = ("mesh.all_gather.stage", "mesh.all_gather.collective")
+
+
+@pytest.fixture
+def group(tmp_path):
+    """A one-rank gloo group in this process, holding two logical CPU
+    shards, and a (2, 1) mesh over them: every collective runs over the
+    group, as on a mesh across processes."""
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        yield mesh.make_mesh(2, 1, devices=mesh.devices([torch.device("cpu")] * 2))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _reads(rows: int = 6, length: int = 135, seed: int = 5) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.choice(np.frombuffer(b"ACGTNacgtn", np.uint8), (rows, length)))
+
+
+def _family(got, top: int) -> dict:
+    """``{name: [spans]}`` of the spans below ``got[top]``, each with its
+    parent's name."""
+    out = collections.defaultdict(list)
+    for s in got:
+        if s[4] == got[top][4] and s is not got[top]:
+            out[s[0]].append((s, got[s[3]][0]))
+    return out
+
+
+def test_data_parallel_encode_records_its_steps(group):
+    x = _reads()
+    tracing.enable()
+    for _ in range(2):
+        data_parallel.data_parallel_encode(x, mesh=group, codec="base5", gather=True)
+    data_parallel.data_parallel_encode(x, mesh=group, codec="base5")  # no gather: no collective
+    got = tracing.spans()
+    tops = [i for i, s in enumerate(got) if s[0] == "dp.encode"]
+    assert len(tops) == 3 and all(got[i][3] == -1 for i in tops)
+    for n, top in enumerate(tops):
+        fam = _family(got, top)
+        want = {"dp.encode.codec": 1}
+        if n < 2:
+            want.update({"mesh.all_gather": 1, **dict.fromkeys(GATHER, 1)})
+        assert {k: len(v) for k, v in fam.items()} == want
+        assert fam["dp.encode.codec"][0][1] == "dp.encode"
+        if n < 2:
+            assert fam["mesh.all_gather"][0][1] == "dp.encode"
+            assert all(fam[k][0][1] == "mesh.all_gather" for k in GATHER)
+        for k in fam:
+            s = fam[k][0][0]
+            assert got[top][1] <= s[1] <= s[2] <= got[top][2]
+
+
+def test_a_gather_without_row_counts_records_them_and_psum_records_itself(group):
+    ax = group.axis(mesh.DATA_AXIS)
+    tracing.enable()
+    blocks = mesh._every_block([torch.arange(6).view(3, 2), torch.arange(4).view(2, 2)], ax)
+    assert [b.shape[0] for b in blocks] == [3, 2]
+    total = mesh.psum([torch.ones(3, dtype=torch.int32)] * 2, ax)
+    assert total.shards[0].tolist() == [2, 2, 2]
+    got = tracing.spans()
+    top = [i for i, s in enumerate(got) if s[0] == "mesh.all_gather"]
+    assert len(top) == 1 and got[top[0]][3] == -1
+    fam = _family(got, top[0])
+    assert {k: len(v) for k, v in fam.items()} == {"mesh.all_gather.rows": 1, "mesh.all_gather.stage": 2,
+                                                   "mesh.all_gather.collective": 2}
+    assert fam["mesh.all_gather.rows"][0][1] == "mesh.all_gather"
+    assert sorted(p for _, p in fam["mesh.all_gather.stage"]) == ["mesh.all_gather", "mesh.all_gather.rows"]
+    assert [s[0] for s in got if s[3] == -1] == ["mesh.all_gather", "mesh.psum"]
+
+
+def test_parallel_spans_off_record_nothing_and_count_each_collective_once(group):
+    x = _reads()
+    before = mesh._COLLECTIVES["gloo"]
+    off = data_parallel.data_parallel_encode_checked(x, mesh=group, codec="base5", gather=True)
+    assert tracing.spans() == [] and mesh._COLLECTIVES["gloo"] - before == 2  # the gather and the flags' psum
+    tracing.enable()
+    on = data_parallel.data_parallel_encode_checked(x, mesh=group, codec="base5", gather=True)
+    assert mesh._COLLECTIVES["gloo"] - before == 4
+    assert torch.equal(on[0].shards[0], off[0].shards[0]) and int(on[1].shards[0]) == int(off[1].shards[0]) == 0
+    assert sorted(s[0] for s in tracing.spans() if s[3] == -1) == ["mesh.all_gather", "mesh.psum"]
+
+
+def _profiled_gathers(m, x) -> collections.Counter:
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            data_parallel.data_parallel_encode(x, mesh=m, codec="base5", gather=True)
+    return collections.Counter(ev.name() for ev in prof.profiler.kineto_results.events())
+
+
+def test_parallel_recorder_puts_nothing_into_the_profile(group, monkeypatch):
+    x = _reads()
+    data_parallel.data_parallel_encode(x, mesh=group, codec="base5", gather=True)  # warm
+    with_recorder = _profiled_gathers(group, x)
+    assert sum(s[0] == "dp.encode" for s in tracing.spans()) == 3  # it did record inside the profile
+    assert sum(s[0] == "mesh.all_gather.collective" for s in tracing.spans()) == 3
+    monkeypatch.setattr(tracing, "span", lambda name: tracing._OFF)
+    without = _profiled_gathers(group, x)
+    assert with_recorder == without and sum(without.values()) > 0
