@@ -450,7 +450,7 @@ def phase_build():
     _sass_mix(_build._nvcc(), lib._name, ("kmer_hashes_pair_kernel", "minimizer_kernel", "gc_b5_kernel",
                                           "radix_hist_kernel", "radix_pass_kernel", "match_b5_kernel",
                                           "match_2bit_kernel", "encode_2bit_pext_kernel", "myers_lanes",
-                                          "myers_scratch", "peq_b5_kernel"))
+                                          "myers_scratch", "myers_stream", "peq_b5_kernel"))
 
 
 def _kernel_label(name: str, kernels):
@@ -2771,8 +2771,8 @@ def phase_kernels_align(errors: Errors, rng) -> None:
     in texts and queries, max_errors 0, 2 and INT32_MAX, a stride-0 Peq
     (to m = 128, and at m = 256 and 1024 on MYERS_LONG_PAIRS pairs of
     200..400-nt texts), the lanes of two blocks on batches large enough
-    for the launch plan to pick them, and stream rows whose halo spans
-    several rows."""
+    for the launch plan to pick them, stream rows whose halo spans
+    several rows, and #19's stream form's key on the same words."""
     import torch
 
     from cute_nucleotides_tpu_torch.ops import align, kernels as K
@@ -2879,6 +2879,23 @@ def phase_kernels_align(errors: Errors, rng) -> None:
             _myers_case(errors, peq[None].expand(R, *peq.shape), ql, words, tl, stride, stride + halo, mode, b5,
                         None, f"#19 {'b5' if b5 else '2bit'} stream rows, halo {halo} u32 over rows of {stride}")
             cases += 1
+        # #19's stream form on the same words, its key against its plain version's: one and five blocks,
+        # best_match_stream's rows, the whole stream, a ragged length and one nt
+        cap_nt = 27 * (n_u32 // 2) if b5 else 16 * n_u32
+        for sm in (21, 150):
+            speq = (align.peq_from_bytes_b5 if b5 else align.peq_from_bytes)(_myers_ascii(rng, sm, alpha))[0]
+            if b5:
+                sR, prb, Hp = align.stream_rows_plan_b5(n_u32 // 2, sm)
+                srows = (sR, 2 * prb, 2 * (prb + Hp))
+            else:
+                sR, wrb, H = align.stream_rows_plan(n_u32, sm)
+                srows = (sR, wrb, wrb + H)
+            for n in (cap_nt, cap_nt - 13, 1):
+                got = int(K.myers_stream_best(speq, sm, words, n, *srows, b5=b5))
+                want = int(K.myers_stream_best_plain(speq, sm, words.cpu(), n, *srows, b5=b5))
+                check(got == want, f"#19 stream form {'b5' if b5 else '2bit'} m = {sm}, {n} nt: key {got:#x} != "
+                                   f"its plain version's {want:#x}")
+                cases += 1
         # the approx CLI's shape: reads in rows of 16 u32, PRIMER (m = 20) as one broadcast Peq, a share of
         # the reads holding it with 0-2 edits and one in seven cut short
         reads = [_myers_ascii(rng, APPROX_NT, alpha) for _ in range(APPROX_ROWS)]
@@ -2902,7 +2919,7 @@ def phase_kernels_align(errors: Errors, rng) -> None:
         f"{ALIGN_M}, ragged texts of 0..700 nt (0..150 past m = 128), N/? wildcards, base-5 triplets 125..127 in "
         f"texts and queries, lanes of two blocks at 3, 4, 8 and 32 blocks on batches past two warps a scheduler, "
         f"max_errors 0/2/INT32_MAX, stride-0 Peq (to m = 128, and {MYERS_LONG_PAIRS} pairs of 200..400-nt texts at "
-        f"m = 256 and 1024), stream rows with a halo over several rows, the approx CLI's {APPROX_ROWS} rows of 16 u32 with PRIMER): bit-identical to the plain version "
+        f"m = 256 and 1024), stream rows with a halo over several rows and the stream form's key, the approx CLI's {APPROX_ROWS} rows of 16 u32 with PRIMER): bit-identical to the plain version "
         f"({errors.count} comparisons in phase 2; max abs err {errors.max['myers_scan']}; "
         f"{time.perf_counter() - t0:.1f} s with the Peq build's)")
     say(f"phase 2 Peq build: peq_b5 in {peq_cases} cases (Wq in {PEQ_B5_WQ}, query lengths at the block and word "
@@ -3852,8 +3869,9 @@ def _time_myers(errors: Errors, align_words, chr1_words) -> tuple:
     phase-3 pairs) in turns with its plain version on the same inputs, which
     must agree with it, as must its semiglobal (best_match) form; on the
     chr1-length stream as ``best_match_stream`` cuts it (a 21-nt query),
-    STREAM_CHECK_ROWS rows at each end of it held to the plain version;
-    and at a phase-2 size beside the plain version.  Each beside its bound
+    STREAM_CHECK_ROWS rows at each end of it held to the plain version,
+    then #19's stream form (what ``best_match_stream`` runs) on the same
+    rows, its key held to the rows' path's; and at a phase-2 size beside the plain version.  Each beside its bound
     (utils.profiling.myers_ops) but the last, with the launch plan each
     takes (``kernels.myers_plan``, read from ``cn_myers_plan``: lanes a
     pair, blocks a lane) and the SM clock after.  Returns phase_timing's
@@ -3905,11 +3923,22 @@ def _time_myers(errors: Errors, align_words, chr1_words) -> tuple:
         f"({B * ALIGN_QM * ALIGN_TN / (k_big / 1e3) / 1e9:.1f} GCUPS); plain {p_big:.3f} ms; runs "
         f"{k1:.4f}/{k2:.4f} vs {p1:.3f}/{p2:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), "
         f"{100 * bound_ms / k_big:.0f}% of it; == the plain version on every pair, global and semiglobal")
-    say(f"  myers_scan[chr1 stream, {R} rows of {wrb} + {H} words, m = {m1}, plan "
+    say(f"  myers_scan[chr1 stream rows, batch form, {R} rows of {wrb} + {H} words, m = {m1}, plan "
         f"{K.myers_plan(speq1.shape[1], R, 'semiglobal')}]: "
         f"kernel {k_stream:.4f} ms "
         f"({stream_nt * m1 / (k_stream / 1e3) / 1e9:.1f} GCUPS); bound {stream_bound:.4f} ms ({stream_by}), "
         f"{100 * stream_bound / k_stream:.0f}% of it; {STREAM_CHECK_ROWS} rows at each end == the plain version")
+    # #19's stream form, what best_match_stream runs, on the same rows: its memset and kernel into one key,
+    # which must equal the rows' path's (the batch form above, then the eager reduction)
+    slot = torch.empty((), dtype=torch.int64, device="cuda")
+    form_args = (speq1, m1, chr1_words, CHR1_NT, R, wrb, wrb + H)
+    k_form = min(_time_ms(lambda: K.myers_stream_best(*form_args, out=slot), 5) for _ in range(2))
+    key, rows_key = int(slot), int(K._stream_key_by_rows(K.myers_scan, *form_args[:-1], wrb + H, False))
+    check(key == rows_key, f"#19 stream form on the chr1 stream: key {key:#x} != the rows' path's {rows_key:#x}")
+    form_bound, form_by = _bound(4 * chr1_words.numel() + 8, myers_ops(stream_nt, speq1.shape[1], mode="semiglobal"))
+    say(f"  myers_stream_best[chr1 stream, stream form, the same rows, m = {m1}]: memset and kernel {k_form:.4f} ms "
+        f"({stream_nt * m1 / (k_form / 1e3) / 1e9:.1f} GCUPS); bound {form_bound:.4f} ms ({form_by}), "
+        f"{100 * form_bound / k_form:.0f}% of it; key (dist {key >> 32}, end {key & 0xFFFFFFFF}) == the rows' path's")
     # the approx CLI's shape (phase 2's): APPROX_ROWS reads of APPROX_NT nt in rows of 16 u32, PRIMER broadcast
     apeq, am = align.peq_from_bytes(PRIMER)
     approx_words = torch.from_numpy(rng.integers(0, 2**32, APPROX_ROWS * 16, dtype=np.uint32)).cuda()
@@ -3942,7 +3971,9 @@ def _time_myers(errors: Errors, align_words, chr1_words) -> tuple:
         f"{k_small:.4f} ms through cn_myers; plain {min(ps1, ps2):.3f} ms; runs {ps1:.3f}/{ps2:.3f} ms; "
         f"clocks {_clocks()}")
     return k_big, p_big, bound_ms, bound_by, None, {f"[bench {B} x {ALIGN_QM} x {ALIGN_TN}]": k_big,
-                                                     f"[chr1 stream, m = {m1}]": k_stream, f"[{approx_case}]": k_approx,
+                                                     f"[chr1 stream rows, batch form, m = {m1}]": k_stream,
+                                                     f"[chr1 stream, stream form, m = {m1}]": k_form,
+                                                     f"[{approx_case}]": k_approx,
                                                      f"[{small_case}]": k_small}
 
 

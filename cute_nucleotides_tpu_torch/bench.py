@@ -313,7 +313,6 @@ def _distance_align_rows(device, x, packed, words_flat) -> list[Row]:
     al_ql = torch.full((al_b,), ALIGN_M, dtype=torch.int32, device=device)
     al_tl = torch.full((al_b,), ALIGN_N, dtype=torch.int32, device=device)
     ap_peq, ap_m = align.peq_from_bytes(APPROX_QUERY)
-    ap_peq_dev = torch.from_numpy(ap_peq).to(device)
     ap_w = words_flat[: min(words_flat.numel(), APPROX_WORDS)]
     ap_plan = align.stream_rows_plan(ap_w.numel(), ap_m)
     al_ops = profiling.myers_ops(al_b * ALIGN_N, ALIGN_M // 32)
@@ -328,7 +327,7 @@ def _distance_align_rows(device, x, packed, words_flat) -> list[Row]:
             al_b * ALIGN_M * ALIGN_N,
             R(4 * (al_q.numel() + al_t.numel()), 4 * al_b, al_ops), K_ALIGN),
         Row("approx_stream_m21", "packed",
-            lambda: torch.stack(align._best_match_stream_impl(ap_peq_dev, ap_w, 16 * ap_w.numel(), ap_m, ap_plan)),
+            lambda: torch.stack(align._best_match_stream_impl(ap_peq, ap_w, 16 * ap_w.numel(), ap_m, ap_plan)),
             16 * ap_w.numel() * ap_m,
             R(4 * ap_w.numel(), 8, ap_ops), K_ALIGN),
         Row("pairwise_hamming_packed_4096", "packed", lambda: distance.pairwise_hamming_packed(wph),

@@ -93,17 +93,22 @@
 // tlens[r] into a u8 row of row_len * 16 columns, which the caller zeroes).
 // A row stops at its own min(tlens[r], capacity).  Base-5 has no ends mode.
 //
+// The stream form (myers_stream, entry point cn_myers_stream) is the batch
+// form's sibling for best_match_stream: one query against every row of one
+// stream, semiglobal, reduced on the card to one key (its section below).
+//
 // The design before this one (one pair a thread, Eq an A-way select,
 // runtime mode flags, 64-bit positions and adds, 2.0-2.5 times the floor's
 // instructions a char) took 0.2407 ms at the bench shape (8192 pairs, m =
 // 128, n = 2048) and 0.7208 ms on the chr1-length stream (m = 21) on an
 // H100 at 700 W (PERF.md).
 //
-// The entry point launches on the caller's stream, allocates nothing, does
-// not synchronise, and returns cudaGetLastError() after its launch.
+// The entry points launch on the caller's stream, allocate nothing, do not
+// synchronise, and return cudaGetLastError() after their launch.
 
 #include <atomic>
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 #include <cuda_runtime.h>
@@ -514,6 +519,153 @@ __global__ void __launch_bounds__(kThreads) myers_scratch(const Args g) {
   }
 }
 
+// --- the stream form: one query over the rows of one stream -----------------
+//
+// best_match_stream's scan.  What bounds a call is the host: a chromosome's
+// scan takes about 0.2 ms of the card, and every device operation and wait
+// the host adds around it leaves the card idle.  So a call is one memset, one
+// launch and one 8-byte result.  The batch form reads a Peq, a query length
+// and a text length a row from device memory and writes a result a row; here
+// every row takes the one query, semiglobal, so:
+// - the query's Peq (A planes of nb u32, at most kRegBlocks blocks: 640
+//   bytes) comes by value in the parameters, and the lanes fill their Eq
+//   table from there;
+// - row r's text length is min(max(length - r * nt_per_row, 0), its
+//   capacity), worked out in the kernel, and its query length the one m;
+// - the epilogue writes no row: a row's (best, first end) becomes the key
+//   (best << 32) | (r * nt_per_row + end), the low half 0 where best is m
+//   (nothing beats the empty alignment), a warp's least key (a shuffle min)
+//   goes to one slot by one atomicMin.  The least key is the least distance
+//   and, of the rows reaching it below m, the first global end, rows that
+//   share it in their halo included; (m << 32) where no row beats m.  The
+//   stream holds under 2^31 nt, so an end fits the low half.
+// The lanes, their Eq table, the char step and the word loops are the batch
+// form's (Lane, the plan in mode 1), unchanged.
+
+struct StreamArgs {
+  Args g;                        // the rows: words, n_words, row_stride, row_len, rows, nb; no per-row pointer
+  int64_t length, nt_per_row;    // the stream's nt; nt from one row's start to the next
+  int32_t qlen;                  // m, every row's
+  unsigned long long* key;       // the slot, all ones before the launch
+  uint32_t peq[5 * kRegBlocks];  // the query's Peq, A planes of nb u32
+};
+
+template <int BPL, bool B5, bool WAVE>
+__global__ void __launch_bounds__(kThreads) myers_stream(const __grid_constant__ StreamArgs a, const int log2l) {
+  using LaneT = Lane<BPL, kSemi, B5, WAVE>;
+  constexpr int A = B5 ? 5 : 4;
+  constexpr int U = B5 ? 27 : 16;  // chars a text word
+  constexpr int D = LaneT::D;
+  const Args& g = a.g;
+  __shared__ __align__(1024) uint32_t table[kThreads / 32][BPL * LaneT::kTable / 4];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t gid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int L = 1 << log2l;
+  const int lb = static_cast<int>(gid & (L - 1));  // the lane in its pair
+  const int64_t r0 = gid >> log2l;
+  const bool live = r0 < g.rows;
+  const int64_t r = live ? r0 : g.rows - 1;  // a lane past the last row reads the last and folds nothing
+
+  // the lane's Eq planes into its column of the warp's region, from the parameters
+#pragma unroll
+  for (int i = 0; i < BPL; ++i) {
+    const int b = lb * BPL + i;
+    uint32_t* col = &table[warp][i * LaneT::kTable / 4 + lane];
+#pragma unroll
+    for (int k = 0; k < A; ++k) col[k * 32] = b < g.nb ? a.peq[k * g.nb + b] : 0u;
+    if constexpr (B5) col[5 * 32] = col[0];  // digit 5 (a corrupt triplet) reads plane 0
+  }
+  __syncwarp();
+
+  LaneT s;
+  s.base = static_cast<uint32_t>(__cvta_generic_to_shared(&table[warp][lane]));
+  s.width = L;
+  const int32_t qlen = a.qlen;
+  const int32_t m1 = qlen - 1;  // the entry point holds qlen to [1, 32 nb]
+  const int hb = m1 >> 5;       // the score block
+  s.slane = hb / BPL == lb;
+#pragma unroll
+  for (int i = 0; i < BPL; ++i) {
+    s.pv[i] = 0xFFFFFFFFu;
+    s.mv[i] = 0u;
+    s.smul[i] = s.slane && hb % BPL == i ? 1u << (31 - (m1 & 31)) : 0u;
+  }
+#pragma unroll
+  for (int k = 0; k < D; ++k) s.ring[k][0] = s.ring[k][1] = s.ring[k][2] = 0u;
+  s.mult = lb ? 2u : 0u;
+  s.first = lb ? 1u : 0u;
+  s.padd = 0u;  // semiglobal: row 0's input is 0
+  s.lag = static_cast<uint32_t>(D * lb);
+  const int64_t cap = B5 ? (g.row_len / 2) * 27 : g.row_len * 16;
+  const int64_t left = a.length - r * a.nt_per_row;
+  s.jend = live ? static_cast<uint32_t>(left < cap ? (left > 0 ? left : 0) : cap) : 0u;
+  s.score = s.best = qlen;
+  s.best_end = 0;
+  s.max_errors = 0;
+  s.ends = nullptr;
+
+  // word steps: [0, ga) fill, [ga, gb) every char of every lane inside its
+  // row, [max(ga, gb), gc) drain; bounds are the warp's, so lanes stay converged
+  const uint32_t jmin = __reduce_min_sync(kFull, s.jend), jmax = __reduce_max_sync(kFull, s.jend);
+  const uint32_t fill = static_cast<uint32_t>(D * (L - 1));
+  const uint32_t ga = (fill + U - 1) / U, gb = jmin / U;
+  const uint32_t gc = static_cast<uint32_t>((static_cast<uint64_t>(jmax) + fill + U - 1) / U);
+  const uint32_t* row = g.words + r * g.row_stride;
+  const uint32_t avail = row_avail(g, r);
+  auto word = [&](int64_t w) -> uint32_t {
+    return static_cast<uint64_t>(w) < avail ? __ldg(row + w) : 0u;
+  };
+
+  if constexpr (!B5) {
+    const uint32_t lagbits = 2u * s.lag, q = lagbits >> 5, rb = lagbits & 31u;
+    uint32_t prev = word(-static_cast<int64_t>(q) - 1), cur = word(-static_cast<int64_t>(q));
+    auto run = [&](auto check, uint32_t g0, uint32_t g1) {
+      for (uint32_t w = g0; w < g1; ++w) {
+        const uint32_t next = word(static_cast<int64_t>(w) + 1 - q);
+        s.template word2<decltype(check)::value>(__funnelshift_l(prev, cur, rb), w * U - s.lag);
+        prev = cur;
+        cur = next;
+      }
+    };
+    const uint32_t ga2 = ga < gc ? ga : gc;
+    run(std::true_type{}, 0u, ga2);
+    if (gb > ga) run(std::false_type{}, ga, gb);
+    run(std::true_type{}, ga2 > gb ? ga2 : gb, gc);
+  } else {
+    const uint32_t q = static_cast<uint32_t>(lb) / 9u, sh = 7u * (static_cast<uint32_t>(lb) % 9u);
+    auto pair = [&](int64_t w) -> uint64_t {
+      return (static_cast<uint64_t>(word(2 * w + 1)) << 32) | word(2 * w);
+    };
+    uint64_t prev = pair(-static_cast<int64_t>(q) - 1) & 0x7FFFFFFFFFFFFFFFull, cur = pair(-static_cast<int64_t>(q));
+    auto run = [&](auto check, uint32_t g0, uint32_t g1) {
+      for (uint32_t w = g0; w < g1; ++w) {
+        const uint64_t next = pair(static_cast<int64_t>(w) + 1 - q);
+        s.template word5<decltype(check)::value>((cur << sh) | ((prev >> 1) >> (62 - sh)), w * U - s.lag);
+        prev = cur & 0x7FFFFFFFFFFFFFFFull;
+        cur = next;
+      }
+    };
+    const uint32_t ga2 = ga < gc ? ga : gc;
+    run(std::true_type{}, 0u, ga2);
+    if (gb > ga) run(std::false_type{}, ga, gb);
+    run(std::true_type{}, ga2 > gb ? ga2 : gb, gc);
+  }
+
+  // the row's key, the warp's least, one atomicMin
+  unsigned long long key = ~0ull;
+  if (live && s.slane) {
+    const uint32_t end = s.best < qlen ? static_cast<uint32_t>(r * a.nt_per_row + s.best_end) : 0u;
+    key = (static_cast<unsigned long long>(static_cast<uint32_t>(s.best)) << 32) | end;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long v = __shfl_xor_sync(kFull, key, o);
+    key = v < key ? v : key;
+  }
+  if (lane == 0 && key != ~0ull) atomicMin(a.key, key);
+}
+
 // --- the launch plan -------------------------------------------------------
 
 struct Plan {
@@ -588,6 +740,20 @@ cudaError_t launch_mode(int mode, const Args& g, cudaStream_t stream) {
       if constexpr (B5) return cudaErrorInvalidValue;
       else return launch<kEnds, B5>(g, stream);
   }
+}
+
+template <bool B5>
+cudaError_t launch_stream(const StreamArgs& a, cudaStream_t stream) {
+  int64_t wave = 0;
+  if (const cudaError_t e = wave_lanes(&wave); e != cudaSuccess) return e;
+  const Plan p = plan(a.g.nb, a.g.rows, wave, kSemi);
+  const unsigned blocks = static_cast<unsigned>((a.g.rows * p.lanes + kThreads - 1) / kThreads);
+  const int l2 = log2i(p.lanes);
+  if (p.lanes == 1 && p.bpl == 1) myers_stream<1, B5, false><<<blocks, kThreads, 0, stream>>>(a, 0);
+  else if (p.lanes == 1) myers_stream<2, B5, false><<<blocks, kThreads, 0, stream>>>(a, 0);
+  else if (p.bpl == 1) myers_stream<1, B5, true><<<blocks, kThreads, 0, stream>>>(a, l2);
+  else myers_stream<2, B5, true><<<blocks, kThreads, 0, stream>>>(a, l2);
+  return cudaGetLastError();
 }
 
 // --- the base-5 Peq build --------------------------------------------------
@@ -794,6 +960,40 @@ int cn_myers_plan(int nb, int64_t rows, int mode, int* out) {
   const Plan p = plan(nb, rows, wave, mode);
   out[0] = p.lanes;
   out[1] = p.bpl;
+  return static_cast<int>(e);
+}
+
+// The stream form (its section above): `rows` rows of row_len u32 every
+// row_stride u32 of words[n_words], a stream of `length` nt (under 2^31), all
+// against one query of qlen nt (1 to 32 nb) whose Peq, A planes of nb u32 (A =
+// 4, or 5 with b5; nb at most 32), is read from host memory at peq.  On CUDA
+// device `device` and `stream`: sets the u64 at key to all ones, then folds
+// every row's semiglobal (best, first end) into it as (best << 32) | global
+// end.  The current device is restored before it returns.
+int cn_myers_stream(const void* peq, int nb, int qlen, const void* words, int64_t n_words, int64_t row_stride,
+                    int64_t row_len, int64_t length, int b5, int64_t rows, void* key, int device, void* stream) {
+  if (rows < 1 || nb < 1 || nb > kRegBlocks || qlen < 1 || qlen > 32 * nb || n_words < 0 || row_stride < 0 ||
+      row_len < row_stride || length < 0 || length >= (int64_t{1} << 31) || (b5 && (row_len % 2 || row_stride % 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  StreamArgs a{};
+  a.g.words = static_cast<const uint32_t*>(words);
+  a.g.n_words = n_words;
+  a.g.row_stride = row_stride;
+  a.g.row_len = row_len;
+  a.g.rows = rows;
+  a.g.nb = nb;
+  a.length = length;
+  a.nt_per_row = b5 ? (row_stride / 2) * 27 : row_stride * 16;
+  a.qlen = qlen;
+  a.key = static_cast<unsigned long long*>(key);
+  std::memcpy(a.peq, peq, sizeof(uint32_t) * (b5 ? 5 : 4) * nb);
+  int current = device;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (e == cudaSuccess) e = cudaMemsetAsync(key, 0xFF, sizeof(unsigned long long), s);
+  if (e == cudaSuccess) e = b5 ? launch_stream<true>(a, s) : launch_stream<false>(a, s);
+  if (current != device) cudaSetDevice(current);
   return static_cast<int>(e);
 }
 

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "cn_myers": [_vp, _i64, _int, _vp, _vp, _i64, _i64, _i64, _vp, _vp, _int, _int, _i64, _vp, _vp, _vp, _vp, _vp,
                  _vp],
     "cn_myers_plan": [_int, _i64, _int, _vp],
+    "cn_myers_stream": [_vp, _int, _int, _vp, _i64, _i64, _i64, _i64, _int, _i64, _vp, _int, _vp],
     "cn_peq_b5": [_vp, _i64, _int, _vp, _i64, _int, _vp, _vp],
 }
 

@@ -13,8 +13,9 @@ errors and results:
   mirrors; each runs kernel #19 (:func:`.kernels.myers_scan`) on a CUDA
   tensor and its plain version on a CPU tensor;
 * one long stream (:func:`best_match_stream`, ``_b5``): rows overlapping by
-  a ``2m - 2`` nt halo (:func:`stream_rows_plan`), which the kernel reads
-  straight from the flat stream;
+  a ``2m - 2`` nt halo (:func:`stream_rows_plan`), which #19's stream form
+  (:func:`.kernels.myers_stream_best`) reads straight from the flat stream
+  and reduces on the card to one key, read back once;
 * host oracles and tracebacks (numpy): the tests' ground truth, and
   ``approx --cigar``'s window DP.
 
@@ -27,6 +28,8 @@ digit 5 matches nothing, as in the reference.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -108,6 +111,23 @@ def peq_from_packed(qwords: torch.Tensor, qlens) -> torch.Tensor:
 
 #: query bytes allowed by :func:`peq_from_bytes` (N/n match any base)
 _QUERY_OK = frozenset(b"ACGTUacgtuNn")
+#: byte -> 2-bit code and byte -> base-5 digit, indexed as plain ints
+_CODE_2BIT, _DIGIT_B5 = bytes(spec.BYTE_LUT_2BIT), bytes(spec.BYTE_LUT_B5)
+
+
+def _peq_planes(query: bytes, code: bytes, planes: int, wild: bytes) -> np.ndarray:
+    """u32[planes, NB]: bit ``i % 32`` of word ``i // 32`` of plane ``c`` is
+    set where query byte ``i`` has code ``c`` (``code[byte]``) or is one of
+    ``wild``; the rows are gathered in Python ints, a few microseconds for a
+    23-nt query."""
+    rows, every = [0] * planes, 0
+    for i, b in enumerate(query):
+        if b in wild:
+            every |= 1 << i
+        else:
+            rows[code[b]] |= 1 << i
+    nb = -(-len(query) // ROWS_PER_BLOCK)
+    return np.array([[((r | every) >> (32 * k)) & 0xFFFFFFFF for k in range(nb)] for r in rows], np.uint32)
 
 
 def peq_from_bytes(query: bytes) -> tuple[np.ndarray, int]:
@@ -122,15 +142,7 @@ def peq_from_bytes(query: bytes) -> tuple[np.ndarray, int]:
     bad = set(query) - _QUERY_OK
     if bad:
         raise ValueError(f"query contains non-ACGTUN bytes: {sorted(chr(b) for b in bad)}")
-    nb = -(-m // ROWS_PER_BLOCK)
-    peq = np.zeros((4, nb), np.uint32)
-    for i, b in enumerate(query):
-        blk, bit = divmod(i, ROWS_PER_BLOCK)
-        if b in b"Nn":
-            peq[:, blk] |= np.uint32(1 << bit)
-        else:
-            peq[(b >> 1) & 3, blk] |= np.uint32(1 << bit)
-    return peq, m
+    return _peq_planes(query, _CODE_2BIT, 4, b"Nn"), m
 
 
 #: query bytes allowed by :func:`peq_from_bytes_b5` (N literal, ? = any)
@@ -148,15 +160,7 @@ def peq_from_bytes_b5(query: bytes) -> tuple[np.ndarray, int]:
     bad = set(query) - _QUERY_OK_B5
     if bad:
         raise ValueError(f"query contains non-ACGTUN? bytes: {sorted(chr(b) for b in bad)}")
-    nb = -(-m // ROWS_PER_BLOCK)
-    peq = np.zeros((5, nb), np.uint32)
-    for i, b in enumerate(query):
-        blk, bit = divmod(i, ROWS_PER_BLOCK)
-        if b == ord("?"):
-            peq[:, blk] |= np.uint32(1 << bit)
-        else:
-            peq[spec.BYTE_LUT_B5[b], blk] |= np.uint32(1 << bit)
-    return peq, m
+    return _peq_planes(query, _DIGIT_B5, 5, b"?"), m
 
 
 def _scan(peq, qlens, twords, tlens, mode: str, b5: bool = False, max_errors=None):
@@ -301,38 +305,55 @@ def stream_rows_plan_b5(Wp: int, m: int) -> tuple[int, int, int]:
     return -(-Wp // prb), prb, Hp
 
 
-def _stream_best(peq, ext: torch.Tensor, length, m: int, R: int, stride: int, halo: int, b5: bool):
-    """The rows' semiglobal scan over the flat stream (row r: ``stride +
-    halo`` u32 from u32 ``r * stride``), then the least distance and the
-    first end over rows, as int32 0-d tensors; the end is 0 when nothing
-    beats ``m``."""
-    dev = ext.device
-    nt, unit = (spec.NT_PER_WORD_B5, 2) if b5 else (spec.NT_PER_U32_2BIT, 1)  # nt per text unit, u32 per unit
+def _stream_key(peq, ext: torch.Tensor, length, m: int, R: int, stride: int, halo: int, b5: bool,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """The rows' semiglobal scan over the flat stream ``ext`` (row r: ``stride +
+    halo`` u32 from u32 ``r * stride``), reduced on the words' device to one
+    int64 0-d key, ``(dist << 32) | end`` (:func:`.kernels.myers_stream_best`,
+    into ``out`` where given): the least distance and the first end reaching
+    it, 0 when nothing beats ``m``."""
     with tracing.span("align.stream.launch"):
-        base = nt * (stride // unit) * torch.arange(R, dtype=torch.int64, device=dev)
-        tl = (int(length) - base).clamp(0, nt * ((stride + halo) // unit)).to(torch.int32)
-        with tracing.span("align.stream.copy"):
-            peq = torch.as_tensor(peq).to(dev)
-        d, e = kernels.myers_scan(peq[None].expand(R, *peq.shape), torch.full((R,), m, dtype=torch.int32, device=dev),
-                                  ext.reshape(-1), tl, stride, stride + halo, mode="semiglobal", b5=b5)
-    with tracing.span("align.stream.reduce"):
-        dmin = d.min()
-        emin = torch.where(d == dmin, base + e, torch.iinfo(torch.int64).max).min()
-        return dmin, torch.where(dmin >= m, 0, emin).to(torch.int32)
+        return kernels.myers_stream_best(peq, m, ext, int(length), R, stride, stride + halo, b5=b5, out=out)
+
+
+def _key_pair(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dist, end)`` of a stream key as int32 0-d tensors on its device,
+    with no read-back."""
+    return (key >> 32).to(torch.int32), (key & 0xFFFFFFFF).to(torch.int32)
 
 
 def _best_match_stream_impl(peq, ext: torch.Tensor, length, m: int, plan: tuple[int, int, int]):
     """The 2-bit stream scan behind :func:`best_match_stream` (the bench's
     ``approx_stream_m21`` row): ``(dist, end)`` as 0-d tensors."""
     R, wrb, H = plan
-    return _stream_best(peq, ext, length, m, R, wrb, H, b5=False)
+    return _key_pair(_stream_key(peq, ext, length, m, R, wrb, H, b5=False))
 
 
 def _best_match_stream_impl_b5(peq, ext: torch.Tensor, length, m: int, plan: tuple[int, int, int]):
     """The base-5 stream scan: pair boundaries are u32-even, so row r is
     ``2 (prb + Hp)`` u32 from u32 ``2 prb r``."""
     R, prb, Hp = plan
-    return _stream_best(peq, ext, length, m, R, 2 * prb, 2 * Hp, b5=True)
+    return _key_pair(_stream_key(peq, ext, length, m, R, 2 * prb, 2 * Hp, b5=True))
+
+
+#: each thread's key slot a device, for the calls that read their key back before they return
+_KEY_SLOTS = threading.local()
+
+
+def _key_slot(dev: torch.device) -> torch.Tensor:
+    """This thread's int64 0-d key slot on ``dev``, made on first use."""
+    slots = _KEY_SLOTS.__dict__.setdefault("by_device", {})
+    key = slots.get(dev)
+    if key is None:
+        key = slots[dev] = torch.empty((), dtype=torch.int64, device=dev)
+    return key
+
+
+def _read_key(key: torch.Tensor) -> tuple[int, int]:
+    """``(dist, end)`` of a stream key, read back once."""
+    with tracing.span("align.stream.readback"):
+        k = key.item()
+    return k >> 32, k & 0xFFFFFFFF
 
 
 def _stream_words(words) -> torch.Tensor:
@@ -366,13 +387,8 @@ def best_match_stream(words, length: int, query: bytes) -> tuple[int, int]:
                 )
             if length == 0 or words.shape[0] == 0:
                 return m, 0  # empty text: only the trivial alignment exists
-            plan = stream_rows_plan(words.shape[0], m)
-        d, e = _best_match_stream_impl(peq, words, length, m, plan)
-        with tracing.span("align.stream.readback"):
-            dist = int(d)
-        with tracing.span("align.stream.readback"):
-            end = int(e)
-        return dist, end
+            R, wrb, H = stream_rows_plan(words.shape[0], m)
+        return _read_key(_stream_key(peq, words, length, m, R, wrb, H, False, _key_slot(words.device)))
 
 
 def best_match_stream_b5(words, length: int, query: bytes) -> tuple[int, int]:
@@ -391,13 +407,8 @@ def best_match_stream_b5(words, length: int, query: bytes) -> tuple[int, int]:
                 raise ValueError("single-device scan positions are int32")
             if length == 0 or words.shape[0] == 0:
                 return m, 0  # empty text: only the trivial alignment exists
-            plan = stream_rows_plan_b5(words.shape[0] // 2, m)
-        d, e = _best_match_stream_impl_b5(peq, words, length, m, plan)
-        with tracing.span("align.stream.readback"):
-            dist = int(d)
-        with tracing.span("align.stream.readback"):
-            end = int(e)
-        return dist, end
+            R, prb, Hp = stream_rows_plan_b5(words.shape[0] // 2, m)
+        return _read_key(_stream_key(peq, words, length, m, R, 2 * prb, 2 * Hp, True, _key_slot(words.device)))
 
 
 # --- host oracles and tracebacks (numpy) --------------------------------------

@@ -1554,6 +1554,105 @@ def myers_scan(peq, qlens, words, tlens, row_stride: int, row_len: int, *, mode:
 
 myers_scan.launches = 0
 
+#: query blocks the stream form takes (``csrc/align.cu`` ``kRegBlocks``)
+_MYERS_STREAM_BLOCKS = 32
+
+
+def _stream_peq(peq, b5: bool) -> np.ndarray:
+    """The query's Peq as host u32[A, NB], contiguous (a tensor on the card
+    is refused by its conversion to numpy)."""
+    peq = np.ascontiguousarray(peq, dtype=np.uint32)
+    if peq.ndim != 2 or peq.shape[0] != (5 if b5 else 4) or peq.shape[1] < 1:
+        raise TypeError(f"expected Peq u32[{5 if b5 else 4}, NB], got {peq.shape}")
+    return peq
+
+
+def _stream_key_by_rows(scan, peq: np.ndarray, m: int, words, length: int, rows: int, row_stride: int,
+                        row_len: int, b5: bool) -> torch.Tensor:
+    """The stream's rows through ``scan`` (:func:`myers_scan` or its plain
+    version), each row's text length and query made as tensors, then the
+    key's reduction in eager ops on the words' device."""
+    dev = words.device
+    nt, unit = (spec.NT_PER_WORD_B5, 2) if b5 else (spec.NT_PER_U32_2BIT, 1)  # nt per text unit, u32 per unit
+    base = nt * (row_stride // unit) * torch.arange(rows, dtype=torch.int64, device=dev)
+    tl = (length - base).clamp(0, nt * (row_len // unit)).to(torch.int32)
+    p = torch.from_numpy(peq).to(dev)
+    best, end = scan(p[None].expand(rows, *p.shape), torch.full((rows,), m, dtype=torch.int32, device=dev), words, tl,
+                     row_stride, row_len, mode="semiglobal", b5=b5)
+    best = best.to(torch.int64)
+    return ((best << 32) | torch.where(best < m, base + end, 0)).min()
+
+
+def myers_stream_best_plain(peq, m: int, words, length: int, rows: int, row_stride: int, row_len: int, *,
+                            b5: bool = False) -> torch.Tensor:
+    """Plain version of :func:`myers_stream_best`: :func:`myers_scan_plain`
+    over the same rows, then the same key, the least of each row's ``(best
+    << 32) | global end``."""
+    return _stream_key_by_rows(myers_scan_plain, _stream_peq(peq, b5), m, words, length, rows, row_stride, row_len,
+                               b5)
+
+
+def myers_stream_best(peq, m: int, words, length: int, rows: int, row_stride: int, row_len: int, *,
+                      b5: bool = False, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The best semiglobal match of ONE query over ``rows`` rows of one flat
+    stream ``words`` (u32; row r is ``row_len`` u32 from u32 ``r *
+    row_stride``, zeros past the end) that holds ``length`` nt, as one int64
+    0-d tensor on the words' device, the key ``(dist << 32) | end``: the
+    least edit distance of the whole query against any substring of a row
+    and the first global end reaching it, ``end`` 0 where nothing beats the
+    trivial distance ``m`` (``(m << 32)``).  ``peq`` is the query's Peq in
+    host memory (u32[A, NB], a numpy array or a CPU tensor: A = 4 codes, or
+    5 digits with ``b5``) and ``m`` its length; row r scans ``min(max(length
+    - r * nt_per_row, 0), its capacity)`` nt, ``nt_per_row`` the nt of
+    ``row_stride`` u32.
+
+    On the card, queries of up to 32 blocks (1024 nt) take #19's stream form
+    (``csrc/align.cu`` ``myers_stream``, entry point ``cn_myers_stream``):
+    the Peq by value in the kernel's parameters, each row's text length
+    worked out in the kernel, the key folded by a shuffle min a warp and one
+    ``atomicMin`` into one slot, which the entry point first sets to all
+    ones: one host-to-C call, a memset and a kernel a stream.  Longer
+    queries run :func:`myers_scan` over the rows and reduce in eager ops.
+    A launch of the stream form counts in ``.launches`` here and in
+    ``myers_scan.launches`` (a form of #19).
+
+    ``out``, an int64 0-d tensor on the words' device, takes the key in
+    place of a new tensor: a caller that reads each key back before its next
+    call keeps one and allocates nothing a call."""
+    peq = _stream_peq(peq, b5)
+    nb = peq.shape[1]
+    if words.dtype != torch.uint32 or words.ndim != 1:
+        raise TypeError(f"expected a flat u32 text stream, got {words.dtype}{tuple(words.shape)}")
+    if not 1 <= m <= MYERS_BLOCK * nb:
+        raise ValueError(f"query length {m} outside the Peq's {nb} blocks")
+    if b5 and (row_stride % 2 or row_len % 2):
+        raise ValueError("base-5 text rows must hold whole u32 pairs")
+    if rows < 1 or not 0 < row_stride <= row_len or rows * row_stride < words.numel():
+        raise ValueError(f"{rows} rows of {row_len} u32 every {row_stride} do not cover {words.numel()} u32")
+    if not 0 <= length < 2**31:
+        raise ValueError(f"stream length {length} outside [0, 2^31)")
+    dev = words.device
+    if out is not None and (out.dtype != torch.int64 or out.ndim != 0 or out.device != dev):
+        raise TypeError(f"expected an int64 0-d key on {dev}, got {out.dtype}{tuple(out.shape)} on {out.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    if dev.type == "cpu" or nb > _MYERS_STREAM_BLOCKS:
+        scan = myers_scan_plain if dev.type == "cpu" else myers_scan
+        key = _stream_key_by_rows(scan, peq, m, words, length, rows, row_stride, row_len, b5)
+        return key if out is None else out.copy_(key)
+    if not words.is_contiguous():
+        raise ValueError("kernel input must be contiguous")
+    key = torch.empty((), dtype=torch.int64, device=dev) if out is None else out
+    # the raw stream handle, not _stream's Python Stream object: a call is one launch and the host paces the card
+    _launch(_build.load().cn_myers_stream, peq.ctypes.data, nb, m, words.data_ptr(), words.numel(), row_stride,
+            row_len, length, int(b5), rows, key.data_ptr(), dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    myers_stream_best.launches += 1
+    myers_scan.launches += 1
+    return key
+
+
+myers_stream_best.launches = 0
+
 # --- the base-5 Peq build ----------------------------------------------------------
 
 
@@ -1627,7 +1726,7 @@ WRAPPERS = (encode_2bit_nt4, decode_2bit_nt4, encode_2bit_nt4_checked, encode_2b
             encode_b5_stream, decode_b5_stream, match_bits_stream, match_b5_bits_stream,
             kmer_codes_planar, kmer_codes_planar_pair, hist_codes, kmer_hashes_planar_pair,
             minimizer_bits_stream, gc_b5_stream, sort_pairs_bitonic, encode_b5_planar, decode_b5_nt4_panels,
-            decode_b5_panels, myers_scan, peq_b5)
+            decode_b5_panels, myers_scan, peq_b5, myers_stream_best)
 
 
 def reset_launch_counts() -> None:

@@ -133,7 +133,7 @@ def test_launch_counts_and_alignment(cuda_device):
     K.encode_2bit_nt4_mxu(t)
     K.encode_2bit_nt4_mxu(t, checked=True)
     K.decode_2bit_nt4(K.encode_2bit_nt4(t))
-    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [2, 1, 1, 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     misaligned = torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:36]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_2bit_nt4(misaligned.view(torch.uint32).view(2, 4))
@@ -219,7 +219,7 @@ def test_b5_launch_counts_and_alignment(cuda_device):
     K.encode_b5_stream(x, checked=True)
     for checked, digits in B5_MODES:
         K.decode_b5_stream(w, checked, digits)
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 2, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.encode_b5_stream(torch.zeros(64, dtype=torch.uint8, device=cuda_device)[4:31])
     with pytest.raises(ValueError, match="checked digit"):
@@ -376,7 +376,7 @@ def test_search_launch_counts(cuda_device):
     search.match_positions_b5(w5, s.size, b"GAT?ACA")
     search.match_positions_b5(w5[:1000], 13500, b"GAT?ACA")  # under 1024 u32: the mask tier
     search.match_count_b5(w5, s.size, b"A" * 1025)  # over 1024 nt: the mask tier
-    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS] == [0, 0, 0, 0, 0, 0, 2, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
     with pytest.raises(ValueError, match="aligned"):
         K.match_bits_stream(w2[1:], *search.compile_query(b"ACG")[:2], 10)
 
@@ -433,7 +433,7 @@ def test_kmer_cuda_matches_torch_tier(cuda_device):
     for k in (3, 8, 11):
         assert _same(kmer.kmer_histogram_batch(interop.to_tensor(batch, cuda_device), lengths, k, canonical=True),
                      kmer.kmer_histogram_batch(interop.to_tensor(batch), lengths, k, canonical=True))
-    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    assert [fn.launches for fn in K.WRAPPERS][8:] == [2 + 2 + 3 + 2, 3, 4 + 2, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
 
 
 def test_stats_cuda_matches_torch_tier(cuda_device, tmp_path, capsys):
@@ -696,7 +696,7 @@ def test_planar_launch_counts_and_refusals(cuda_device):
     K.decode_b5_nt4_panels(lo, hi, padded=False)
     K.decode_b5_panels(lo, hi)
     K.encode_b5_planar(x[:0])  # no rows: nothing launched
-    assert [fn.launches for fn in K.WRAPPERS][-5:] == [1, 2, 1, 0, 0] and sum(fn.launches for fn in K.WRAPPERS) == 4
+    assert [fn.launches for fn in K.WRAPPERS][-6:] == [1, 2, 1, 0, 0, 0] and sum(fn.launches for fn in K.WRAPPERS) == 4
     with pytest.raises(ValueError, match="aligned"):
         K.encode_b5_planar(torch.zeros(2 * K.B5_ROW_NT, dtype=torch.uint8, device=cuda_device)[4 : 4 + K.B5_ROW_NT]
                            .view(1, -1))
@@ -715,8 +715,10 @@ def test_bench_table_on_the_card(cuda_device):
     results = bench.run_rows(rows, bench.cuda_timer, bench.Results())
     assert not results.failed and len(results.gibs) == 49 and all(v > 0 for v in results.gibs.values())
     calls = 1 + bench.TRIALS * bench.K_CORE + 1  # warm-up, timed runs, latency call
-    for row in ("edit_distance_m128_n2048", "approx_stream_m21"):
-        assert results.launches[row] == {"myers_scan": 1 + bench.TRIALS * bench.K_ALIGN + 1}
+    align_calls = 1 + bench.TRIALS * bench.K_ALIGN + 1
+    assert results.launches["edit_distance_m128_n2048"] == {"myers_scan": align_calls}
+    # #19's stream form counts as #19 too
+    assert results.launches["approx_stream_m21"] == {"myers_scan": align_calls, "myers_stream_best": align_calls}
     assert results.launches["encode_b5_cuda_planar"] == {"encode_b5_planar": calls}
     for row in ("decode_b5_cuda_nt4", "decode_b5_cuda_nt4_padded"):
         assert results.launches[row] == {"decode_b5_nt4_panels": calls}
@@ -870,6 +872,128 @@ def test_myers_launch_counts_and_refusals(cuda_device):
         K.myers_scan(on[0], ql, *on[2:4], 24, 24, mode="global")
     assert K.myers_scan.launches == 3
 
+
+
+# --- #19's stream form (kernels.myers_stream_best) -----------------------------------
+
+#: query lengths of the stream form's cases: 1 to 5 blocks of the solo and
+#: lane forms, and 1,100 nt past its 32 blocks (the rows' path)
+STREAM_M = (1, 21, 23, 33, 64, 150, 1100)
+#: chr1's length (UCSC hg38.chrom.sizes)
+CHR1_NT = 248_956_422
+
+
+def _stream_words(device, n: int, b5: bool, seed: int) -> torch.Tensor:
+    """A random stream of ``n`` nt (or a little more) made on the card:
+    2-bit words of random bits, or base-5 words of valid triplets."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if not b5:
+        return torch.randint(-2**31, 2**31, (-(-n // 16),), dtype=torch.int32, device=device,
+                             generator=g).view(torch.uint32)
+    t = torch.randint(0, 125, (-(-n // 27), 9), dtype=torch.int64, device=device, generator=g)
+    return (t << (7 * torch.arange(9, device=device))).sum(1).view(torch.uint32)
+
+
+def _stream_query(words: torch.Tensor, at: int, m: int, b5: bool, edits: int, seed: int) -> bytes:
+    """The stream's ``m`` nt from ``at`` as ASCII, with ``edits``
+    substitutions."""
+    per, unit = (27, 2) if b5 else (16, 1)
+    w0 = at // per * unit
+    codes = K.text_codes(words[w0: w0 + unit * (-(-(at % per + m) // per))].cpu()[None], b5)[0]
+    q = bytearray(b"ACTGN"[c] for c in codes[at % per: at % per + m].tolist())
+    for i in np.random.default_rng(seed).choice(m, min(edits, m), replace=False):
+        q[i] = next(c for c in b"ACGT" if c != q[i])
+    return bytes(q)
+
+
+def _stream_keys(words: torch.Tensor, length: int, query: bytes, b5: bool, plain: bool):
+    """(the stream form's key, the rows' path's key (#19's batch form and
+    the eager reduction it ran before), the plain version's key or None)."""
+    from cute_nucleotides_tpu_torch.ops import align
+
+    peq, m = (align.peq_from_bytes_b5 if b5 else align.peq_from_bytes)(query)
+    if b5:
+        R, prb, Hp = align.stream_rows_plan_b5(words.numel() // 2, m)
+        rows = (R, 2 * prb, 2 * (prb + Hp))
+    else:
+        R, wrb, H = align.stream_rows_plan(words.numel(), m)
+        rows = (R, wrb, wrb + H)
+    got = K.myers_stream_best(peq, m, words, length, *rows, b5=b5)
+    eager = K._stream_key_by_rows(K.myers_scan, peq, m, words, length, *rows, b5)
+    want = K.myers_stream_best_plain(peq, m, words.cpu(), length, *rows, b5=b5) if plain else None
+    return int(got), int(eager), None if want is None else int(want)
+
+
+@pytest.mark.parametrize("m", STREAM_M)
+@pytest.mark.parametrize("b5", (False, True))
+def test_myers_stream_matches_plain_and_the_rows_path(cuda_device, b5, m):
+    """The stream form's key equals the plain version's and that of the
+    rows' path it replaces (#19's batch form over the same rows, then the
+    eager reduction) on short streams of ragged lengths, and the rows'
+    path's on a chr1-length stream (the plain version would take minutes
+    there), each with a near copy of the query; ``best_match_stream(_b5)``
+    reads the same pair."""
+    from cute_nucleotides_tpu_torch.ops import align
+
+    call = align.best_match_stream_b5 if b5 else align.best_match_stream
+    n = 1500 if m > 1000 else 5000
+    words = _stream_words(cuda_device, n, b5, seed=m + b5)
+    query = _stream_query(words, (n - m) // 3, m, b5, edits=m // 10, seed=m)
+    for length in (n, n - 7, 1):
+        got, eager, want = _stream_keys(words, length, query, b5, plain=True)
+        assert got == eager == want, (length, got >> 32, eager >> 32, want >> 32)
+        assert call(words, length, query) == (got >> 32, got & 0xFFFFFFFF)
+    words = _stream_words(cuda_device, CHR1_NT, b5, seed=10 * m + b5)
+    query = _stream_query(words, CHR1_NT - 3 * m - 5, m, b5, edits=m // 8, seed=m + 1)
+    got, eager, _ = _stream_keys(words, CHR1_NT, query, b5, plain=False)
+    assert got == eager and got >> 32 <= m // 8, (got >> 32, eager >> 32)
+    assert call(words, CHR1_NT, query) == (got >> 32, got & 0xFFFFFFFF)
+
+
+def test_myers_stream_launch_counts(cuda_device):
+    """On the stream path each call launches #19's stream form once, counted
+    in both ``myers_stream_best.launches`` and ``myers_scan.launches``, and
+    nothing else; a query past 32 blocks takes the rows' path (the batch
+    form, ``myers_scan`` alone); a Peq on the card is refused."""
+    from cute_nucleotides_tpu_torch.ops import align
+
+    w2 = _stream_words(cuda_device, 100_000, False, seed=1)
+    w5 = _stream_words(cuda_device, 100_000, True, seed=2)
+    K.reset_launch_counts()
+    for _ in range(3):
+        align.best_match_stream(w2, 100_000, b"GATTACAGATTACAGATTNGG")
+        align.best_match_stream_b5(w5, 100_000, b"GATTACAGATTACAGATT?GG")
+    assert K.myers_stream_best.launches == K.myers_scan.launches == 6
+    assert sum(fn.launches for fn in K.WRAPPERS) == 12
+    align.best_match_stream(w2[:200], 3200, _stream_query(w2, 0, 1100, False, edits=0, seed=0))
+    assert K.myers_stream_best.launches == 6 and K.myers_scan.launches == 7
+    peq, m = align.peq_from_bytes(b"GATTACA")
+    with pytest.raises(TypeError, match="host memory"):
+        K.myers_stream_best(torch.from_numpy(peq).to(cuda_device), m, w2, 1000, 100, 1, 2)
+    assert K.myers_stream_best.launches == 6
+
+
+def test_stream_calls_allocate_nothing_on_the_card(cuda_device):
+    """After a thread's first call, ``best_match_stream(_b5)`` reuse its key
+    slot: no allocation on the card a call; ``out=`` on the card is the
+    same key as a new tensor's, in place."""
+    from cute_nucleotides_tpu_torch.ops import align
+
+    w2 = _stream_words(cuda_device, 100_000, False, seed=3)
+    w5 = _stream_words(cuda_device, 100_000, True, seed=4)
+    q2, q5 = _stream_query(w2, 5_000, 23, False, 2, seed=5), _stream_query(w5, 7_000, 23, True, 2, seed=6)
+    first = align.best_match_stream(w2, 100_000, q2), align.best_match_stream_b5(w5, 100_000, q5)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"]
+    for _ in range(5):
+        assert (align.best_match_stream(w2, 100_000, q2), align.best_match_stream_b5(w5, 100_000, q5)) == first
+    assert torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"] == before
+    peq, m = align.peq_from_bytes(q2)
+    R, wrb, H = align.stream_rows_plan(w2.numel(), m)
+    out = torch.empty((), dtype=torch.int64, device=cuda_device)
+    assert K.myers_stream_best(peq, m, w2, 100_000, R, wrb, wrb + H, out=out) is out
+    assert int(out) == int(K.myers_stream_best(peq, m, w2, 100_000, R, wrb, wrb + H))
+    assert (int(out) >> 32, int(out) & 0xFFFFFFFF) == first[0]
 
 
 # --- the base-5 Peq build -----------------------------------------------------------
